@@ -1,0 +1,582 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port's tracking step on one CUDA card.
+
+    python3 chip_smoke.py
+
+Run from the root of the repository, on a machine with one CUDA card,
+nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
+
+  1. prints the card (``nvidia-smi`` name and power limit), the torch and
+     CUDA versions, and sets TF32 off for matmuls and cuDNN;
+  2. builds the CUDA kernels from ``iros20_6d_pose_tracking_tpu_torch/csrc``
+     (``kernels/build.py``) and prints the build time;
+  3. holds each kernel against its plain PyTorch version on the card: the
+     production mesh (a subdiv-4 icosphere decimated to 2048 faces) in a
+     176^2 ROI with the back-face cull on and off, and random cases whose
+     pixel count is no multiple of the pixel tile and whose face count is no
+     multiple of the face block. K1 (``pass1_winners``): winners equal and
+     iz bit-equal. K2 (``gather_rows``): rows bit-equal;
+  4. drives the slice: ``Tracker.from_parts`` with the full-width
+     Se3TrackNet at 176^2 (seeded random weights, randomised BatchNorm
+     statistics, regression heads scaled by 0.05 with zero bias), the
+     production mesh with the cull, 480x640 uint8 RGB and uint16 depth
+     frames.
+     ``on_track`` runs 50 frames and ``track_video`` 100; the poses must be
+     finite, every step's ROI must hold the centre of the observed object,
+     and each kernel's launch count must rise by exactly the number of
+     frames. Then 20 frames on the card
+     against the same 20 frames on the port's plain CPU path: within
+     5e-4 m and 5e-3 rad per frame;
+  5. times K1 and K2 against their plain versions, the parts of one step
+     and the whole step (CUDA events, median of 50), and the steady
+     ``on_track`` and ``track_video`` rates (host clock around work that
+     ends with the pose on the host), and the device's busy share over a
+     ``torch.profiler`` window of 20 frames.
+
+Every timing line carries the card's name and power limit. The line before
+the last is ``{"kernels": [...]}``; the last is
+``{"ok": true, "device": {...}}``, printed only when every phase passed.
+Any failure raises, so the exit code is nonzero.
+"""
+from __future__ import annotations
+
+import copy
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+SEED = 0
+RES = 176
+FRAME_HW = (480, 640)
+# Intrinsics and ROI scale of the production configuration (bench.py).
+K_PROD = np.array([[1066.778, 0, 312.9869], [0, 1067.487, 241.3109],
+                   [0, 0, 1]], np.float32)
+TIMING_RUNS = 50
+# Regression heads scaled down (bias zeroed) so the random-weight tracker
+# moves a little every frame and stays on the object.
+HEAD_SCALE = 0.05
+PORT = "iros20_6d_pose_tracking_tpu_torch"
+# The TPU kernels the CUDA kernels replace, by file and line.
+REPLACES = {
+    "raster_pass1": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:141",
+    "gather_rows": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:299",
+}
+
+
+def production_mesh():
+    """Subdiv-4 icosphere (5120 faces) decimated to 2048 faces, as
+    ``Tracker(max_faces=2048)`` does to a scanned CAD model."""
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+
+    full = M.make_icosphere(subdiv=4, radius=0.05)
+    tm = M.build_trimesh(*M.decimate(full.verts, full.faces[: full.num_faces],
+                                     full.colors, 2048))
+    real = tm.faces[: tm.num_faces]
+    cull = M.is_closed(tm.verts, real) and M.is_outward_oriented(
+        tm.verts, real, tm.normals)
+    return tm, bool(cull)
+
+
+def production_frames():
+    """One 480x640 observed frame (uint8 RGB, uint16 mm depth) of the object
+    at 0.6 m: a grey disk of valid depth on a gradient background."""
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+
+    tm, _ = production_mesh()
+    pose = np.eye(4, dtype=np.float32)
+    pose[2, 3] = 0.6
+    vv, uu = np.mgrid[:FRAME_HW[0], :FRAME_HW[1]].astype(np.float32)
+    cu = K_PROD[0, 2] + K_PROD[0, 0] * pose[0, 3] / pose[2, 3]
+    cv = K_PROD[1, 2] + K_PROD[1, 1] * pose[1, 3] / pose[2, 3]
+    rad_px = float(M.compute_cloud_diameter(tm.verts)) / 2 * K_PROD[0, 0] \
+        / pose[2, 3]
+    disk = ((uu - cu) ** 2 + (vv - cv) ** 2) < rad_px ** 2
+    rgb = np.zeros(FRAME_HW + (3,), np.uint8)
+    rgb[..., 0] = (uu / FRAME_HW[1] * 80).astype(np.uint8)
+    rgb[disk] = 128
+    depth = np.where(disk, np.uint16(600), np.uint16(0))
+    return pose, rgb, depth
+
+
+def build_model(seed):
+    """Full-width Se3TrackNet with seeded random weights, BatchNorm
+    statistics randomised and the regression heads scaled by HEAD_SCALE,
+    on the CPU in eval mode."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = tracknet.Se3TrackNet(image_size=RES)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+        for head in (net.trans_out, net.rot_out):
+            head[0].weight.mul_(HEAD_SCALE)
+            head[0].bias.zero_()
+    return net.eval()
+
+
+def make_tracker(net, device):
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    tm, cull = production_mesh()
+    cfg = trk.TrackerConfig(
+        resolution=RES, object_width_mm=float(tm.diameter) * 1000 * 1.1,
+        cull_backfaces=cull)
+    return trk.Tracker.from_parts(
+        copy.deepcopy(net).to(device), cfg, rz.upload(tm, device), K_PROD,
+        np.zeros(8, np.float32), np.full(8, 100.0, np.float32))
+
+
+def pass1_case(tracker, pose, cull):
+    """K1 and K2 inputs of one production render: (coef, block_bbox,
+    face_block, attr_coef) with or without the cull."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    pose = torch.as_tensor(pose).to(tracker.device)
+    bbox = roi.compute_bbox(pose, tracker.K, tracker.cfg.object_width_mm,
+                            (1000.0, 1000.0, 1000.0))
+    fx, fy, fiz, fvalid, R, t = rz._project(
+        tracker.mesh, pose, tracker.K, rz.window_from_bbox(bbox), (RES, RES),
+        tracker.cfg.near)
+    attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, tracker.mesh)
+    if cull:
+        return rz.culled_pass1_inputs(tracker.mesh, fx, fy, fiz, fvalid, R,
+                                      t, attr)
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = rz.pick_face_block(fx.shape[0])
+    return coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb, attr
+
+
+def fuzz_case(rng, F, hw, fb, device):
+    """Random triangles over (and past) an (H, W) window, F faces."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    H, W = hw
+    cx = rng.uniform(-10, W + 10, (F, 1))
+    cy = rng.uniform(-10, H + 10, (F, 1))
+    size = rng.uniform(1.0, 25.0, (F, 1))
+    fx = torch.as_tensor(cx + rng.uniform(-1, 1, (F, 3)) * size,
+                         dtype=torch.float32).to(device)
+    fy = torch.as_tensor(cy + rng.uniform(-1, 1, (F, 3)) * size,
+                         dtype=torch.float32).to(device)
+    fiz = torch.as_tensor(rng.uniform(0.5, 3.0, (F, 3)),
+                          dtype=torch.float32).to(device)
+    fvalid = torch.as_tensor(rng.rand(F) > 0.05).to(device)
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    return coef, rk.build_block_bboxes(fx, fy, fvalid, fb)
+
+
+def check_pass1(name, coef, bbox, hw, fb):
+    """K1 against its plain version: winners equal, iz bit-equal. Returns
+    (max |iz difference|, iz, winner) of the kernel."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    iz, win = rk.pass1_winners(coef, bbox, hw, fb)
+    iz_ref, win_ref = rk.pass1_winners_ref(coef, bbox, hw, fb)
+    n_win = int((win != win_ref).sum())
+    n_bits = int((iz.view(torch.int32) != iz_ref.view(torch.int32)).sum())
+    err = float((iz - iz_ref).abs().max())
+    covered = int((iz > 0).sum())
+    print(f"K1 {name}: F={coef.shape[1]} fb={fb} hw={hw} covered={covered} "
+          f"winner mismatches={n_win} iz bit mismatches={n_bits} "
+          f"max|d iz|={err}", flush=True)
+    if n_win or n_bits:
+        raise AssertionError(f"K1 disagrees with its plain version ({name})")
+    if covered == 0:
+        raise AssertionError(f"K1 case {name} covers no pixel")
+    return err, iz, win
+
+
+def check_gather(name, attr, winner, covered):
+    """K2 against its plain version: rows bit-equal. Returns the max
+    |row difference|."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    rows = rk.gather_rows(attr, winner, covered)
+    ref = rk.gather_rows_ref(attr, winner, covered)
+    n_bits = int((rows.view(torch.int32) != ref.view(torch.int32)).sum())
+    err = float((rows - ref).abs().max())
+    print(f"K2 {name}: F={attr.shape[0]} C={attr.shape[1]} "
+          f"P={winner.shape[0]} covered={int(covered.sum())} "
+          f"bit mismatches={n_bits} max|d row|={err}", flush=True)
+    if n_bits:
+        raise AssertionError(f"K2 disagrees with its plain version ({name})")
+    return err
+
+
+def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
+    """Median milliseconds of ``fn`` over ``runs`` calls, each between two
+    CUDA events on the current stream."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return float(np.median(times))
+
+
+def rot_angle(Ra, Rb):
+    """Angle (rad) of Ra^T Rb from its skew part, which keeps small angles
+    exact where the trace form's arccos has a float32 floor of ~1e-3."""
+    R = Ra.astype(np.float64).T @ Rb.astype(np.float64)
+    w = np.array([R[2, 1] - R[1, 2], R[0, 2] - R[2, 0], R[1, 0] - R[0, 1]])
+    return float(np.arcsin(min(np.linalg.norm(w) / 2.0, 1.0)))
+
+
+def profile_share(fn, top=8):
+    """Device busy share of one call of ``fn`` under torch.profiler: summed
+    kernel and copy time on the card over the wall time of the window, the
+    number of device operations, and those that took most of the time.
+    Returns None when the profiler saw no device activity."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    if not rows:
+        return None
+    busy_us = sum(r[1] for r in rows)
+    n_ops = sum(r[2] for r in rows)
+    return busy_us, wall_us, n_ops, sorted(rows, key=lambda r: -r[1])[:top]
+
+
+def check_kernels(tracker, pose0):
+    """Phase 3: each kernel against its plain version on the production
+    inputs (cull off and on) and on random ragged cases. Returns the max
+    error per kernel and the production inputs of both cull settings."""
+    import torch
+
+    dev = tracker.device
+    errs = {"raster_pass1": 0.0, "gather_rows": 0.0}
+    prod = {}
+    for cull in (False, True):
+        coef, bbox, fb, attr = pass1_case(tracker, pose0, cull)
+        err, iz, win = check_pass1(f"production cull={cull}", coef, bbox,
+                                   (RES, RES), fb)
+        errs["raster_pass1"] = max(errs["raster_pass1"], err)
+        winner = torch.clamp(win, 0, coef.shape[1] - 1).reshape(-1)
+        covered = (iz > 1e-9).reshape(-1)
+        errs["gather_rows"] = max(errs["gather_rows"], check_gather(
+            f"production cull={cull}", attr, winner, covered))
+        prod[cull] = (coef, bbox, fb, attr, winner, covered)
+    rng = np.random.RandomState(SEED)
+    for F, hw, fb in ((700, (37, 53), 256), (1500, (131, 97), 512),
+                      (3000, (57, 203), 1024), (2048, (RES, RES), 1024)):
+        coef, bbox = fuzz_case(rng, F, hw, fb, dev)
+        err, _, _ = check_pass1("fuzz", coef, bbox, hw, fb)
+        errs["raster_pass1"] = max(errs["raster_pass1"], err)
+    for F, C, P in ((1280, 36, 7013), (2048, 30, RES * RES + 5)):
+        attr = torch.as_tensor(rng.randn(F, C) * 100,
+                               dtype=torch.float32).to(dev)
+        winner = torch.as_tensor(rng.randint(0, F, P),
+                                 dtype=torch.int32).to(dev)
+        covered = torch.as_tensor(rng.rand(P) > 0.3).to(dev)
+        errs["gather_rows"] = max(errs["gather_rows"], check_gather(
+            "fuzz", attr, winner, covered))
+    return errs, prod
+
+
+def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
+    """Phase 4, the main path: ``on_track`` over ``n_on`` frames, then
+    ``track_video`` over ``n_video`` frames from the same start, each timed
+    on the host clock with the poses on the host at the end. The kernels'
+    launch counts are zeroed just before and read just after. Returns
+    (launches, on_track poses, track_video poses, on_s, video_s)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev = tracker.device
+    frames_rgb = trk.upload_rgb(np.stack([rgb] * n_video), dev)
+    frames_depth = trk.upload_depth(np.stack([depth] * n_video), dev)
+    for _ in range(3):  # warm-up: cuDNN algorithm choice, allocator
+        tracker.on_track(pose0, rgb, depth)
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    rk.pass1_winners.launches = 0
+    rk.gather_rows.launches = 0
+    pose, on_poses = pose0, []
+    t0 = time.perf_counter()
+    for _ in range(n_on):
+        pose = tracker.on_track(pose, rgb, depth)
+        on_poses.append(pose)
+    on_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    video = trk.track_video(
+        tracker.model, tracker.cfg, tracker.mesh, tracker.K, tracker.mean,
+        tracker.std, torch.as_tensor(pose0).to(dev), frames_rgb,
+        frames_depth).cpu().numpy()
+    video_s = time.perf_counter() - t0
+    launches = {"raster_pass1": rk.pass1_winners.launches,
+                "gather_rows": rk.gather_rows.launches}
+    return launches, np.stack(on_poses), video, on_s, video_s
+
+
+def check_on_object(runs, pose0, width_mm):
+    """Every run's poses are finite and every step stays on the object:
+    the ROI it crops and renders (the bbox of the pose it starts from) holds
+    the centre of the observed object, which sits at ``pose0``. Prints each
+    run's drift from the start and the smallest margin of that centre to
+    the ROI's edge, as a share of the ROI's half-width, before it raises."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+
+    c = K_PROD @ pose0[:3, 3]
+    u0, v0 = c[0] / c[2], c[1] / c[2]
+    K = torch.as_tensor(K_PROD)
+    bad = []
+    for name, poses in runs.items():
+        drift = np.linalg.norm(poses[:, :3, 3] - pose0[:3, 3], axis=1)
+        margin = 1.0
+        for prev in np.concatenate([pose0[None], poses[:-1]]):
+            b = roi.compute_bbox(torch.as_tensor(prev), K, width_mm,
+                                 (1000.0, 1000.0, 1000.0)).numpy()
+            (top, left), (bottom, right) = b.min(0), b.max(0)
+            half_u, half_v = (right - left) / 2, (bottom - top) / 2
+            margin = min(margin, (half_u - abs(u0 - (left + right) / 2))
+                         / half_u, (half_v - abs(v0 - (top + bottom) / 2))
+                         / half_v)
+        print(f"{name}: {len(poses)} poses, finite="
+              f"{np.isfinite(poses).all()}, max drift from the start "
+              f"{drift.max() * 1000:.3f} mm, object centre inside every ROI "
+              f"with a margin of at least {margin:.3f} of its half-width, "
+              f"last t={poses[-1, :3, 3].tolist()}", flush=True)
+        if not np.isfinite(poses).all() or margin < 0:
+            bad.append(name)
+    if bad:
+        raise AssertionError(f"{bad}: poses not finite, or a step's ROI "
+                             "lost the object")
+
+
+def compare_with_cpu(net, tracker, pose0, rgb, depth, n):
+    """The same ``n`` frames through ``track_video`` on the card and on the
+    port's plain CPU path: within 5e-4 m and 5e-3 rad per frame."""
+    t0 = time.perf_counter()
+    gpu = tracker.track_video(pose0, np.stack([rgb] * n),
+                              np.stack([depth] * n))
+    cpu = make_tracker(net, "cpu").track_video(
+        pose0, np.stack([rgb] * n), np.stack([depth] * n))
+    dt = float(np.abs(gpu[:, :3, 3] - cpu[:, :3, 3]).max())
+    dr = max(rot_angle(g[:3, :3], c[:3, :3]) for g, c in zip(gpu, cpu))
+    print(f"card vs plain CPU path, {n} frames: max |dt| {dt:.3e} m, max "
+          f"rotation {dr:.3e} rad ({time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if dt > 5e-4 or dr > 5e-3:
+        raise AssertionError("card and CPU trajectories disagree")
+
+
+def step_parts(tracker, pose0, rgb, depth, prod_case):
+    """Callables for the parts of one production step, on its inputs:
+    crop + normalize, pass 1 (K1), pass 2 (K2 gather + shading), the whole
+    render, the CNN and the whole step."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    t, cfg, dev = tracker, tracker.cfg, tracker.device
+    coef, bbox, fb, attr, winner, covered = prod_case
+    pose = torch.as_tensor(pose0).to(dev)
+    rgb_t, depth_t = trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev)
+    _, aux = trk.track_step(t.model, cfg, t.mesh, t.K, t.mean, t.std, pose,
+                            rgb_t, depth_t)
+    bufA, bufB = trk.normalize_pair(aux["rgbA"], aux["depthA"], aux["rgbB"],
+                                    aux["depthB"], pose, t.mean, t.std)
+    window = rz.window_from_bbox(roi.compute_bbox(
+        pose, t.K, cfg.object_width_mm, (1000.0, 1000.0, 1000.0)))
+
+    def crop_normalize():
+        bbox = roi.compute_bbox(pose, t.K, cfg.object_width_mm,
+                                (1000.0, 1000.0, 1000.0))
+        rgbB, depthB = roi.crop_bbox(rgb_t, depth_t, bbox, (RES, RES))
+        return trk.normalize_pair(aux["rgbA"], aux["depthA"], rgbB.float(),
+                                  depthB.float(), pose, t.mean, t.std)
+
+    def pass2():
+        rows = rk.gather_rows(attr, winner, covered)
+        return rz.shade_rows(pose[:3, :3], pose[:3, 3], rows, covered,
+                             (RES, RES))
+
+    @torch.no_grad()
+    def cnn():
+        return t.model(bufA[None], bufB[None])
+
+    return {
+        "crop_normalize": crop_normalize,
+        "pass1": lambda: rk.pass1_winners(coef, bbox, (RES, RES), fb),
+        "pass2": pass2,
+        "render": lambda: rz.render(
+            t.mesh, pose, t.K, window, out_hw=(RES, RES),
+            cull_backfaces=cfg.cull_backfaces),
+        "cnn": cnn,
+        "step": lambda: trk.track_step(t.model, cfg, t.mesh, t.K, t.mean,
+                                       t.std, pose, rgb_t, depth_t),
+    }
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is False; this run "
+              "needs a CUDA card", file=sys.stderr)
+        return 1
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.kernels import build as kbuild
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    # 1. The card.
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    print(smi)
+    card = f"[{smi}]"
+    dev = torch.device("cuda", 0)
+    se3.pin_full_fp32()
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device "
+          f"{torch.cuda.get_device_name(0)}, count "
+          f"{torch.cuda.device_count()}, python {sys.version.split()[0]}")
+    print(f"TF32 off: torch.backends.cuda.matmul.allow_tf32="
+          f"{torch.backends.cuda.matmul.allow_tf32}, "
+          f"torch.backends.cudnn.allow_tf32="
+          f"{torch.backends.cudnn.allow_tf32}", flush=True)
+    if torch.backends.cuda.matmul.allow_tf32 or \
+            torch.backends.cudnn.allow_tf32:
+        raise AssertionError("TF32 is still on")
+
+    # 2. Build the kernels from the sources in the checkout.
+    for name in ("raster_pass1", "gather_rows"):
+        t0 = time.perf_counter()
+        path, log = kbuild.build(name)
+        kbuild.load(name)
+        print(f"built csrc/{name}.cu in {time.perf_counter() - t0:.2f} s "
+              f"-> {path}")
+        for line in log.splitlines():
+            if "registers" in line or "bytes stack" in line:
+                print(f"  ptxas: {line.strip()}")
+    sys.stdout.flush()
+
+    # 3. Each kernel against its plain version, on the card.
+    net = build_model(SEED)
+    tracker = make_tracker(net, dev)
+    pose0, rgb, depth = production_frames()
+    errs, prod = check_kernels(tracker, pose0)
+
+    # 4. The slice through the entry points a user calls.
+    print(f"slice: Se3TrackNet full width at {RES}^2, "
+          f"{int(tracker.mesh.fmask.sum())} faces (padded "
+          f"{tracker.mesh.fmask.shape[0]}), cull={tracker.cfg.cull_backfaces}"
+          f", heads x{HEAD_SCALE}, {FRAME_HW[0]}x{FRAME_HW[1]} uint8 RGB + "
+          f"uint16 depth frames", flush=True)
+    n_on, n_video = 50, 100
+    launches, on_poses, video, on_s, video_s = run_slice(
+        tracker, pose0, rgb, depth, n_on, n_video)
+    print(f"launches in the main path ({n_on} on_track + {n_video} "
+          f"track_video frames): {launches}", flush=True)
+    if set(launches.values()) != {n_on + n_video}:
+        raise AssertionError(f"launch counts {launches} != {n_on + n_video}")
+    check_on_object({"on_track": on_poses, "track_video": video}, pose0,
+                    tracker.cfg.object_width_mm)
+    compare_with_cpu(net, tracker, pose0, rgb, depth, 20)
+
+    # 5. Timings.
+    cull = tracker.cfg.cull_backfaces
+    coef, bbox, fb, attr, winner, covered = prod[cull]
+    ms = {"raster_pass1": cuda_ms(
+              lambda: rk.pass1_winners(coef, bbox, (RES, RES), fb)),
+          "gather_rows": cuda_ms(
+              lambda: rk.gather_rows(attr, winner, covered))}
+    plain_ms = {"raster_pass1": cuda_ms(
+                    lambda: rk.pass1_winners_ref(coef, bbox, (RES, RES), fb)),
+                "gather_rows": cuda_ms(
+                    lambda: rk.gather_rows_ref(attr, winner, covered))}
+    for name in ms:
+        print(f"timing kernel {name}: {ms[name]:.4f} ms, plain version "
+              f"{plain_ms[name]:.4f} ms (production inputs, cull={cull}, "
+              f"median of {TIMING_RUNS}) {card}")
+    coef_nc, bbox_nc, fb_nc = prod[False][:3]
+    nc_ms = cuda_ms(lambda: rk.pass1_winners(coef_nc, bbox_nc, (RES, RES),
+                                             fb_nc))
+    print(f"timing kernel raster_pass1 without the cull: {nc_ms:.4f} ms "
+          f"{card}")
+    for name, fn in step_parts(tracker, pose0, rgb, depth,
+                               prod[cull]).items():
+        print(f"timing step part {name}: {cuda_ms(fn):.4f} ms (median of "
+              f"{TIMING_RUNS}) {card}")
+    n_prof = 20
+    prof = profile_share(lambda: tracker.track_video(
+        pose0, np.stack([rgb] * n_prof), np.stack([depth] * n_prof)))
+    if prof is None:
+        print("profile: torch.profiler recorded no device time; device busy "
+              "share not measured")
+    else:
+        busy_us, wall_us, n_ops, rows = prof
+        print(f"profile: Tracker.track_video over {n_prof} frames: device "
+              f"busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}%), {n_ops} device operations"
+              f" {card}")
+        for key, us, count in rows:
+            print(f"profile:   {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    print(f"timing on_track: {n_on / on_s:.2f} Hz ({n_on} frames, pose "
+          f"fetched to the host every frame) {card}")
+    print(f"timing track_video: {n_video / video_s:.2f} Hz ({n_video} "
+          f"frames, poses fetched at the end) {card}", flush=True)
+
+    kernels = [
+        {"name": name, "route": "cuda",
+         "source": f"{PORT}/csrc/{name}.cu", "replaces": REPLACES[name],
+         "launches": launches[name], "max_abs_err": errs[name],
+         "ms": ms[name], "plain_ms": plain_ms[name]}
+        for name in REPLACES]
+    print(json.dumps({"kernels": kernels}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

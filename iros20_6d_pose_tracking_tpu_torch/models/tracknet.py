@@ -1,0 +1,121 @@
+"""Se3TrackNet as a PyTorch ``nn.Module``.
+
+Counterpart of ``iros20_6d_pose_tracking_tpu/models/tracknet.py``, with the
+reference's architecture and quirks (reference se3_tracknet.py:52-121,
+network_modules.py:49-120):
+
+  - "ConvBNReLU" is Conv + BatchNorm + SELU;
+  - the residual blocks use ReLU and biased 3x3 convolutions;
+  - branch A has one post-stem residual block, branch B two;
+  - the fusion trunk has a single 256-channel residual block;
+  - two heads: ConvBNSELU(256 -> 512, s2) + ResBlock(512) + global average
+    pool + Linear(512 -> 3) + tanh.
+
+Parameter names are the reference's state_dict keys (``convA1.0.weight``,
+``convA2.bn1.running_var``, ``trans_out.0.bias``, ...), so reference
+``.pth.tar`` checkpoints load with ``strict=True``; Flax variables of the
+JAX model come across through :func:`.convert.state_dict_from_jax`.
+BatchNorm uses eps 1e-5 and momentum 0.1 (Flax's momentum 0.9).
+
+The public ``forward(A, B)`` takes NHWC ``(N, H, W, 4)`` like the JAX model
+and returns ``{"feature" (N, H/8, W/8, 256) NHWC, "trans" (N, 3),
+"rot" (N, 3)}``; inside, the convolutions run NCHW. float32 only for now.
+"""
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+
+class ConvBNSELU(nn.Sequential):
+    """Conv(k, s, symmetric (k-1)//2 pad, bias) + BatchNorm + SELU
+    (reference network_modules.py:59-66)."""
+
+    def __init__(self, cin: int, cout: int, kernel_size: int = 3,
+                 stride: int = 1):
+        p = (kernel_size - 1) // 2
+        super().__init__(
+            nn.Conv2d(cin, cout, kernel_size, stride, p, bias=True),
+            nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1),
+            nn.SELU(),
+        )
+
+
+class ResnetBasicBlock(nn.Module):
+    """conv3x3-BN-ReLU-conv3x3-BN + identity, ReLU (stride 1, no
+    downsample; reference network_modules.py:86-120)."""
+
+    def __init__(self, ch: int):
+        super().__init__()
+        self.conv1 = nn.Conv2d(ch, ch, 3, 1, 1, bias=True)
+        self.bn1 = nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+        self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=True)
+        self.bn2 = nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+
+    def forward(self, x):
+        y = torch.relu(self.bn1(self.conv1(x)))
+        y = self.bn2(self.conv2(y))
+        return torch.relu(y + x)
+
+
+class Se3TrackNet(nn.Module):
+    """Two-branch relative-pose regressor (reference se3_tracknet.py:52-112).
+
+    ``image_size`` is kept for parity with the JAX model's signature; the
+    network is fully convolutional up to the global pool."""
+
+    def __init__(self, image_size: int = 176):
+        super().__init__()
+        self.image_size = image_size
+        self.convA1 = ConvBNSELU(4, 64, 7, 2)
+        self.convA2 = ResnetBasicBlock(64)
+        self.convB1 = ConvBNSELU(4, 64, 7, 2)
+        self.convB2 = ResnetBasicBlock(64)
+        self.convB3 = ResnetBasicBlock(64)
+        self.convAB1 = ConvBNSELU(128, 256, 3, 2)
+        self.convAB2 = ResnetBasicBlock(256)
+        self.trans_conv1 = ConvBNSELU(256, 512, 3, 2)
+        self.trans_conv2 = ResnetBasicBlock(512)
+        self.trans_out = nn.Sequential(nn.Linear(512, 3), nn.Tanh())
+        self.rot_conv1 = ConvBNSELU(256, 512, 3, 2)
+        self.rot_conv2 = ResnetBasicBlock(512)
+        self.rot_out = nn.Sequential(nn.Linear(512, 3), nn.Tanh())
+
+    def forward(self, A: torch.Tensor, B: torch.Tensor) -> dict:
+        A = A.to(torch.float32).permute(0, 3, 1, 2)
+        B = B.to(torch.float32).permute(0, 3, 1, 2)
+        pool = nn.functional.max_pool2d
+        a = self.convA2(pool(self.convA1(A), 3, 2, 1))
+        b = self.convB3(self.convB2(pool(self.convB1(B), 3, 2, 1)))
+        ab = self.convAB2(self.convAB1(torch.cat([a, b], dim=1)))
+        t = self.trans_conv2(self.trans_conv1(ab)).mean(dim=(2, 3))
+        r = self.rot_conv2(self.rot_conv1(ab)).mean(dim=(2, 3))
+        return {
+            "feature": ab.permute(0, 2, 3, 1),
+            "trans": self.trans_out(t),
+            "rot": self.rot_out(r),
+        }
+
+
+def loss_fn(pred_trans, pred_rot, target_trans, target_rot,
+            trans_weight: float = 1.0, rot_weight: float = 1.0,
+            sample_weight=None):
+    """MSE(trans) + MSE(rot) (reference se3_tracknet.py:114-121), weighted
+    per reference problems.py:91. ``sample_weight`` (N,) turns the means
+    over samples into weighted means. Returns (total, {"trans", "rot"})."""
+    se_t = torch.mean((pred_trans.float() - target_trans) ** 2, dim=-1)
+    se_r = torch.mean((pred_rot.float() - target_rot) ** 2, dim=-1)
+    if sample_weight is None:
+        trans_loss = se_t.mean()
+        rot_loss = se_r.mean()
+    else:
+        w = sample_weight.float()
+        denom = torch.clamp(w.sum(), min=1.0)
+        trans_loss = (se_t * w).sum() / denom
+        rot_loss = (se_r * w).sum() / denom
+    total = trans_weight * trans_loss + rot_weight * rot_loss
+    return total, {"trans": trans_loss, "rot": rot_loss}
+
+
+def create_model(image_size: int = 176) -> Se3TrackNet:
+    return Se3TrackNet(image_size=image_size)

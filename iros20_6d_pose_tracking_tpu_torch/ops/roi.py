@@ -1,0 +1,84 @@
+"""Pose-conditioned ROI and the nearest crop-resize, in PyTorch.
+
+Counterpart of ``iros20_6d_pose_tracking_tpu/ops/roi.py``. The crop uses
+the exact integer floor ``src = top + (d * crop) // out`` of cv2
+INTER_NEAREST, never ``F.interpolate`` (whose float scale picks other
+source pixels), and zero-pads source pixels outside the image.
+
+Depth frames arrive as uint16 millimetres. PyTorch implements few ops on
+uint16 (indexing and ``where`` among the missing ones on CUDA), so the
+tracker widens depth to int32 at upload; every op here then runs on
+int32, uint8 or float32, and the crop stays bit-exact.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
+                 scale_size: float | torch.Tensor,
+                 scale: tuple[float, float, float] = (1.0, 1.0, 1.0),
+                 ) -> torch.Tensor:
+    """Square ``scale_size`` window centred on the projected object origin,
+    as a (4, 2) int32 tensor of (v, u) = (row, col) corners. ``scale``
+    multiplies the pose translation ((1000, 1000, 1000) for metres -> mm).
+    ``torch.round`` rounds half to even, like ``jnp.round``."""
+    # Constants come from device kernels, not torch.tensor(): a copy from
+    # pageable host memory would make the host wait for the stream.
+    obj = [pose[i, 3] * scale[i] for i in range(3)]
+    offset = scale_size / 2.0
+    corner = torch.arange(4, device=pose.device)
+    dx = torch.where(corner >= 2, 1.0, -1.0) * offset  # [-1, -1, 1, 1]
+    dy = torch.where(corner % 2 == 1, 1.0, -1.0) * offset  # [-1, 1, -1, 1]
+    xs = obj[0] + dx
+    ys = obj[1] + dy
+    zs = obj[2].expand(xs.shape)
+    us = xs * K[0, 0] / zs + K[0, 2]
+    vs = ys * K[1, 1] / zs + K[1, 2]
+    return torch.round(torch.stack([vs, us], dim=-1)).to(torch.int32)
+
+
+def bbox_window(bbox: torch.Tensor):
+    """(left, right, top, bottom) int scalars from a (4, 2) (v, u) bbox."""
+    return (bbox[:, 1].min(), bbox[:, 1].max(),
+            bbox[:, 0].min(), bbox[:, 0].max())
+
+
+def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
+                        left: torch.Tensor, crop_h: torch.Tensor,
+                        crop_w: torch.Tensor, out_hw: tuple[int, int],
+                        ) -> torch.Tensor:
+    """Nearest resample of ``img[top:top+crop_h, left:left+crop_w]`` to
+    ``out_hw``; out-of-image source pixels read as 0. ``img`` is (H, W) or
+    (H, W, C); the bbox arguments are int tensors on ``img``'s device."""
+    H_out, W_out = out_hw
+    h, w = img.shape[0], img.shape[1]
+    dev = img.device
+    oi = torch.arange(H_out, dtype=torch.int32, device=dev)
+    oj = torch.arange(W_out, dtype=torch.int32, device=dev)
+    src_r = top.to(torch.int32) + (oi * crop_h.to(torch.int32)) // H_out
+    src_c = left.to(torch.int32) + (oj * crop_w.to(torch.int32)) // W_out
+    valid_r = (src_r >= 0) & (src_r < h)
+    valid_c = (src_c >= 0) & (src_c < w)
+    rr = src_r.clamp(0, h - 1)
+    cc = src_c.clamp(0, w - 1)
+    out = img.index_select(0, rr).index_select(1, cc)
+    mask = valid_r[:, None] & valid_c[None, :]
+    if img.ndim == 3:
+        mask = mask[..., None]
+    return torch.where(mask, out, torch.zeros((), dtype=img.dtype, device=dev))
+
+
+def crop_bbox(color: torch.Tensor, depth: torch.Tensor, bbox: torch.Tensor,
+              output_size: tuple[int, int]):
+    """Crop + nearest-resize color and depth to the bbox window.
+    ``output_size`` is (W, H), the cv2 convention of the reference."""
+    W_out, H_out = output_size
+    left, right, top, bottom = bbox_window(bbox)
+    crop_h = bottom - top
+    crop_w = right - left
+    out_c = crop_resize_nearest(color, top, left, crop_h, crop_w,
+                                (H_out, W_out))
+    out_d = crop_resize_nearest(depth, top, left, crop_h, crop_w,
+                                (H_out, W_out))
+    return out_c, out_d

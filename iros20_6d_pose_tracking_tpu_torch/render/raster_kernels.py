@@ -1,0 +1,286 @@
+"""Pass-1 and pass-2 raster kernels: wrappers and their plain versions.
+
+Counterpart of ``iros20_6d_pose_tracking_tpu/render/pallas_raster.py``:
+
+  - the per-face builders (``build_face_coefficients``,
+    ``build_face_bboxes``, ``reduce_block_bboxes``, ``build_block_bboxes``)
+    with the same (12, F) row layout ``ROW_*``;
+  - :func:`pass1_winners`, the z-buffer winner search (the TPU kernel
+    ``_kernel`` / ``pallas_pass1``), CUDA source ``csrc/raster_pass1.cu``;
+  - :func:`gather_rows`, the pass-2 row gather (the TPU kernel
+    ``_gather_kernel`` / ``pallas_gather_rows``), CUDA source
+    ``csrc/gather_rows.cu``.
+
+``split_f32_to_bf16_terms`` is not ported: the TPU kernel gathers rows
+with one-hot bf16 matmuls and needs the 3-term split to stay exact, while
+Hopper loads the rows directly. The work-list pass 1 (``_wl_kernel``) is
+still to be ported (ROADMAP.md, K3).
+
+Each wrapper runs its plain version (``*_ref``, beside it) when its tensors
+lie on the CPU, and launches its CUDA kernel when they lie on a CUDA
+device; anything else raises. Each counts its kernel launches in a plain
+integer attribute (``pass1_winners.launches``, ``gather_rows.launches``).
+"""
+from __future__ import annotations
+
+import torch
+
+from ..kernels import build as kbuild
+
+# Coefficient row layout in the (12, F) matrix.
+ROW_A0, ROW_B0, ROW_C0 = 0, 1, 2
+ROW_A1, ROW_B1, ROW_C1 = 3, 4, 5
+ROW_A2, ROW_B2, ROW_C2 = 6, 7, 8
+ROW_AW, ROW_BW, ROW_CW = 9, 10, 11
+
+# Pixels per tile of pass 1: one CUDA thread block, and the row range of
+# the block-bbox skip test. The TPU kernel's tile is 512 (DEF_PIX_TILE).
+PIX_TILE = 128
+
+_BIG = 3.0e8
+
+
+def build_face_coefficients(fx, fy, fiz, fvalid):
+    """Per-face linear-form coefficients (12, F), sign-folded, invalid faces
+    poisoned to never-covered (0, 0, -1). Returns (coef, ok).
+
+    fx, fy: (F, 3) screen coords of the triangle corners; fiz: (F, 3)
+    per-corner 1/z; fvalid: (F,) bool."""
+    x0, x1, x2 = fx[:, 0], fx[:, 1], fx[:, 2]
+    y0, y1, y2 = fy[:, 0], fy[:, 1], fy[:, 2]
+    a0, b0, c0 = y1 - y2, x2 - x1, x1 * y2 - x2 * y1
+    a1, b1, c1 = y2 - y0, x0 - x2, x2 * y0 - x0 * y2
+    a2, b2, c2 = y0 - y1, x1 - x0, x0 * y1 - x1 * y0
+    area = a0 * x0 + b0 * y0 + c0
+    ok = fvalid & (torch.abs(area) > 1e-4)
+    s = torch.where(area >= 0, 1.0, -1.0)
+    inv_area = torch.where(ok, 1.0 / torch.where(ok, area, 1.0), 0.0)
+    w0, w1, w2 = fiz[:, 0] * inv_area, fiz[:, 1] * inv_area, fiz[:, 2] * inv_area
+    aw = a0 * w0 + a1 * w1 + a2 * w2
+    bw = b0 * w0 + b1 * w1 + b2 * w2
+    cw = c0 * w0 + c1 * w1 + c2 * w2
+
+    def fold(v):
+        return torch.where(ok, v * s, 0.0)
+
+    def fold_c(v):
+        return torch.where(ok, v * s, -1.0)
+
+    coef = torch.stack([
+        fold(a0), fold(b0), fold_c(c0),
+        fold(a1), fold(b1), fold_c(c1),
+        fold(a2), fold(b2), fold_c(c2),
+        torch.where(ok, aw, 0.0), torch.where(ok, bw, 0.0),
+        torch.where(ok, cw, 0.0),
+    ], dim=0)
+    return coef.to(torch.float32), ok
+
+
+def build_face_bboxes(fx, fy, fvalid):
+    """Per-face screen bbox (F, 4): [xmin, xmax, ymin, ymax]; invalid faces
+    get an empty bbox (xmin > xmax)."""
+    v = fvalid[:, None]
+    xmin = torch.where(v, fx, _BIG).amin(dim=1)
+    ymin = torch.where(v, fy, _BIG).amin(dim=1)
+    xmax = torch.where(v, fx, -_BIG).amax(dim=1)
+    ymax = torch.where(v, fy, -_BIG).amax(dim=1)
+    return torch.stack([xmin, xmax, ymin, ymax], dim=1).to(torch.float32)
+
+
+def reduce_block_bboxes(face_bbox, face_block: int):
+    """Union per-face bboxes into per-face-block bboxes (F / face_block, 4).
+    ``face_bbox.shape[0]`` must be a multiple of ``face_block``."""
+    F = face_bbox.shape[0]
+    if F % face_block:
+        raise ValueError(f"{F} faces is not a multiple of {face_block}")
+    r = face_bbox.reshape(F // face_block, face_block, 4)
+    return torch.stack([r[..., 0].amin(dim=1), r[..., 1].amax(dim=1),
+                        r[..., 2].amin(dim=1), r[..., 3].amax(dim=1)], dim=1)
+
+
+def build_block_bboxes(fx, fy, fvalid, face_block: int):
+    """Per-face-block screen bbox (ceil(F / face_block), 4); a trailing
+    partial block is padded with empty faces, and blocks without valid
+    faces get an empty bbox (xmin > xmax)."""
+    F = fx.shape[0]
+    pad = -F % face_block
+    if pad:
+        fx = torch.cat([fx, fx.new_zeros((pad, 3))])
+        fy = torch.cat([fy, fy.new_zeros((pad, 3))])
+        fvalid = torch.cat([fvalid, fvalid.new_zeros((pad,))])
+    return reduce_block_bboxes(build_face_bboxes(fx, fy, fvalid), face_block)
+
+
+def _check_cuda(*named):
+    """Every (name, tensor, dtype) must be a contiguous tensor of that dtype
+    on one CUDA device."""
+    dev = named[0][1].device
+    for name, t, dtype in named:
+        if t.device.type != "cuda" or t.device != dev:
+            raise ValueError(
+                f"{name} is on {t.device}: the kernel takes tensors on one "
+                f"CUDA device (first on {dev}); the plain version takes them "
+                "all on the CPU")
+        if t.dtype != dtype or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {dtype} tensor, "
+                             f"got {t.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# K1: pass-1 winner search.
+# ---------------------------------------------------------------------------
+
+def _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile):
+    H, W = hw
+    if coef.dim() != 2 or coef.shape[0] != 12:
+        raise ValueError(f"coef must be (12, F), got {tuple(coef.shape)}")
+    if face_block <= 0 or face_block & (face_block - 1):
+        raise ValueError(f"face_block must be a power of two, got {face_block}")
+    n_blocks = -(-coef.shape[1] // face_block)
+    if tuple(block_bbox.shape) != (n_blocks, 4):
+        raise ValueError(f"block_bbox must be ({n_blocks}, 4), got "
+                         f"{tuple(block_bbox.shape)}")
+    if pix_tile % 32 or not 32 <= pix_tile <= 1024:
+        raise ValueError(f"pix_tile must be a multiple of 32 in [32, 1024], "
+                         f"got {pix_tile}")
+    if H < 0 or W <= 0:
+        raise ValueError(f"bad window size {hw}")
+    return n_blocks
+
+
+def pass1_winners_ref(coef, block_bbox, hw: tuple[int, int],
+                      face_block: int, pix_tile: int = PIX_TILE):
+    """Plain version of :func:`pass1_winners`: the same algorithm in
+    tensor ops, one face block at a time, so memory stays at
+    (pixels x face_block).
+
+    Per face block, in ascending order: pixels whose tile (``pix_tile``
+    consecutive pixels) passes the block-bbox test evaluate the four forms
+    of every face of the block as ``(px * a + py * b) + c`` (one rounding
+    per op), take the max packed key ``(bits(iz) & ~(fb - 1)) | lane`` over
+    the covered faces, and replace the running key only where it is
+    strictly greater. With ``pix_tile=512`` this is the TPU kernel's exact
+    algorithm, tile grid included."""
+    n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile)
+    H, W = hw
+    P = H * W
+    dev = coef.device
+    F = coef.shape[1]
+    pad = n_blocks * face_block - F
+    if pad:  # poisoned lanes, never covered
+        pad_coef = coef.new_zeros((12, pad))
+        pad_coef[ROW_C0:ROW_C2 + 1:ROW_C1 - ROW_C0] = -1.0  # c0 c1 c2
+        coef = torch.cat([coef, pad_coef], dim=1)
+    lane_mask = face_block - 1
+    q = torch.arange(P, dtype=torch.int32, device=dev)
+    px = (q % W).to(torch.float32)
+    py = (q // W).to(torch.float32)
+    first_q = (q // pix_tile) * pix_tile
+    y0 = (first_q // W).to(torch.float32)
+    y1 = ((first_q + pix_tile - 1) // W).to(torch.float32)
+    lanes = torch.arange(face_block, dtype=torch.int32, device=dev)
+    acc_key = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    acc_idx = torch.zeros((P,), dtype=torch.int32, device=dev)
+    for j in range(n_blocks):
+        xmin, xmax, ymin, ymax = block_bbox[j]
+        hit = ((xmax >= 0.0) & (xmin <= W - 1.0) & (ymax >= y0)
+               & (ymin <= y1))
+        sel = torch.nonzero(hit).squeeze(1)
+        if sel.numel() == 0:
+            continue
+        s = j * face_block
+        c = coef[:, s:s + face_block]
+        qx, qy = px[sel, None], py[sel, None]
+
+        def form(row):
+            return (qx * c[row][None, :] + qy * c[row + 1][None, :]) \
+                + c[row + 2][None, :]
+
+        e0, e1, e2 = form(ROW_A0), form(ROW_A1), form(ROW_A2)
+        izp = form(ROW_AW)
+        covered = (torch.minimum(torch.minimum(e0, e1), e2) >= 0.0) \
+            & (izp > 0.0)
+        key = torch.where(covered, (izp.view(torch.int32) & ~lane_mask) | lanes,
+                          -1)
+        best = key.amax(dim=1)
+        old = acc_key[sel]
+        better = best > old
+        acc_key[sel] = torch.where(better, best, old)
+        acc_idx[sel] = torch.where(better, (best & lane_mask) + s,
+                                   acc_idx[sel])
+    iz = torch.where(acc_key < 0, -1.0,
+                     (acc_key & ~lane_mask).view(torch.float32))
+    return iz.reshape(H, W), acc_idx.reshape(H, W)
+
+
+def pass1_winners(coef, block_bbox, hw: tuple[int, int], face_block: int):
+    """Pass-1 z-buffer winner search over the (12, F) coefficients for an
+    (H, W) window. Returns (iz (H, W) f32, the winner's 1/z or -1 where no
+    face covers; winner (H, W) int32, 0 where none). ``block_bbox`` is
+    (ceil(F / face_block), 4); ``face_block`` a power of two.
+
+    CPU tensors run :func:`pass1_winners_ref`; CUDA tensors launch
+    ``csrc/raster_pass1.cu`` on the current stream."""
+    if coef.device.type == "cpu" and block_bbox.device.type == "cpu":
+        return pass1_winners_ref(coef, block_bbox, hw, face_block)
+    n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, PIX_TILE)
+    _check_cuda(("coef", coef, torch.float32),
+                ("block_bbox", block_bbox, torch.float32))
+    H, W = hw
+    dev = coef.device
+    iz = torch.empty((H, W), dtype=torch.float32, device=dev)
+    winner = torch.empty((H, W), dtype=torch.int32, device=dev)
+    lib = kbuild.load("raster_pass1")
+    with torch.cuda.device(dev):
+        err = lib.raster_pass1(coef.data_ptr(), block_bbox.data_ptr(),
+                               iz.data_ptr(), winner.data_ptr(), coef.shape[1],
+                               n_blocks, face_block, H, W, PIX_TILE,
+                               torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(lib, "raster_pass1", err)
+    pass1_winners.launches += 1
+    return iz, winner
+
+
+pass1_winners.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K2: pass-2 row gather.
+# ---------------------------------------------------------------------------
+
+def gather_rows_ref(attr, winner, covered):
+    """Plain version of :func:`gather_rows`."""
+    return torch.where(covered[:, None], attr[winner], 0.0)
+
+
+def gather_rows(attr, winner, covered):
+    """rows[p, :] = attr[winner[p], :] where ``covered[p]``, else 0.
+
+    attr (F, C) float32; winner (P,) int32, in [0, F) where covered;
+    covered (P,) bool. CPU tensors run :func:`gather_rows_ref`; CUDA
+    tensors launch ``csrc/gather_rows.cu`` on the current stream."""
+    tensors = (("attr", attr, torch.float32), ("winner", winner, torch.int32),
+               ("covered", covered, torch.bool))
+    if all(t.device.type == "cpu" for _, t, _ in tensors):
+        return gather_rows_ref(attr, winner, covered)
+    if attr.dim() != 2 or winner.dim() != 1 or \
+            tuple(covered.shape) != tuple(winner.shape):
+        raise ValueError(f"need attr (F, C), winner (P,), covered (P,); got "
+                         f"{tuple(attr.shape)}, {tuple(winner.shape)}, "
+                         f"{tuple(covered.shape)}")
+    _check_cuda(*tensors)
+    F, C = attr.shape
+    P = winner.shape[0]
+    dev = attr.device
+    rows = torch.empty((P, C), dtype=torch.float32, device=dev)
+    lib = kbuild.load("gather_rows")
+    with torch.cuda.device(dev):
+        err = lib.gather_rows(attr.data_ptr(), winner.data_ptr(),
+                              covered.data_ptr(), rows.data_ptr(), F, C, P,
+                              torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(lib, "gather_rows", err)
+    gather_rows.launches += 1
+    return rows
+
+
+gather_rows.launches = 0

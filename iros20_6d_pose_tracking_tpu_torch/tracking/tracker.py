@@ -1,0 +1,326 @@
+"""The per-frame tracking step and the Tracker API, in PyTorch.
+
+Counterpart of ``iros20_6d_pose_tracking_tpu/tracking/tracker.py``. One
+step (reference predict.py:217-296 ``Tracker.on_track``):
+
+  1. ROI: the square ``object_width`` mm bbox at the projected previous pose;
+  2. B branch: nearest crop-resize of the observed RGB-D frame;
+  3. A branch: ROI-windowed render of the CAD model at the previous pose
+     (pass 1 through the K1 wrapper, the pass-2 row gather through K2);
+  4. OffsetDepth and the 8-channel NormalizeChannels;
+  5. the Se3TrackNet forward at batch 1;
+  6. the pose decode (tanh outputs x normalizers, Rodrigues compose).
+
+Every step stays on the device of its tensors: the pose is fetched to the
+host only where a caller asks for it (``Tracker.on_track`` returns numpy).
+``track_video`` is a Python loop over frames that carries the pose on the
+device; the JAX package's nested ``lax.scan`` has no counterpart.
+
+Depth frames arrive as uint16 millimetres. PyTorch implements few ops on
+uint16, so :func:`upload_depth` widens them to int32 on the device.
+
+Not ported yet (ROADMAP.md): ``samples > 1`` (multi-hypothesis),
+``track_video_adaptive``, ``track_video_chunked``, ``roi_views`` and the
+streaming window offset; bf16 (``TrackerConfig.dtype``) raises.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from ..core import se3
+from ..models import tracknet
+from ..models.convert import state_dict_from_jax
+from ..ops import depthproc
+from ..ops import roi as roi_ops
+from ..render import mesh as mesh_mod
+from ..render import rasterizer as rz
+from ..render.mesh import TriMesh
+
+_NOT_PORTED = "not ported to PyTorch yet; see ROADMAP.md"
+
+
+@dataclass(frozen=True)
+class TrackerConfig:
+    """Static configuration of the tracking step. The JAX config's
+    ``render_impl`` has no counterpart: the tensors' device picks the
+    kernels (CUDA) or their plain versions (CPU). Nor has ``fuse_pass2``:
+    pass 2 always gathers through the K2 wrapper (the JAX
+    ``fuse_pass2=True``)."""
+
+    resolution: int = 176
+    trans_normalizer: float = 0.03          # reference predict.py:128
+    rot_normalizer: float = 5 * np.pi / 180
+    object_width_mm: float = 250.0          # reference predict.py:136-142
+    near: float = rz.NEAR_M
+    far: float = rz.FAR_M
+    dtype: torch.dtype = torch.float32      # only float32 so far
+    cull_backfaces: bool = False            # True for closed CAD meshes
+
+
+def upload_rgb(rgb, device) -> torch.Tensor:
+    """Host RGB frame(s) -> device tensor, keeping the dtype (uint8 frames
+    cross the bus as uint8)."""
+    return torch.from_numpy(np.ascontiguousarray(rgb)).to(device)
+
+
+def upload_depth(depth, device) -> torch.Tensor:
+    """Host depth frame(s) in mm -> device tensor. uint16 crosses the bus as
+    its int16 bit pattern and is widened to int32 on the device (bit-exact);
+    floating depth becomes float32."""
+    depth = np.asarray(depth)
+    if depth.dtype == np.uint16:
+        d16 = torch.from_numpy(np.ascontiguousarray(depth).view(np.int16))
+        return d16.to(device).to(torch.int32) & 0xFFFF
+    if np.issubdtype(depth.dtype, np.floating):
+        depth = depth.astype(np.float32, copy=False)
+    return torch.from_numpy(np.ascontiguousarray(depth)).to(device)
+
+
+def pack_channels(rgb, depth):
+    """RGB (H, W, 3) + depth (H, W) -> (H, W, 4) float32 (reference
+    data_augmentation.py:175-196 ToTensor, NHWC)."""
+    return torch.cat([rgb, depth[..., None]], dim=-1).to(torch.float32)
+
+
+def normalize_pair(rgbA, depthA, rgbB, depthB, poseA, mean, std):
+    """OffsetDepth + NormalizeChannels + pack, both branches. ``mean`` and
+    ``std`` are the 8-channel training statistics (A rgbd, B rgbd)."""
+    bufA = pack_channels(rgbA, depthproc.offset_depth(depthA, poseA))
+    bufB = pack_channels(rgbB, depthproc.offset_depth(depthB, poseA))
+    bufA = (bufA - mean[:4]) / std[:4]
+    bufB = (bufB - mean[4:]) / std[4:]
+    return bufA, bufB
+
+
+@torch.no_grad()
+def track_step(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
+               mesh: rz.MeshArrays, K, mean, std, prev_pose, frame_rgb,
+               frame_depth_mm, object_width_mm=None):
+    """One tracking update on the device of its tensors.
+
+    Args:
+      prev_pose: (4, 4) float32 previous object-in-camera estimate.
+      frame_rgb: (H, W, 3) uint8 (or float32 in [0, 255]) current frame.
+      frame_depth_mm: (H, W) depth in mm, int32 (see :func:`upload_depth`)
+        or float32.
+      object_width_mm: optional override of ``cfg.object_width_mm``.
+
+    Returns the new (4, 4) pose and a dict of intermediates.
+    """
+    if cfg.dtype != torch.float32:
+        raise NotImplementedError(f"dtype {cfg.dtype}: {_NOT_PORTED}")
+    res = (cfg.resolution, cfg.resolution)
+    width = cfg.object_width_mm if object_width_mm is None else object_width_mm
+    bbox = roi_ops.compute_bbox(prev_pose, K, width, (1000.0, 1000.0, 1000.0))
+    # B branch: the crop runs in the transfer dtype; only the ROI is cast.
+    rgbB, depthB = roi_ops.crop_bbox(frame_rgb, frame_depth_mm, bbox, res)
+    rgbB = rgbB.to(torch.float32)
+    depthB = depthB.to(torch.float32)
+    rgbA, depthA = rz.render(
+        mesh, prev_pose, K, rz.window_from_bbox(bbox), out_hw=res,
+        near=cfg.near, far=cfg.far, cull_backfaces=cfg.cull_backfaces)
+    bufA, bufB = normalize_pair(rgbA, depthA, rgbB, depthB, prev_pose, mean,
+                                std)
+    out = model(bufA[None], bufB[None])
+    new_pose = se3.decode_delta(prev_pose, out["trans"][0], out["rot"][0],
+                                cfg.trans_normalizer, cfg.rot_normalizer)
+    aux = {"rgbA": rgbA, "depthA": depthA, "rgbB": rgbB, "depthB": depthB,
+           "trans": out["trans"][0], "rot": out["rot"][0]}
+    return new_pose, aux
+
+
+@torch.no_grad()
+def track_video(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
+                mesh: rz.MeshArrays, K, mean, std, init_pose, frames_rgb,
+                frames_depth_mm, object_width_mm=None) -> torch.Tensor:
+    """Track preloaded frames ((T, H, W, 3), (T, H, W) on the device) one
+    step per frame, carrying the pose on the device. Returns (T, 4, 4)."""
+    poses = torch.empty((frames_rgb.shape[0], 4, 4), dtype=torch.float32,
+                        device=init_pose.device)
+    pose = init_pose
+    for i in range(frames_rgb.shape[0]):
+        pose, _ = track_step(model, cfg, mesh, K, mean, std, pose,
+                             frames_rgb[i], frames_depth_mm[i],
+                             object_width_mm)
+        poses[i] = pose
+    return poses
+
+
+def _load_checkpoint(path: str) -> dict:
+    """state_dict of a reference ``.pth``/``.pth.tar`` checkpoint."""
+    if not (path.endswith((".pth", ".tar")) or ".pth." in path):
+        raise NotImplementedError(
+            f"{path}: Flax checkpoints are {_NOT_PORTED} (convert with "
+            "models.convert.state_dict_from_jax)")
+    ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    return ckpt.get("state_dict", ckpt)
+
+
+class Tracker:
+    """Host-facing tracker with the reference's API shape (reference
+    predict.py:127-296): construct from ``dataset_info``, then
+    ``on_track(prev_pose, rgb, depth) -> 4x4 pose`` per frame, or
+    ``track_video`` over preloaded frames.
+
+    ``device`` is where the model, the mesh and every step live; there is
+    no fallback to another device. Weights come from ``variables`` (Flax,
+    carried across by :func:`~..models.convert.state_dict_from_jax`), a
+    reference ``.pth.tar`` checkpoint at ``ckpt_dir``, or else a seeded
+    random init."""
+
+    def __init__(
+        self,
+        dataset_info: dict,
+        images_mean: np.ndarray,
+        images_std: np.ndarray,
+        ckpt_dir: str | None = None,
+        model_path: str | None = None,
+        trans_normalizer: float = 0.03,
+        rot_normalizer: float = 5 * np.pi / 180,
+        mesh: TriMesh | None = None,
+        variables=None,
+        dtype: torch.dtype = torch.float32,
+        max_faces: int | None = None,
+        cull_backfaces: bool | None = None,
+        device="cuda",
+    ):
+        self.dataset_info = dataset_info
+        self.device = torch.device(device)
+        res = int(dataset_info["resolution"])
+        cam = dataset_info["camera"]
+        K = np.array([[cam["focalX"], 0, cam["centerX"]],
+                      [0, cam["focalY"], cam["centerY"]],
+                      [0, 0, 1]], np.float32)
+
+        if mesh is None:
+            if model_path is None:
+                raise ValueError("need model_path or a prebuilt mesh")
+            mesh = mesh_mod.load_mesh(model_path)
+        render_mesh = mesh
+        if max_faces is not None and mesh.num_faces > max_faces:
+            # Raster cost is linear in face count and a 176^2 ROI resolves
+            # far fewer triangles than a CAD scan carries. The object width
+            # still comes from the full mesh.
+            real = mesh.faces[: mesh.num_faces]
+            if mesh.texture is not None and mesh.face_uvs is not None:
+                v, f, c, fuv = mesh_mod.decimate(
+                    mesh.verts, real, None, max_faces,
+                    face_uvs=mesh.face_uvs[: mesh.num_faces])
+                render_mesh = mesh_mod.build_trimesh(
+                    v, f, c, face_uvs=fuv, texture=mesh.texture)
+            else:
+                render_mesh = mesh_mod.build_trimesh(*mesh_mod.decimate(
+                    mesh.verts, real, mesh.colors, max_faces))
+        self.trimesh = mesh
+
+        # Object width: cloud diameter (voxel-downsampled 5 mm) + bbox%
+        # pad, reference predict.py:131-142.
+        if "object_width" in dataset_info:
+            object_width = float(dataset_info["object_width"])
+        else:
+            cloud = mesh_mod.voxel_down_sample(mesh.verts, 0.005)
+            self.object_cloud = cloud
+            pad = dataset_info.get("boundingbox", 0.0)
+            object_width = mesh_mod.compute_obj_max_width(cloud) * (
+                1.0 + pad / 100.0)
+
+        # Closed meshes with outward shading normals are culled (output
+        # identical); inward-normal exports must not be.
+        if cull_backfaces is None:
+            real = render_mesh.faces[: render_mesh.num_faces]
+            cull_backfaces = mesh_mod.is_closed(
+                render_mesh.verts, real) and mesh_mod.is_outward_oriented(
+                render_mesh.verts, real, render_mesh.normals)
+        cfg = TrackerConfig(
+            resolution=res, trans_normalizer=float(trans_normalizer),
+            rot_normalizer=float(rot_normalizer),
+            object_width_mm=float(object_width), dtype=dtype,
+            cull_backfaces=bool(cull_backfaces))
+
+        with torch.random.fork_rng(devices=[]):
+            torch.manual_seed(0)
+            model = tracknet.Se3TrackNet(image_size=res)
+        state_dict = None
+        if variables is not None:
+            state_dict = state_dict_from_jax(variables)
+        elif ckpt_dir is not None:
+            state_dict = _load_checkpoint(ckpt_dir)
+        if state_dict is not None:
+            model.load_state_dict(state_dict, strict=True)
+        model = model.to(self.device).eval()
+        self._init_parts(model, cfg, rz.upload(render_mesh, self.device), K,
+                         images_mean, images_std)
+
+    @classmethod
+    def from_parts(cls, model: tracknet.Se3TrackNet, cfg: TrackerConfig,
+                   mesh: rz.MeshArrays, K, mean, std):
+        """Assemble a Tracker from prebuilt pieces on one device (the
+        mesh's): benchmarks, tests, pipelines without ``dataset_info``."""
+        t = cls.__new__(cls)
+        t.dataset_info = None
+        t.trimesh = None
+        t.device = mesh.fverts.device
+        t._init_parts(model, cfg, mesh, K, mean, std)
+        return t
+
+    def _init_parts(self, model, cfg, mesh, K, mean, std):
+        se3.pin_full_fp32()
+        self.model = model
+        self.cfg = cfg
+        self.mesh = mesh
+        self.object_width = cfg.object_width_mm
+
+        def put(a):
+            return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
+                self.device)
+
+        self.K, self.mean, self.std = put(K), put(mean), put(std)
+        self.frame_cnt = 0
+        self.prev_rgb = None
+        self.prev_depth = None
+
+    def on_track(self, prev_pose, current_rgb, current_depth,
+                 gt_A_in_cam=None, gt_B_in_cam=None, debug: bool = False,
+                 samples: int = 1) -> np.ndarray:
+        """One tracking update; depth in metres (float) or millimetres
+        (uint16), auto-detected like the reference's mm convention.
+        Returns the new (4, 4) pose as float32 numpy."""
+        if samples > 1:
+            raise NotImplementedError(f"samples > 1: {_NOT_PORTED} (P10)")
+        depth = np.asarray(current_depth)
+        if np.issubdtype(depth.dtype, np.floating) and depth.size and \
+                float(depth.max()) < 100.0:
+            depth = (depth * 1000.0).astype(np.float32)  # metres -> mm
+        new_pose, aux = track_step(
+            self.model, self.cfg, self.mesh, self.K, self.mean, self.std,
+            torch.as_tensor(np.asarray(prev_pose), dtype=torch.float32).to(
+                self.device),
+            upload_rgb(current_rgb, self.device),
+            upload_depth(depth, self.device))
+        self.prev_rgb = current_rgb
+        self.prev_depth = depth
+        self.frame_cnt += 1
+        if debug:
+            self.last_aux = {k: v.cpu().numpy() for k, v in aux.items()}
+        return new_pose.cpu().numpy()
+
+    def track_video(self, init_pose, frames_rgb, frames_depth_mm
+                    ) -> np.ndarray:
+        """Track preloaded frames ((T, H, W, 3) uint8, (T, H, W) uint16 mm or
+        float). Uploads them once and returns (T, 4, 4) numpy poses."""
+        poses = track_video(
+            self.model, self.cfg, self.mesh, self.K, self.mean, self.std,
+            torch.as_tensor(np.asarray(init_pose), dtype=torch.float32).to(
+                self.device),
+            upload_rgb(frames_rgb, self.device),
+            upload_depth(frames_depth_mm, self.device))
+        return poses.cpu().numpy()
+
+    def track_video_adaptive(self, *args, **kwargs):
+        raise NotImplementedError(f"track_video_adaptive: {_NOT_PORTED} (P12)")
+
+    def track_video_chunked(self, *args, **kwargs):
+        raise NotImplementedError(f"track_video_chunked: {_NOT_PORTED} (P6)")

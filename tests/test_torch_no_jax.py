@@ -1,0 +1,90 @@
+"""The PyTorch port and ``chip_smoke.py`` never import jax.
+
+The test process itself has jax loaded (tests/conftest.py imports it), so
+the check runs in a fresh interpreter: import every module of the port, run
+one tracking step on the CPU, and look at ``sys.modules``. ``chip_smoke.py``
+imports only the port, never the JAX package, and refuses to run without a
+CUDA card.
+"""
+import ast
+import os
+import shutil
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+SCRIPT = r"""
+import importlib, pkgutil, sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+import iros20_6d_pose_tracking_tpu_torch as port
+for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
+    importlib.import_module(m.name)
+from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+K = np.array([[300.0, 0, 128.0], [0, 300.0, 96.0], [0, 0, 1]], np.float32)
+pose = np.eye(4, dtype=np.float32); pose[2, 3] = 0.5
+torch.manual_seed(0)
+t = trk.Tracker.from_parts(
+    tracknet.create_model(64).eval(),
+    trk.TrackerConfig(resolution=64, object_width_mm=110.0,
+                      cull_backfaces=True),
+    rz.upload(M.make_cube(0.08), "cpu"), K, np.zeros(8), np.full(8, 100.0))
+rgb = np.full((192, 256, 3), 128, np.uint8)
+depth = np.full((192, 256), 500, np.uint16)
+out = t.on_track(pose, rgb, depth)
+assert out.shape == (4, 4) and np.isfinite(out).all()
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
+print("JAX_MODULES", bad)
+"""
+
+
+def test_port_imports_and_runs_without_jax():
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    proc = subprocess.run([sys.executable, "-c", SCRIPT], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert "JAX_MODULES []" in proc.stdout, proc.stdout
+
+
+def _imported_modules(path):
+    mods = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            mods.add(node.module)
+    return mods
+
+
+def test_chip_smoke_imports_only_the_port():
+    mods = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
+    assert "iros20_6d_pose_tracking_tpu_torch.render" in mods
+    bad = sorted(m for m in mods if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "iros20_6d_pose_tracking_tpu"))
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("where", ["repo", "alone"])
+def test_chip_smoke_fails_without_a_card(where, tmp_path):
+    """On a machine without CUDA (this one), and from a directory that holds
+    chip_smoke.py and nothing else, the script exits nonzero and prints no
+    result line."""
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    env.pop("PYTHONPATH", None)
+    cwd = REPO
+    if where == "alone":
+        shutil.copy(os.path.join(REPO, "chip_smoke.py"), tmp_path)
+        cwd = str(tmp_path)
+    proc = subprocess.run([sys.executable, "chip_smoke.py"], cwd=cwd,
+                          env=env, capture_output=True, text=True,
+                          timeout=120)
+    assert proc.returncode != 0
+    assert '"ok"' not in proc.stdout, proc.stdout
