@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port's tracking step on one CUDA card.
+"""Smoke run of the PyTorch port on one CUDA card: the tracking step and
+the closed-loop synthetic evaluation.
 
     python3 chip_smoke.py
 
@@ -9,13 +10,18 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
   1. prints the card (``nvidia-smi`` name and power limit), the torch and
      CUDA versions, and sets TF32 off for matmuls and cuDNN;
   2. builds the CUDA kernels from ``iros20_6d_pose_tracking_tpu_torch/csrc``
-     (``kernels/build.py``) and prints the build time;
+     (``kernels/build.py``), one nvcc per source, all at once, and prints
+     the build times;
   3. holds each kernel against its plain PyTorch version on the card: the
      production mesh (a subdiv-4 icosphere decimated to 2048 faces) in a
      176^2 ROI with the back-face cull on and off, and random cases whose
      pixel count is no multiple of the pixel tile and whose face count is no
      multiple of the face block. K1 (``pass1_winners``): winners equal and
-     iz bit-equal. K2 (``gather_rows``): rows bit-equal;
+     iz bit-equal. K2 (``gather_rows``): rows bit-equal. K3
+     (``pass1_worklist``), in full 480x640 frames: the production mesh
+     unculled, a 20,480-face icosphere at face block 256, random ragged
+     cases and an empty frame: winners equal and iz bit-equal to its plain
+     version, and to K1 on the same full-frame inputs;
   4. drives the slice: ``Tracker.from_parts`` with the full-width
      Se3TrackNet at 176^2 (seeded random weights, randomised BatchNorm
      statistics, regression heads scaled by 0.05 with zero bias), the
@@ -27,11 +33,25 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      frames. Then 20 frames on the card
      against the same 20 frames on the port's plain CPU path: within
      5e-4 m and 5e-3 rad per frame;
-  5. times K1 and K2 against their plain versions, the parts of one step
+  5. drives the evaluation path (``eval/synthetic_benchmark.py``) with the
+     same tracker: ``make_gt_trajectory(60)``, ``render_test_video`` of the
+     production mesh at 480x640 with ``hard=True`` (its full-frame renders
+     through K3), ``_quantize`` and ``evaluate_tracking`` (ADD, ADD-S,
+     VOCap). Poses and scores must be finite, and the launch counts must
+     rise by exactly 120 for K3 (object and occluder on 60 frames), 179 for
+     K2 and 59 for K1. Then the card against the port's plain CPU path: the
+     first 3 quantized frames (RGB more than 1 level apart, and depth
+     coverage different, on under 0.1% of pixels each), the card's
+     trajectory scored on the CPU (within 1e-6 m), and 10 tracked frames
+     (within 5e-4 m and 5e-3 rad);
+  6. times K1 and K2 against their plain versions, the parts of one step
      and the whole step (CUDA events, median of 50), and the steady
      ``on_track`` and ``track_video`` rates (host clock around work that
      ends with the pose on the host), and the device's busy share over a
-     ``torch.profiler`` window of 20 frames.
+     ``torch.profiler`` window of 20 frames; then K3, K1 and plain K3 at
+     480x640 on both full-frame meshes, one full-frame ``render`` through
+     K3 and through K1, the ``render_test_video`` and ``evaluate_tracking``
+     rates over 60 frames, and ``batch_errors`` over 60 frames.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -40,7 +60,9 @@ Any failure raises, so the exit code is nonzero.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import copy
+import dataclasses
 import json
 import subprocess
 import sys
@@ -63,7 +85,16 @@ PORT = "iros20_6d_pose_tracking_tpu_torch"
 REPLACES = {
     "raster_pass1": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:141",
     "gather_rows": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:299",
+    "raster_pass1_worklist":
+        "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:429",
 }
+# Frames of the evaluation path's ground-truth video, and how many of them
+# the card-against-CPU phase renders and tracks.
+EVAL_FRAMES = 60
+CPU_RENDER_FRAMES = 3
+CPU_TRACK_FRAMES = 10
+# Calls of a pass-1 wrapper in one profiler window (phase 6).
+PROFILE_CALLS = 20
 
 
 def production_mesh():
@@ -331,8 +362,8 @@ def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
         tracker.on_track(pose0, rgb, depth)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    rk.pass1_winners.launches = 0
-    rk.gather_rows.launches = 0
+    for fn in (rk.pass1_winners, rk.gather_rows, rk.pass1_worklist):
+        fn.launches = 0
     pose, on_poses = pose0, []
     t0 = time.perf_counter()
     for _ in range(n_on):
@@ -346,7 +377,8 @@ def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
         frames_depth).cpu().numpy()
     video_s = time.perf_counter() - t0
     launches = {"raster_pass1": rk.pass1_winners.launches,
-                "gather_rows": rk.gather_rows.launches}
+                "gather_rows": rk.gather_rows.launches,
+                "raster_pass1_worklist": rk.pass1_worklist.launches}
     return launches, np.stack(on_poses), video, on_s, video_s
 
 
@@ -455,6 +487,253 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
     }
 
 
+def full_frame_case(mesh, pose, fb=None):
+    """K1 and K3 inputs of one unculled full-frame render (FRAME_HW, K_PROD)
+    of ``mesh`` at ``pose``: (coef, block_bbox, face_block), at face block
+    ``fb`` or ``pick_face_block``."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    dev = mesh.fverts.device
+    fx, fy, fiz, fvalid, _, _ = rz._project(
+        mesh, torch.as_tensor(pose).to(dev), torch.as_tensor(K_PROD).to(dev),
+        rz.full_frame_window(FRAME_HW[1], FRAME_HW[0]), FRAME_HW, rz.NEAR_M)
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = fb or rz.pick_face_block(fx.shape[0])
+    return coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb
+
+
+def check_worklist(name, coef, bbox, hw, fb):
+    """K3 against its plain version and against K1 on the same inputs:
+    winners equal, iz bit-equal. Returns (max |iz difference| to the plain
+    version, iz, winner) of the kernel."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    iz, win = rk.pass1_worklist(coef, bbox, hw, fb)
+    refs = {"plain K3": rk.pass1_worklist_ref(coef, bbox, hw, fb),
+            "K1": rk.pass1_winners(coef, bbox, hw, fb)}
+    bad = {}
+    for ref_name, (iz_ref, win_ref) in refs.items():
+        bad[ref_name] = (
+            int((win != win_ref).sum()),
+            int((iz.view(torch.int32) != iz_ref.view(torch.int32)).sum()))
+    err = float((iz - refs["plain K3"][0]).abs().max())
+    print(f"K3 {name}: F={coef.shape[1]} fb={fb} hw={hw} covered="
+          f"{int((iz > 0).sum())} (winner, iz bit) mismatches {bad} "
+          f"max|d iz|={err}", flush=True)
+    if any(n for pair in bad.values() for n in pair):
+        raise AssertionError(f"K3 disagrees ({name}): {bad}")
+    return err, iz, win
+
+
+def check_worklist_cases(tracker, pose0):
+    """Phase 3, K3: full 480x640 frames of the production mesh (unculled,
+    face block 1024) and of a 20,480-face icosphere at face block 256, random
+    ragged cases, and an empty frame. Returns the max error and the two
+    full-frame meshes' inputs."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    dev = tracker.device
+    big = rz.upload(M.make_icosphere(subdiv=5, radius=0.05), dev)
+    cases = {"production": full_frame_case(tracker.mesh, pose0),
+             "icosphere20480": full_frame_case(big, pose0, 256)}
+    err = 0.0
+    for name, (coef, bbox, fb) in cases.items():
+        e, iz, _ = check_worklist(f"{name} full frame", coef, bbox, FRAME_HW,
+                                  fb)
+        err = max(err, e)
+        if not (iz > 0).any():
+            raise AssertionError(f"K3 case {name} covers no pixel")
+    rng = np.random.RandomState(SEED + 1)
+    for F, hw, fb in ((768, (37, 53), 256), (1500, (131, 97), 512),
+                      (3072, (479, 641), 1024)):
+        coef, bbox = fuzz_case(rng, F, hw, fb, dev)
+        err = max(err, check_worklist("fuzz", coef, bbox, hw, fb)[0])
+    away = pose0.copy()
+    away[0, 3] = 3.0  # far off the right edge of the frame
+    coef, bbox, fb = full_frame_case(tracker.mesh, away)
+    e, iz, win = check_worklist("empty frame", coef, bbox, FRAME_HW, fb)
+    if not (bool((iz == -1.0).all()) and not bool(win.any())):
+        raise AssertionError("K3 empty frame: not the init values")
+    if tracker.device.type == "cuda":
+        torch.cuda.synchronize(dev)
+    return max(err, e), cases
+
+
+def make_bench_object(tracker, tm):
+    """The evaluation path's object: the chip_smoke tracker's network,
+    statistics, mesh and config around the production TriMesh."""
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+
+    return SB.BenchObject(
+        name="production", tm=tm, mesh=tracker.mesh, model=tracker.model,
+        mean=tracker.mean, std=tracker.std,
+        width_mm=tracker.cfg.object_width_mm, tcfg=tracker.cfg)
+
+
+def run_eval(obj, gt):
+    """Phase 5, the evaluation path through the entry points a user calls:
+    the hard test video of ``gt`` at FRAME_HW, quantized, then
+    ``evaluate_tracking``. The kernels' launch counts are zeroed just before
+    and read just after. Returns (launches, quantized frames, result,
+    render s, evaluate s), each time on the host clock around work that
+    ends on the host."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    if obj.mesh.fverts.device.type == "cuda":
+        torch.cuda.synchronize(obj.mesh.fverts.device)
+    for fn in (rk.pass1_winners, rk.gather_rows, rk.pass1_worklist):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    frames = SB._quantize(*SB.render_test_video(obj.mesh, gt, K_PROD,
+                                                hw=FRAME_HW, hard=True))
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = SB.evaluate_tracking(obj, gt, *frames, K=K_PROD)
+    eval_s = time.perf_counter() - t0
+    launches = {"raster_pass1": rk.pass1_winners.launches,
+                "gather_rows": rk.gather_rows.launches,
+                "raster_pass1_worklist": rk.pass1_worklist.launches}
+    return launches, frames, result, render_s, eval_s
+
+
+def check_eval(launches, result, T):
+    """Finite poses and scores, and the launch counts of a T-frame hard
+    video (object and occluder per frame) tracked over T - 1 frames."""
+    want = {"raster_pass1": T - 1, "gather_rows": 2 * T + T - 1,
+            "raster_pass1_worklist": 2 * T}
+    scores = {k: result[k] for k in ("add_auc", "adi_auc", "add_mean_mm",
+                                     "add_max_mm", "final_trans_err_mm",
+                                     "baseline_add_mean_mm",
+                                     "baseline_add_auc")}
+    print(f"evaluation path: {T} frames, launches {launches} (want {want}); "
+          + ", ".join(f"{k} {v:.4f}" for k, v in scores.items()), flush=True)
+    if launches != want:
+        raise AssertionError(f"evaluation launch counts {launches} != {want}")
+    finite = (np.isfinite(result["poses"]).all()
+              and np.isfinite(result["add"]).all()
+              and np.isfinite(result["adi"]).all()
+              and np.isfinite(list(scores.values())).all())
+    if not finite or result["poses"].shape != (T, 4, 4):
+        raise AssertionError("evaluation poses or scores not finite")
+
+
+def compare_eval_with_cpu(cpu_obj, gt, frames, result):
+    """The card's evaluation path against the port's plain CPU path: the
+    first CPU_RENDER_FRAMES quantized frames, the card's trajectory scored
+    on the CPU, and CPU_TRACK_FRAMES frames tracked on both sides."""
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+
+    t0 = time.perf_counter()
+    n = CPU_RENDER_FRAMES
+    rgb_c, dep_c = SB._quantize(*SB.render_test_video(
+        cpu_obj.mesh, gt[:n], K_PROD, hw=FRAME_HW, hard=True))
+    rgb_g, dep_g = frames[0][:n], frames[1][:n]
+    rgb_off = float((np.abs(rgb_c.astype(np.int32) - rgb_g.astype(np.int32))
+                     .max(-1) > 1).mean())
+    cov_off = float(((dep_c > 0) != (dep_g > 0)).mean())
+    scored = SB._score_poses(cpu_obj, gt, result["poses"])
+    d_score = max(float(np.abs(scored[k] - result[k]).max())
+                  for k in ("add", "adi"))
+    m = CPU_TRACK_FRAMES
+    tracked = SB.evaluate_tracking(cpu_obj, gt[:m + 1], frames[0][:m + 1],
+                                   frames[1][:m + 1], K=K_PROD)["poses"]
+    card = result["poses"][:m + 1]
+    dt = float(np.abs(tracked[:, :3, 3] - card[:, :3, 3]).max())
+    dr = max(rot_angle(a[:3, :3], b[:3, :3]) for a, b in zip(tracked, card))
+    print(f"evaluation card vs plain CPU path: first {n} frames rgb >1 level "
+          f"apart on {rgb_off:.2e} of pixels, depth coverage differs on "
+          f"{cov_off:.2e}; card trajectory scored on the CPU: max |d ADD|, "
+          f"|d ADD-S| {d_score:.3e} m; {m} tracked frames: max |dt| "
+          f"{dt:.3e} m, max rotation {dr:.3e} rad "
+          f"({time.perf_counter() - t0:.1f} s)", flush=True)
+    if rgb_off >= 1e-3 or cov_off >= 1e-3 or d_score > 1e-6 or dt > 5e-4 \
+            or dr > 5e-3:
+        raise AssertionError("card and CPU evaluation paths disagree")
+
+
+def time_eval(obj, gt, poses, ff_cases, card):
+    """Phase 6, the evaluation path's timings: K3, K1 and plain K3 on the
+    full-frame inputs with each wrapper's device time split by
+    ``torch.profiler``, one full-frame render through K3 and K1 (CUDA
+    events, median of TIMING_RUNS), the warm ``render_test_video`` and
+    ``evaluate_tracking`` rates (host clock), and ``batch_errors``. Returns
+    K3's and plain K3's ms on the production mesh."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.eval import metrics as ME
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    dev = obj.mesh.fverts.device
+    out = {}
+    for name, (coef, bbox, fb) in ff_cases.items():
+        ms = {"K3": cuda_ms(lambda: rk.pass1_worklist(coef, bbox, FRAME_HW,
+                                                      fb)),
+              "K1": cuda_ms(lambda: rk.pass1_winners(coef, bbox, FRAME_HW,
+                                                     fb)),
+              "plain K3": cuda_ms(lambda: rk.pass1_worklist_ref(
+                  coef, bbox, FRAME_HW, fb))}
+        out[name] = ms
+        print(f"timing full frame {FRAME_HW[0]}x{FRAME_HW[1]} {name} "
+              f"(F={coef.shape[1]}, fb={fb}): " + ", ".join(
+                  f"{k} {v:.4f} ms" for k, v in ms.items())
+              + f" (median of {TIMING_RUNS}) {card}", flush=True)
+        for label, fn in (("K3", rk.pass1_worklist), ("K1", rk.pass1_winners)):
+            prof = profile_share(lambda: [fn(coef, bbox, FRAME_HW, fb)
+                                          for _ in range(PROFILE_CALLS)],
+                                 top=3)
+            if prof is None:
+                print(f"profile: {label} {name}: no device time recorded")
+                continue
+            busy_us, wall_us, n_ops, rows = prof
+            print(f"profile: {label} {name} x{PROFILE_CALLS}: device busy "
+                  f"{busy_us / 1e3 / PROFILE_CALLS:.4f} ms of "
+                  f"{wall_us / 1e3 / PROFILE_CALLS:.4f} ms wall per call, "
+                  f"{n_ops / PROFILE_CALLS:.0f} device ops per call; top: "
+                  + "; ".join(f"{us / 1e3 / count:.4f} ms x{count} "
+                              f"{key[:60]}" for key, us, count in rows)
+                  + f" {card}", flush=True)
+    pose = torch.as_tensor(gt[0]).to(dev)
+    K = torch.as_tensor(K_PROD).to(dev)
+    window = rz.full_frame_window(FRAME_HW[1], FRAME_HW[0])
+    for worklist in (True, False):
+        ms = cuda_ms(lambda: rz.render(obj.mesh, pose, K, window,
+                                       out_hw=FRAME_HW, worklist=worklist))
+        print(f"timing full-frame render through {'K3' if worklist else 'K1'}"
+              f": {ms:.4f} ms (production mesh, median of {TIMING_RUNS}) "
+              f"{card}")
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    frames = SB._quantize(*SB.render_test_video(obj.mesh, gt, K_PROD,
+                                                hw=FRAME_HW, hard=True))
+    render_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    SB.evaluate_tracking(obj, gt, *frames, K=K_PROD)
+    eval_s = time.perf_counter() - t0
+    print(f"timing render_test_video (hard, quantized to the host): "
+          f"{len(gt) / render_s:.2f} frames/s ({len(gt)} frames, warm) {card}")
+    print(f"timing evaluate_tracking: {(len(gt) - 1) / eval_s:.2f} frames/s "
+          f"({len(gt) - 1} tracked frames and their scores, warm) {card}")
+    cloud = M.voxel_down_sample(obj.tm.verts, 0.005)
+    ms = cuda_ms(lambda: ME.batch_errors(poses, gt, cloud, device=dev))
+    print(f"timing batch_errors: {ms:.4f} ms ({len(gt)} frames, "
+          f"{len(cloud)} points, median of {TIMING_RUNS}) {card}", flush=True)
+    return out["production"]["K3"], out["production"]["plain K3"]
+
+
 def main() -> int:
     import torch
 
@@ -487,23 +766,31 @@ def main() -> int:
             torch.backends.cudnn.allow_tf32:
         raise AssertionError("TF32 is still on")
 
-    # 2. Build the kernels from the sources in the checkout.
-    for name in ("raster_pass1", "gather_rows"):
+    # 2. Build the kernels from the sources in the checkout: one nvcc per
+    # source, all started together.
+    def timed_build(name):
         t0 = time.perf_counter()
         path, log = kbuild.build(name)
+        return path, log, time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(REPLACES)) as pool:
+        builds = dict(zip(REPLACES, pool.map(timed_build, REPLACES)))
+    for name, (path, log, secs) in builds.items():
         kbuild.load(name)
-        print(f"built csrc/{name}.cu in {time.perf_counter() - t0:.2f} s "
-              f"-> {path}")
+        print(f"built csrc/{name}.cu in {secs:.2f} s -> {path}")
         for line in log.splitlines():
             if "registers" in line or "bytes stack" in line:
                 print(f"  ptxas: {line.strip()}")
-    sys.stdout.flush()
+    print(f"all kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
 
     # 3. Each kernel against its plain version, on the card.
     net = build_model(SEED)
     tracker = make_tracker(net, dev)
     pose0, rgb, depth = production_frames()
     errs, prod = check_kernels(tracker, pose0)
+    errs["raster_pass1_worklist"], ff_cases = check_worklist_cases(tracker,
+                                                                   pose0)
 
     # 4. The slice through the entry points a user calls.
     print(f"slice: Se3TrackNet full width at {RES}^2, "
@@ -516,13 +803,33 @@ def main() -> int:
         tracker, pose0, rgb, depth, n_on, n_video)
     print(f"launches in the main path ({n_on} on_track + {n_video} "
           f"track_video frames): {launches}", flush=True)
-    if set(launches.values()) != {n_on + n_video}:
-        raise AssertionError(f"launch counts {launches} != {n_on + n_video}")
+    want = {"raster_pass1": n_on + n_video, "gather_rows": n_on + n_video,
+            "raster_pass1_worklist": 0}  # ROI renders keep K1
+    if launches != want:
+        raise AssertionError(f"launch counts {launches} != {want}")
     check_on_object({"on_track": on_poses, "track_video": video}, pose0,
                     tracker.cfg.object_width_mm)
     compare_with_cpu(net, tracker, pose0, rgb, depth, 20)
 
-    # 5. Timings.
+    # 5. The evaluation path, then the card against the plain CPU path.
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+
+    tm, _ = production_mesh()
+    obj = make_bench_object(tracker, tm)
+    gt = SB.make_gt_trajectory(EVAL_FRAMES)
+    print(f"evaluation path: make_gt_trajectory({EVAL_FRAMES}), "
+          f"render_test_video hard at {FRAME_HW[0]}x{FRAME_HW[1]}, "
+          f"_quantize, evaluate_tracking", flush=True)
+    eval_launches, frames, result, render_s, eval_s = run_eval(obj, gt)
+    print(f"evaluation path times (first call): render_test_video + "
+          f"_quantize {render_s:.3f} s, evaluate_tracking {eval_s:.3f} s")
+    check_eval(eval_launches, result, EVAL_FRAMES)
+    launches["raster_pass1_worklist"] = eval_launches["raster_pass1_worklist"]
+    compare_eval_with_cpu(
+        make_bench_object(make_tracker(net, torch.device("cpu")), tm), gt,
+        frames, result)
+
+    # 6. Timings.
     cull = tracker.cfg.cull_backfaces
     coef, bbox, fb, attr, winner, covered = prod[cull]
     ms = {"raster_pass1": cuda_ms(
@@ -564,6 +871,8 @@ def main() -> int:
           f"fetched to the host every frame) {card}")
     print(f"timing track_video: {n_video / video_s:.2f} Hz ({n_video} "
           f"frames, poses fetched at the end) {card}", flush=True)
+    ms["raster_pass1_worklist"], plain_ms["raster_pass1_worklist"] = \
+        time_eval(obj, gt, result["poses"], ff_cases, card)
 
     kernels = [
         {"name": name, "route": "cuda",

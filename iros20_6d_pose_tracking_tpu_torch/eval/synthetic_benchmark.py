@@ -1,0 +1,293 @@
+"""Closed-loop synthetic evaluation: the evaluation half, in PyTorch.
+
+Counterpart of ``iros20_6d_pose_tracking_tpu/eval/synthetic_benchmark.py``.
+The chain is the JAX module's: a ground-truth trajectory
+(:func:`make_gt_trajectory`) -> the observed RGB-D video rendered at it
+(:func:`render_test_video`, clean or "hard": textured background at valid
+depth, a sweeping occluder, depth dropout) -> sensor precision
+(:func:`_quantize`) -> tracking from gt[0] (:func:`evaluate_tracking`, on
+``tracking/tracker.track_video``) -> ADD / ADD-S per frame and their VOCap
+AUC (:func:`_score_poses`, ``eval/metrics.py``).
+
+Every full-frame render goes through the work-list pass 1 (K3,
+``render(..., worklist=True)``): a small object in a 480x640 frame is the
+sparse case the work list exists for. The tracker's ROI renders keep K1.
+
+Everything runs on the device of the object's mesh. Not ported yet, and
+raising ``NotImplementedError``: training (``train_object``,
+``train_objects_ensemble``, ``hard_aug``; ROADMAP.md P14), the ensemble
+evaluation (P17), and the shift sweeps and ``run_suite`` (P16).
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+
+import numpy as np
+import torch
+
+from ..core import se3
+from ..datagen.pair_producer import _procedural_texture
+from ..models import tracknet
+from ..render import mesh as M
+from ..render import rasterizer as rz
+from ..tracking import tracker as trk
+from . import metrics as ME
+
+# YCB-Video camera intrinsics (reference dataset_info.yml camera block).
+YCB_K = np.array(
+    [[1066.778, 0, 312.9869], [0, 1067.487, 241.3109], [0, 0, 1]],
+    np.float32,
+)
+
+OBJECTS = {
+    # face-colored cube: rotation observable in RGB and depth
+    "cube": lambda: M.make_cube(0.08),
+    # anisotropic box: distinct extents break rotational ambiguity
+    "box": lambda: M.make_box((0.10, 0.06, 0.035)),
+    # asymmetric L-bracket: thin arms, self-occlusion at grazing views
+    "lshape": lambda: M.make_lshape(),
+    # faceted icosahedron: near-round geometry, rotation mostly RGB-borne
+    "icosahedron": lambda: M.make_icosphere(subdiv=1, radius=0.05),
+    # uniform cylinder: axial rotation unobservable -> ADD ill-posed,
+    # ADD-S meaningful (reference eval_ycb.py:102-118 ADD vs ADI split)
+    "cylinder": lambda: M.make_cylinder(),
+    # uniform sphere: every rotation unobservable; translation only
+    "sphere": lambda: M.make_plain_sphere(),
+    # thin plate: near-degenerate depth extent + 180-degree flip
+    # ambiguity face-on
+    "plate": lambda: M.make_plate(),
+    # UV-textured box: sub-face texture detail through the full loop
+    "textured_box": lambda: M.make_textured_box(),
+}
+
+# objects whose geometry leaves rotations unobservable: score them by
+# ADD-S; their ADD column is reported for honesty, not as a target
+SYMMETRIC_OBJECTS = frozenset({"cylinder", "sphere", "plate"})
+
+# Depth dropout of the hard video: share of pixels zeroed per frame, and
+# the seed of frame i's draw (1000 + i, as the JAX module's PRNGKey).
+DROPOUT_P = 0.03
+DROPOUT_SEED = 1000
+
+_NOT_PORTED = "not ported to PyTorch yet; see ROADMAP.md"
+
+
+@dataclass
+class BenchObject:
+    """One tracker and its assets: the port's network (in eval mode, on the
+    mesh's device) where the JAX module holds Flax variables."""
+
+    name: str
+    tm: M.TriMesh
+    mesh: rz.MeshArrays
+    model: tracknet.Se3TrackNet
+    mean: torch.Tensor
+    std: torch.Tensor
+    width_mm: float
+    tcfg: trk.TrackerConfig
+    train_secs: float = 0.0
+    losses: list = field(default_factory=list)
+
+
+def train_object(*args, **kwargs):
+    raise NotImplementedError(f"train_object: {_NOT_PORTED} (P14)")
+
+
+def train_objects_ensemble(*args, **kwargs):
+    raise NotImplementedError(f"train_objects_ensemble: {_NOT_PORTED} (P14)")
+
+
+def hard_aug(*args, **kwargs):
+    raise NotImplementedError(f"hard_aug: {_NOT_PORTED} (P13, P14)")
+
+
+def ensemble_evaluate_tracking(*args, **kwargs):
+    raise NotImplementedError(
+        f"ensemble_evaluate_tracking: {_NOT_PORTED} (P17)")
+
+
+def shift_severity_sweep(*args, **kwargs):
+    raise NotImplementedError(f"shift_severity_sweep: {_NOT_PORTED} (P16)")
+
+
+def shift_axis_ablation(*args, **kwargs):
+    raise NotImplementedError(f"shift_axis_ablation: {_NOT_PORTED} (P16)")
+
+
+def run_suite(*args, **kwargs):
+    raise NotImplementedError(f"run_suite: {_NOT_PORTED} (P14, P16, P17)")
+
+
+def make_gt_trajectory(T: int, seed: int = 5,
+                       z0: float = 0.6) -> np.ndarray:
+    """(T, 4, 4) smooth random-walk camera-frame trajectory: 6 deg/frame
+    rotation, ~4 mm/frame translation with gentle direction changes — the
+    motion regime the 0.02 m / 15 deg normalizers cover."""
+    rng = np.random.RandomState(seed)
+    gt = [np.eye(4, dtype=np.float32)]
+    gt[0][:3, 3] = [0.0, 0.0, z0]
+    w_vel = rng.randn(3)
+    w_vel = w_vel / np.linalg.norm(w_vel) * np.deg2rad(6.0)
+    t_vel = np.array([0.004, -0.003, 0.005])
+    for i in range(1, T):
+        prev = gt[-1]
+        cur = prev.copy()
+        cur[:3, :3] = se3.so3_exp(torch.as_tensor(
+            w_vel, dtype=torch.float32)).numpy() @ prev[:3, :3]
+        if i % 15 == 0:
+            w_vel = rng.randn(3)
+            w_vel = w_vel / np.linalg.norm(w_vel) * np.deg2rad(6.0)
+            t_vel = rng.randn(3) * 0.004
+        cur[:3, 3] = prev[:3, 3] + t_vel
+        # keep the object inside the camera frustum
+        cur[0, 3] = np.clip(cur[0, 3], -0.12, 0.12)
+        cur[1, 3] = np.clip(cur[1, 3], -0.09, 0.09)
+        cur[2, 3] = np.clip(cur[2, 3], 0.45, 0.9)
+        gt.append(cur)
+    return np.stack(gt)
+
+
+def dropout_mask(i: int, hw) -> torch.Tensor:
+    """Frame ``i``'s depth-dropout mask, (H, W) bool on the CPU, drawn from
+    a CPU ``torch.Generator`` seeded ``DROPOUT_SEED + i``: the same mask on
+    every device. (The JAX module draws ``jax.random.bernoulli`` with
+    ``PRNGKey(1000 + i)``, which torch cannot reproduce; ROADMAP F7.)"""
+    gen = torch.Generator().manual_seed(DROPOUT_SEED + i)
+    return torch.rand(tuple(hw), generator=gen) < DROPOUT_P
+
+
+def render_test_video(
+    mesh: rz.MeshArrays,
+    gt: np.ndarray,
+    K=YCB_K,
+    *,
+    hw=(480, 640),
+    hard: bool = False,
+    bg_seed: int = 11,
+    background: bool | None = None,
+    occluder: bool | None = None,
+    dropout: bool | None = None,
+    lighting=None,
+    drop_masks=None,
+):
+    """Render the observed RGB-D video for a gt trajectory, on the mesh's
+    device. Returns rgb (T, H, W, 3) in [0, 255] and depth (T, H, W) mm,
+    float32.
+
+    ``hard`` builds the robustness scene: a fixed textured background at
+    valid sensor depth, an occluder sphere sweeping past (grazing the
+    object's edge: partial occlusion), and per-frame depth dropout. The
+    three can also be switched one by one. ``lighting``: optional (5,)
+    [ambient, diffuse, lx, ly, lz] override for the observed render.
+    ``drop_masks``: optional (T, H, W) bool dropout masks (default
+    :func:`dropout_mask` per frame), so a test can pass in JAX's own."""
+    background = hard if background is None else background
+    occluder = hard if occluder is None else occluder
+    dropout = hard if dropout is None else dropout
+    hard = background or occluder or dropout
+    dev = mesh.fverts.device
+    H, W = hw
+    window = rz.full_frame_window(W, H)
+    Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32).to(dev)
+
+    def render(m, pose):
+        return rz.render(m, torch.as_tensor(pose, dtype=torch.float32).to(dev),
+                         Kt, window, out_hw=hw, lighting=lighting,
+                         worklist=True)
+
+    if not hard:
+        frames = [render(mesh, gt[i]) for i in range(len(gt))]
+        return (torch.stack([f[0] for f in frames]),
+                torch.stack([f[1] for f in frames]))
+
+    occ = rz.upload(M.make_icosphere(subdiv=2, radius=0.018), dev)
+    bg_rgb = torch.from_numpy(
+        _procedural_texture(np.random.RandomState(bg_seed), H, W)).to(dev)
+    bg_depth = 1500.0
+
+    def render_hard(pose, i):
+        r_obj, d_obj = render(mesh, pose)
+        do = torch.where(d_obj > 0, d_obj, torch.inf)
+        rgb, depth = r_obj, do
+        if occluder:
+            # the occluder sweeps laterally, grazing the object's lower edge
+            # (partial occlusion)
+            phase = 2 * np.pi * i / 40.0
+            occ_pose = np.eye(4, dtype=np.float32)
+            occ_pose[:3, 3] = pose[:3, 3] * 0.62 + np.array(
+                [0.055 * np.cos(phase), 0.030 + 0.004 * np.sin(2 * phase),
+                 0.0], np.float32)
+            r_occ, d_occ = render(occ, occ_pose)
+            dc = torch.where(d_occ > 0, d_occ, torch.inf)
+            rgb = torch.where((dc < do)[..., None], r_occ, r_obj)
+            depth = torch.minimum(do, dc)
+        hit = torch.isfinite(depth)
+        if background:
+            rgb = torch.where(hit[..., None], rgb, bg_rgb)
+            depth = torch.where(hit, depth, bg_depth)
+        else:
+            rgb = torch.where(hit[..., None], rgb, 0.0)
+            depth = torch.where(hit, depth, 0.0)
+        if dropout:
+            drop = (dropout_mask(i, hw) if drop_masks is None
+                    else torch.as_tensor(np.asarray(drop_masks[i])))
+            depth = torch.where(drop.to(dev), 0.0, depth)
+        return rgb, depth
+
+    frames = [render_hard(gt[i], i) for i in range(len(gt))]
+    return (torch.stack([f[0] for f in frames]),
+            torch.stack([f[1] for f in frames]))
+
+
+def _score_poses(obj: BenchObject, gt: np.ndarray,
+                 poses: np.ndarray) -> dict:
+    """ADD / ADD-S per frame + VOCap AUC for a (T, 4, 4) estimate
+    trajectory, with the hold-init drift baseline for context, computed on
+    the device of the object's mesh."""
+    dev = obj.mesh.fverts.device
+    cloud = M.voxel_down_sample(obj.tm.verts, 0.005)
+    add, adi = ME.batch_errors(poses, gt, cloud, device=dev)
+    base_add, _ = ME.batch_errors(np.tile(gt[:1], (len(gt), 1, 1)), gt,
+                                  cloud, device=dev)
+    return {
+        "name": obj.name,
+        "poses": poses,
+        "add": add,
+        "adi": adi,
+        "add_auc": float(ME.vocap(add) * 100),
+        "adi_auc": float(ME.vocap(adi) * 100),
+        "add_mean_mm": float(add.mean() * 1000),
+        "add_max_mm": float(add.max() * 1000),
+        "final_trans_err_mm": float(
+            np.linalg.norm(poses[-1][:3, 3] - gt[-1][:3, 3]) * 1000),
+        "baseline_add_mean_mm": float(base_add.mean() * 1000),
+        "baseline_add_auc": float(ME.vocap(base_add) * 100),
+    }
+
+
+def _quantize(rgb, dep):
+    """Observed video at sensor precision: uint8 RGB and uint16 mm depth,
+    as numpy (round half to even, then clip, as the JAX module)."""
+    rgb = torch.clamp(torch.round(rgb), 0, 255).to(torch.uint8)
+    dep = torch.clamp(torch.round(dep), 0, 65535).to(torch.int32)
+    return rgb.cpu().numpy(), dep.cpu().numpy().astype(np.uint16)
+
+
+def evaluate_tracking(obj: BenchObject, gt: np.ndarray, frames_rgb,
+                      frames_depth, K=YCB_K, init_pose=None) -> dict:
+    """Track frames 1.. from ``init_pose`` (default gt[0]) on the device of
+    the object's mesh and score ADD / ADD-S per frame + VOCap AUC, with the
+    hold-init drift baseline for context. Frames are host arrays (uint8 RGB,
+    uint16 mm depth, as :func:`_quantize` gives them)."""
+    if init_pose is None:
+        init_pose = gt[0]
+    dev = obj.mesh.fverts.device
+    poses = trk.track_video(
+        obj.model, obj.tcfg, obj.mesh,
+        torch.as_tensor(np.asarray(K), dtype=torch.float32).to(dev),
+        obj.mean, obj.std,
+        torch.as_tensor(np.asarray(init_pose), dtype=torch.float32).to(dev),
+        trk.upload_rgb(frames_rgb[1:], dev),
+        trk.upload_depth(frames_depth[1:], dev))
+    poses = np.concatenate([gt[:1], poses.cpu().numpy()], axis=0)
+    return _score_poses(obj, gt, poses)

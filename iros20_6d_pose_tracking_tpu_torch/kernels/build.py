@@ -7,9 +7,10 @@ plain C interface:
          -Xcompiler -fPIC -o <build dir>/<name>-<hash>.so csrc/<name>.cu
 
 and is loaded with ``ctypes``. Nothing includes PyTorch's headers, so a
-build takes seconds. The library file is named by the hash of its source
-(and of the flags), so an edited source is rebuilt at its next use and an
-unchanged one is loaded from the build directory. Builds happen at first
+build takes seconds. The library file is named by the hash of its source,
+of the shared headers (``csrc/*.cuh``) and of the flags, so an edited
+source or header is rebuilt at its next use and an unchanged one is loaded
+from the build directory. Builds happen at first
 use, never at import: ``import`` works on machines without nvcc.
 
 Every C entry point takes device pointers and the CUDA stream as
@@ -51,6 +52,12 @@ SIGNATURES = {
         # attr, winner, covered, rows, F, C, P, stream
         "gather_rows": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
+    "raster_pass1_worklist": {
+        # coef, block_ids, tile_offsets, tile_counts, iz, winner, F,
+        # face_block, H, W, pix_tile, stream
+        "raster_pass1_worklist": (
+            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+    },
 }
 
 
@@ -69,10 +76,13 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> str:
-    """Path of the built library for ``csrc/<name>.cu`` at its current
-    source hash (which need not exist yet)."""
-    with open(os.path.join(CSRC_DIR, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """Path of the built library for ``csrc/<name>.cu`` at the current hash
+    of its source and the shared headers (which need not exist yet)."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC_DIR) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC_DIR, fname), "rb") as f:
+            digest.update(f.read())
     return os.path.join(BUILD_DIR, f"{name}-{digest.hexdigest()[:16]}.so")
 
 

@@ -9,17 +9,22 @@ Counterpart of ``iros20_6d_pose_tracking_tpu/render/pallas_raster.py``:
     ``_kernel`` / ``pallas_pass1``), CUDA source ``csrc/raster_pass1.cu``;
   - :func:`gather_rows`, the pass-2 row gather (the TPU kernel
     ``_gather_kernel`` / ``pallas_gather_rows``), CUDA source
-    ``csrc/gather_rows.cu``.
+    ``csrc/gather_rows.cu``;
+  - :func:`pass1_worklist`, the work-list pass 1 (the TPU kernel
+    ``_wl_kernel`` / ``pallas_pass1_worklist``, with its list from
+    :func:`build_worklist`), CUDA source ``csrc/raster_pass1_worklist.cu``.
+    It gives K1's winners, computed only over the (pixel tile, face block)
+    pairs that intersect.
 
 ``split_f32_to_bf16_terms`` is not ported: the TPU kernel gathers rows
 with one-hot bf16 matmuls and needs the 3-term split to stay exact, while
-Hopper loads the rows directly. The work-list pass 1 (``_wl_kernel``) is
-still to be ported (ROADMAP.md, K3).
+Hopper loads the rows directly.
 
 Each wrapper runs its plain version (``*_ref``, beside it) when its tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a CUDA
 device; anything else raises. Each counts its kernel launches in a plain
-integer attribute (``pass1_winners.launches``, ``gather_rows.launches``).
+integer attribute (``pass1_winners.launches``, ``gather_rows.launches``,
+``pass1_worklist.launches``).
 """
 from __future__ import annotations
 
@@ -38,6 +43,9 @@ ROW_AW, ROW_BW, ROW_CW = 9, 10, 11
 PIX_TILE = 128
 
 _BIG = 3.0e8
+# (pixel, face) pairs the plain pass-1 versions evaluate at a time: about
+# 16 MB per float32 temporary, a few hundred MB at the peak.
+_PAIRS_PER_CHUNK = 1 << 22
 
 
 def build_face_coefficients(fx, fy, fiz, fvalid):
@@ -148,37 +156,83 @@ def _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile):
     return n_blocks
 
 
+def _padded_coef(coef, n_blocks: int, face_block: int):
+    """coef with poisoned (never covered) lanes appended up to
+    ``n_blocks * face_block`` faces."""
+    pad = n_blocks * face_block - coef.shape[1]
+    if not pad:
+        return coef
+    pad_coef = coef.new_zeros((12, pad))
+    pad_coef[ROW_C0:ROW_C2 + 1:ROW_C1 - ROW_C0] = -1.0  # c0 c1 c2
+    return torch.cat([coef, pad_coef], dim=1)
+
+
+def _pixel_centres(P: int, W: int, dev):
+    """(px, py) float32 of the flat pixel indices 0 .. P-1, and the indices."""
+    q = torch.arange(P, dtype=torch.int32, device=dev)
+    return (q % W).to(torch.float32), (q // W).to(torch.float32), q
+
+
+def _update_block(acc_key, acc_idx, sel, px, py, c, block_start: int,
+                  face_block: int):
+    """Fold face block ``c`` (12, face_block) into the running (key, winner)
+    of the pixels ``sel``: evaluate the four forms of every face as
+    ``(px * a + py * b) + c`` (one rounding per op), take the max packed key
+    ``(bits(iz) & ~(fb - 1)) | lane`` over the covered faces, and replace
+    the running key only where it is strictly greater. Pixels go in chunks
+    of at most ``_PAIRS_PER_CHUNK`` (pixel, face) pairs, so memory stays
+    bounded whatever the frame size."""
+    lane_mask = face_block - 1
+    lanes = torch.arange(face_block, dtype=torch.int32, device=c.device)
+    rows = max(1, _PAIRS_PER_CHUNK // face_block)
+    for sel_c in torch.split(sel, rows):
+        qx, qy = px[sel_c, None], py[sel_c, None]
+
+        def form(row):
+            return (qx * c[row][None, :] + qy * c[row + 1][None, :]) \
+                + c[row + 2][None, :]
+
+        e0, e1, e2 = form(ROW_A0), form(ROW_A1), form(ROW_A2)
+        izp = form(ROW_AW)
+        covered = (torch.minimum(torch.minimum(e0, e1), e2) >= 0.0) \
+            & (izp > 0.0)
+        key = torch.where(covered,
+                          (izp.view(torch.int32) & ~lane_mask) | lanes, -1)
+        best = key.amax(dim=1)
+        old = acc_key[sel_c]
+        better = best > old
+        acc_key[sel_c] = torch.where(better, best, old)
+        acc_idx[sel_c] = torch.where(better, (best & lane_mask) + block_start,
+                                     acc_idx[sel_c])
+
+
+def _winners_from_key(acc_key, acc_idx, hw, face_block: int):
+    """(iz, winner) (H, W) from the running keys: iz -1 where no face
+    covers."""
+    iz = torch.where(acc_key < 0, -1.0,
+                     (acc_key & ~(face_block - 1)).view(torch.float32))
+    return iz.reshape(hw), acc_idx.reshape(hw)
+
+
 def pass1_winners_ref(coef, block_bbox, hw: tuple[int, int],
                       face_block: int, pix_tile: int = PIX_TILE):
     """Plain version of :func:`pass1_winners`: the same algorithm in
-    tensor ops, one face block at a time, so memory stays at
-    (pixels x face_block).
+    tensor ops, one face block at a time, in pixel chunks so memory stays
+    bounded.
 
     Per face block, in ascending order: pixels whose tile (``pix_tile``
-    consecutive pixels) passes the block-bbox test evaluate the four forms
-    of every face of the block as ``(px * a + py * b) + c`` (one rounding
-    per op), take the max packed key ``(bits(iz) & ~(fb - 1)) | lane`` over
-    the covered faces, and replace the running key only where it is
-    strictly greater. With ``pix_tile=512`` this is the TPU kernel's exact
-    algorithm, tile grid included."""
+    consecutive pixels) passes the block-bbox test are folded in by
+    :func:`_update_block`. With ``pix_tile=512`` this is the TPU kernel's
+    exact algorithm, tile grid included."""
     n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile)
     H, W = hw
     P = H * W
     dev = coef.device
-    F = coef.shape[1]
-    pad = n_blocks * face_block - F
-    if pad:  # poisoned lanes, never covered
-        pad_coef = coef.new_zeros((12, pad))
-        pad_coef[ROW_C0:ROW_C2 + 1:ROW_C1 - ROW_C0] = -1.0  # c0 c1 c2
-        coef = torch.cat([coef, pad_coef], dim=1)
-    lane_mask = face_block - 1
-    q = torch.arange(P, dtype=torch.int32, device=dev)
-    px = (q % W).to(torch.float32)
-    py = (q // W).to(torch.float32)
+    coef = _padded_coef(coef, n_blocks, face_block)
+    px, py, q = _pixel_centres(P, W, dev)
     first_q = (q // pix_tile) * pix_tile
     y0 = (first_q // W).to(torch.float32)
     y1 = ((first_q + pix_tile - 1) // W).to(torch.float32)
-    lanes = torch.arange(face_block, dtype=torch.int32, device=dev)
     acc_key = torch.full((P,), -1, dtype=torch.int32, device=dev)
     acc_idx = torch.zeros((P,), dtype=torch.int32, device=dev)
     for j in range(n_blocks):
@@ -189,28 +243,9 @@ def pass1_winners_ref(coef, block_bbox, hw: tuple[int, int],
         if sel.numel() == 0:
             continue
         s = j * face_block
-        c = coef[:, s:s + face_block]
-        qx, qy = px[sel, None], py[sel, None]
-
-        def form(row):
-            return (qx * c[row][None, :] + qy * c[row + 1][None, :]) \
-                + c[row + 2][None, :]
-
-        e0, e1, e2 = form(ROW_A0), form(ROW_A1), form(ROW_A2)
-        izp = form(ROW_AW)
-        covered = (torch.minimum(torch.minimum(e0, e1), e2) >= 0.0) \
-            & (izp > 0.0)
-        key = torch.where(covered, (izp.view(torch.int32) & ~lane_mask) | lanes,
-                          -1)
-        best = key.amax(dim=1)
-        old = acc_key[sel]
-        better = best > old
-        acc_key[sel] = torch.where(better, best, old)
-        acc_idx[sel] = torch.where(better, (best & lane_mask) + s,
-                                   acc_idx[sel])
-    iz = torch.where(acc_key < 0, -1.0,
-                     (acc_key & ~lane_mask).view(torch.float32))
-    return iz.reshape(H, W), acc_idx.reshape(H, W)
+        _update_block(acc_key, acc_idx, sel, px, py,
+                      coef[:, s:s + face_block], s, face_block)
+    return _winners_from_key(acc_key, acc_idx, hw, face_block)
 
 
 def pass1_winners(coef, block_bbox, hw: tuple[int, int], face_block: int):
@@ -284,3 +319,111 @@ def gather_rows(attr, winner, covered):
 
 
 gather_rows.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# K3: work-list pass 1.
+# ---------------------------------------------------------------------------
+
+def build_worklist(block_bbox, hw: tuple[int, int], pix_tile: int = PIX_TILE):
+    """Tile-major compacted list of the (pixel tile, face block) pairs that
+    intersect, as the JAX ``build_worklist`` makes it: (tile_ids, block_ids,
+    init_flags, valid_flags), each (n_tiles * n_blocks,) int32.
+
+    A pair intersects when the block's bbox meets the window's columns and
+    the tile's pixel rows (K1's skip test). The real entries come first, in
+    tile-major order with each tile's blocks ascending; the padding entries
+    repeat the last real tile with block 0 and valid 0. ``init_flags`` marks
+    each tile's first entry. The partition is a stable scatter, not a sort,
+    and the count of real entries stays on the device."""
+    H, W = hw
+    n_tiles = -(-(H * W) // pix_tile)
+    nb = block_bbox.shape[0]
+    dev = block_bbox.device
+    tile_first = torch.arange(n_tiles, device=dev) * pix_tile
+    y0 = (tile_first // W).to(torch.float32)
+    y1 = ((tile_first + pix_tile - 1) // W).to(torch.float32)
+    xmin, xmax, ymin, ymax = block_bbox.unbind(1)
+    hit = ((xmax[None, :] >= 0.0) & (xmin[None, :] <= W - 1.0)
+           & (ymax[None, :] >= y0[:, None]) & (ymin[None, :] <= y1[:, None]))
+    flat = hit.reshape(-1)
+    k = flat.to(torch.int64)
+    n_real = k.sum()
+    dest = torch.where(flat, torch.cumsum(k, 0) - 1,
+                       n_real + torch.cumsum(1 - k, 0) - 1)
+    idx = torch.arange(flat.numel(), device=dev)
+    order = torch.empty_like(dest).scatter_(0, dest, idx)
+    valid = idx < n_real
+    tiles, blocks = order // nb, order % nb
+    last_real_tile = tiles.index_select(0, torch.clamp(n_real - 1, min=0)
+                                        .reshape(1))
+    tiles = torch.where(valid, tiles, last_real_tile)
+    blocks = torch.where(valid, blocks, 0)
+    first = valid & ((idx == 0) | (tiles != torch.roll(tiles, 1)))
+    return tuple(a.to(torch.int32) for a in (tiles, blocks, first, valid))
+
+
+def pass1_worklist_ref(coef, block_bbox, hw: tuple[int, int],
+                       face_block: int, pix_tile: int = PIX_TILE):
+    """Plain version of :func:`pass1_worklist`: the kernel's algorithm in
+    tensor ops. The work list (:func:`build_worklist`), not the bbox test,
+    names the pairs: for each face block in ascending order, the pixels of
+    the tiles whose valid entries list it are folded in by
+    :func:`_update_block`. Each tile's entries are in ascending block order,
+    so every pixel sees its blocks in the order the kernel walks them."""
+    n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile)
+    H, W = hw
+    P = H * W
+    dev = coef.device
+    coef = _padded_coef(coef, n_blocks, face_block)
+    px, py, _ = _pixel_centres(P, W, dev)
+    tiles, blocks, _, valid = build_worklist(block_bbox, hw, pix_tile)
+    in_tile = torch.arange(pix_tile, device=dev)
+    acc_key = torch.full((P,), -1, dtype=torch.int32, device=dev)
+    acc_idx = torch.zeros((P,), dtype=torch.int32, device=dev)
+    for j in range(n_blocks):
+        t = tiles[(blocks == j) & (valid == 1)].to(torch.int64)
+        if t.numel() == 0:
+            continue
+        sel = (t[:, None] * pix_tile + in_tile).reshape(-1)
+        s = j * face_block
+        _update_block(acc_key, acc_idx, sel[sel < P], px, py,
+                      coef[:, s:s + face_block], s, face_block)
+    return _winners_from_key(acc_key, acc_idx, hw, face_block)
+
+
+def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
+    """Pass 1 over the work list of intersecting (pixel tile, face block)
+    pairs: the same (iz, winner) as :func:`pass1_winners` on the same
+    arguments.
+
+    CPU tensors run :func:`pass1_worklist_ref`; CUDA tensors build the list
+    on the device, view it per tile (entry counts and their exclusive scan)
+    and launch ``csrc/raster_pass1_worklist.cu`` on the current stream."""
+    if coef.device.type == "cpu" and block_bbox.device.type == "cpu":
+        return pass1_worklist_ref(coef, block_bbox, hw, face_block)
+    _check_pass1_args(coef, block_bbox, hw, face_block, PIX_TILE)
+    _check_cuda(("coef", coef, torch.float32),
+                ("block_bbox", block_bbox, torch.float32))
+    H, W = hw
+    dev = coef.device
+    tiles, blocks, _, valid = build_worklist(block_bbox, hw, PIX_TILE)
+    n_tiles = -(-(H * W) // PIX_TILE)
+    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev).index_add_(
+        0, tiles, valid)
+    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
+    iz = torch.empty((H, W), dtype=torch.float32, device=dev)
+    winner = torch.empty((H, W), dtype=torch.int32, device=dev)
+    lib = kbuild.load("raster_pass1_worklist")
+    with torch.cuda.device(dev):
+        err = lib.raster_pass1_worklist(
+            coef.data_ptr(), blocks.data_ptr(), offsets.data_ptr(),
+            counts.data_ptr(), iz.data_ptr(), winner.data_ptr(),
+            coef.shape[1], face_block, H, W, PIX_TILE,
+            torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(lib, "raster_pass1_worklist", err)
+    pass1_worklist.launches += 1
+    return iz, winner
+
+
+pass1_worklist.launches = 0

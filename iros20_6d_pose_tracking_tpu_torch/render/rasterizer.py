@@ -10,7 +10,10 @@ The port follows the JAX package's Pallas path (``impl='pallas'``):
 
   - pass 1 is the packed-key winner search of
     :func:`~.raster_kernels.pass1_winners` (a CUDA kernel on the card, its
-    plain version on the CPU). The XLA sweep ``_pass1_xla`` and its
+    plain version on the CPU), or with ``worklist=True`` the same search
+    over the work list of intersecting (pixel tile, face block) pairs,
+    :func:`~.raster_kernels.pass1_worklist`, which gives the same bits and
+    suits sparse full-frame renders. The XLA sweep ``_pass1_xla`` and its
     zmin-argmin tie-break are not ported: the kernel's plain version takes
     their place as the reference;
   - depth comes from the winner's 1/z form (``depth_from_form=True``);
@@ -70,6 +73,11 @@ def upload(mesh: TriMesh, device) -> MeshArrays:
         fuvs=put(mesh.face_uvs) if textured else None,
         texture=put(mesh.texture) if textured else None,
     )
+
+
+def full_frame_window(width: int, height: int):
+    """Window covering the full image with integer-centred pixels."""
+    return (-0.5, width - 0.5, -0.5, height - 0.5)
 
 
 def window_from_bbox(bbox: torch.Tensor):
@@ -265,14 +273,20 @@ def _zmin_from_iz(iz):
                        torch.inf)
 
 
-def pass1(fx, fy, fiz, fvalid, out_hw):
-    """Pass-1 winner search over projected faces, without cull compaction.
-    Returns (zmin, iz, winner): metric depth (inf where no face), the best
-    inverse depth (-1 where none) and the winning face index."""
+def _pass1_kernel(worklist: bool):
+    """The pass-1 wrapper: K3 (work list) or K1. Both give the same bits."""
+    return rk.pass1_worklist if worklist else rk.pass1_winners
+
+
+def pass1(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
+    """Pass-1 winner search over projected faces, without cull compaction,
+    through K1 or, with ``worklist``, K3. Returns (zmin, iz, winner): metric
+    depth (inf where no face), the best inverse depth (-1 where none) and
+    the winning face index."""
     coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
     fb = pick_face_block(fx.shape[0])
     bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
-    iz, winner = rk.pass1_winners(coef, bbox, out_hw, fb)
+    iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
     return _zmin_from_iz(iz), iz, winner
 
 
@@ -307,6 +321,7 @@ def render(
     cull_backfaces: bool = False,
     lighting: torch.Tensor | None = None,
     fuse_pass2: bool = True,
+    worklist: bool = False,
 ):
     """Render the mesh at ``pose`` (OpenCV camera frame) into the ROI window.
 
@@ -320,6 +335,11 @@ def render(
       fuse_pass2: kept from the JAX signature, and only True is accepted:
         the winner rows are always gathered by the K2 wrapper
         (:func:`~.raster_kernels.gather_rows`).
+      worklist: run pass 1 through K3, the work list of intersecting (pixel
+        tile, face block) pairs (:func:`~.raster_kernels.pass1_worklist`),
+        instead of K1. The output is the same bit for bit; the full-frame
+        renders of a small object (``eval/synthetic_benchmark.py``) ask for
+        it, the tracking step's ROI renders keep K1.
 
     Returns rgb (H, W, 3) float32 in [0, 255] and depth_mm (H, W) float32
     (0 = no hit).
@@ -335,10 +355,10 @@ def render(
     if cull_backfaces:
         coef, bbox, fb, attr_coef = culled_pass1_inputs(
             mesh, fx, fy, fiz, fvalid, R, t, attr_coef)
-        iz, winner = rk.pass1_winners(coef, bbox, out_hw, fb)
+        iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
         zmin = _zmin_from_iz(iz)
     else:
-        zmin, _, winner = pass1(fx, fy, fiz, fvalid, out_hw)
+        zmin, _, winner = pass1(fx, fy, fiz, fvalid, out_hw, worklist)
     winner = torch.clamp(winner, 0, F - 1)
     hit = torch.isfinite(zmin) & (zmin < far)
     return _pass2_shade(mesh, R, t, attr_coef, zmin, winner, hit, out_hw,

@@ -2,7 +2,8 @@
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
-one tracking step on the CPU, and look at ``sys.modules``. ``chip_smoke.py``
+one tracking step and a two-frame hard test video with its scores on the
+CPU, and look at ``sys.modules``. ``chip_smoke.py``
 imports only the port, never the JAX package, and refuses to run without a
 CUDA card.
 """
@@ -24,6 +25,7 @@ torch.set_num_threads(2)
 import iros20_6d_pose_tracking_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
+    print("PORT_MODULE", m.name[len(port.__name__) + 1:])
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
 from iros20_6d_pose_tracking_tpu_torch.models import tracknet
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
@@ -40,6 +42,13 @@ rgb = np.full((192, 256, 3), 128, np.uint8)
 depth = np.full((192, 256), 500, np.uint16)
 out = t.on_track(pose, rgb, depth)
 assert out.shape == (4, 4) and np.isfinite(out).all()
+from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+gt = SB.make_gt_trajectory(2)
+mesh = rz.upload(M.make_cube(0.08), "cpu")
+rgb_v, dep_v = SB._quantize(*SB.render_test_video(mesh, gt, K, hw=(192, 256),
+                                                  hard=True))
+add, adi = SB.ME.batch_errors(gt, gt, M.make_cube(0.08).verts)
+assert 0.9 < (dep_v > 0).mean() < 1 and not add.any() and not adi.any()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 """
@@ -52,6 +61,11 @@ def test_port_imports_and_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
+    walked = {line.split()[1] for line in proc.stdout.splitlines()
+              if line.startswith("PORT_MODULE ")}
+    assert walked >= {"render.raster_kernels", "eval.metrics", "eval.eval_ycb",
+                      "eval.eval_ycbineoat", "eval.synthetic_benchmark",
+                      "datagen.pair_producer", "tracking.tracker"}, walked
 
 
 def _imported_modules(path):
