@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch port on one CUDA card: the tracking step and
-the closed-loop synthetic evaluation.
+"""Smoke run of the PyTorch port on one CUDA card: the tracking step, the
+closed-loop synthetic evaluation and synthetic training.
 
     python3 chip_smoke.py
 
@@ -21,7 +21,13 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      (``pass1_worklist``), in full 480x640 frames: the production mesh
      unculled, a 20,480-face icosphere at face block 256, random ragged
      cases and an empty frame: winners equal and iz bit-equal to its plain
-     version, and to K1 on the same full-frame inputs;
+     version, and to K1 on the same full-frame inputs. K1 with a batch
+     axis: the 8 views of a 4-pair training-sampler batch of the
+     production mesh at 176^2 and a ragged random batch, one launch each:
+     winners equal and iz bit-equal to the plain version, and every view
+     bit-equal to the call on that view alone; K2 on those 8 views and on a
+     ragged random batch of views (one launch) bit-equal to its plain
+     version;
   4. drives the slice: ``Tracker.from_parts`` with the full-width
      Se3TrackNet at 176^2 (seeded random weights, randomised BatchNorm
      statistics, regression heads scaled by 0.05 with zero bias), the
@@ -51,7 +57,32 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      ``torch.profiler`` window of 20 frames; then K3, K1 and plain K3 at
      480x640 on both full-frame meshes, one full-frame ``render`` through
      K3 and through K1, the ``render_test_video`` and ``evaluate_tracking``
-     rates over 60 frames, and ``batch_errors`` over 60 frames.
+     rates over 60 frames, and ``batch_errors`` over 60 frames;
+  7. drives synthetic training at full width, the configuration of the
+     JAX ``bench.py`` train_synth row: a 0.08 m cube, ``DRComposite()``,
+     the 480x640 intrinsics, batch 200 at 176^2, float32, TF32 off.
+     First K1 and K2 at the main path's own shapes, the 400 views of one
+     batch-200 sampler batch of the cube (one launch each): bit-equal to
+     their plain versions, and K1 to the 400 one-view calls. Then
+     ``compute_mean_std`` over 4 sampled batches and 10
+     ``train_step_synth`` steps: losses finite, and K1 and K2 launched
+     exactly once per sampled batch (the 400 views of a batch in one
+     launch). Then train steps on the card against the port's plain CPU
+     path from the same weights on the same batch and draws, with
+     ``train/compare.py`` (TRAIN_CHECKS): at 48^2 on a random batch without
+     augmentation, the JAX parity test's kind, under its bars; at 176^2 on
+     a sampled batch of 4 (RGB more than 1 level apart, and depth coverage
+     different, on under 0.1% of pixels) with the augmentation, under
+     float32's noise at that size. Each: 3 steps at lr 1e-5 and 2 at lr
+     1e-3; losses, the first step's gradients per tensor and the state
+     after 3 steps (after 1 at lr 1e-3). The CPU path with its convolutions
+     out of oneDNN is held to the same bars beside the card, as the witness
+     that they are float32's own noise. The trained state is saved, loaded
+     by ``Tracker(ckpt_dir=...)`` on the card and tracks 10 frames with
+     finite poses. Timings: sampler ms per batch-200 step split into
+     render, DR and augmentation; forward + backward, optimizer and
+     whole-step ms (CUDA events, median of 10); train samples/s; batched K1
+     against its plain version at 8 and at 400 views.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``; the last is
@@ -62,7 +93,6 @@ from __future__ import annotations
 
 import concurrent.futures
 import copy
-import dataclasses
 import json
 import subprocess
 import sys
@@ -95,6 +125,37 @@ CPU_RENDER_FRAMES = 3
 CPU_TRACK_FRAMES = 10
 # Calls of a pass-1 wrapper in one profiler window (phase 6).
 PROFILE_CALLS = 20
+# Phase 7: the JAX bench.py train_synth configuration, and the sizes of the
+# card-against-CPU check.
+TRAIN_BATCH = 200
+TRAIN_STEPS = 10
+MEAN_STD_BATCHES = 4
+TRAIN_XYZ = ((-0.12, 0.12), (-0.09, 0.09), (0.45, 0.85))
+CPU_TRAIN_BATCH = 4
+BATCHED_VIEWS = 8
+# The card-against-CPU train checks: the batch, its runs (lr, steps, the
+# step whose state is compared, the loss bar, the bar on each parameter
+# tensor's share of noisy elements or None for a reading) and the bars of
+# train/compare.py. "random": the JAX parity test's kind of batch and size,
+# under its bars. "sampled": the main path's batch at the main path's size,
+# under float32's noise there, measured on the CPU against the JAX package
+# and float64: a few ReLU and max-pool units whose inputs lie within
+# rounding of a switch take the other branch, so the first-step gradients
+# of two float32 implementations lie up to 1.0e-2 apart (L2, per tensor),
+# conv-bias gradients up to 8.9e-5 of their kernel's, and the step-2 loss
+# at lr 1e-3 4.1e-5 apart. Its "witness", the CPU path without oneDNN, is
+# held to the same bars beside the card.
+TRAIN_CHECKS = {
+    "random": {"res": 48, "sampled": False, "witness": False,
+               "runs": ((1e-5, 3, 3, 1e-5, None),
+                        (1e-3, 2, 1, 1e-5, 0.1)),
+               "grads": {}, "states": {}},
+    "sampled": {"res": RES, "sampled": True, "witness": True,
+                "runs": ((1e-5, 3, 3, 1e-4, None),
+                         (1e-3, 2, 1, 5e-4, None)),
+                "grads": {"grad_rtol": 3e-2, "bias_floor": 1e-4},
+                "states": {"var_rtol": 2e-4, "mean_lr": 1.0}},
+}
 
 
 def production_mesh():
@@ -247,8 +308,8 @@ def check_gather(name, attr, winner, covered):
     ref = rk.gather_rows_ref(attr, winner, covered)
     n_bits = int((rows.view(torch.int32) != ref.view(torch.int32)).sum())
     err = float((rows - ref).abs().max())
-    print(f"K2 {name}: F={attr.shape[0]} C={attr.shape[1]} "
-          f"P={winner.shape[0]} covered={int(covered.sum())} "
+    print(f"K2 {name}: attr {tuple(attr.shape)} winner "
+          f"{tuple(winner.shape)} covered={int(covered.sum())} "
           f"bit mismatches={n_bits} max|d row|={err}", flush=True)
     if n_bits:
         raise AssertionError(f"K2 disagrees with its plain version ({name})")
@@ -734,7 +795,471 @@ def time_eval(obj, gt, poses, ff_cases, card):
     return out["production"]["K3"], out["production"]["plain K3"]
 
 
+def sampler_views_case(mesh, width_mm, n_pairs, device, seed):
+    """K1 and K2 inputs of the 2 x ``n_pairs`` views one training-sampler
+    batch renders (poses from ``draw_synth`` on a CPU generator; A views,
+    then B views, both in A's window) of ``mesh`` at RES^2, unculled, as
+    ``data/dataset.py::render_pairs`` builds them: (coef (2n, 12, F),
+    block_bbox, face_block, attr (2n, F, C))."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    d = DS.draw_synth(torch.Generator().manual_seed(seed), n_pairs, RES, None,
+                      device)
+    A, B = DS.sample_poses(d, TRAIN_XYZ, 0.02, 15.0)
+    K = torch.as_tensor(K_PROD).to(device)
+    window = rz.window_from_bbox(roi.compute_bbox(A, K, width_mm,
+                                                  (1000.0, 1000.0, 1000.0)))
+    fx, fy, fiz, fvalid, _, _ = rz._project(
+        mesh, torch.cat([A, B]), K, torch.cat([window, window]), (RES, RES),
+        rz.NEAR_M)
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = rz.pick_face_block(fx.shape[-2])
+    return (coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb,
+            rz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh))
+
+
+def check_sampler_views(name, case):
+    """Batched K1 (one launch) on a sampler batch's views against its plain
+    version and the per-view calls, then batched K2 (one launch) on the
+    same views' attribute forms, winners and coverage against its plain
+    version. Returns (K1 error, K2 error, iz, winner)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    coef, bbox, fb, attr = case
+    e1, iz, win = check_batched_pass1(name, coef, bbox, (RES, RES), fb)
+    n = coef.shape[0]
+    winner = torch.clamp(win, 0, coef.shape[-1] - 1).reshape(n, -1)
+    covered = (iz > 1e-9).reshape(n, -1)
+    n0 = rk.gather_rows.launches
+    e2 = check_gather(f"batched {name}", attr, winner, covered)
+    if attr.is_cuda and rk.gather_rows.launches != n0 + 1:
+        raise AssertionError("batched K2 was not one launch")
+    return e1, e2
+
+
+def check_batched_pass1(name, coef, bbox, hw, fb):
+    """Batched K1 (one launch) against its plain version and against the
+    call on each view alone: winners equal, iz bit-equal. Returns (max |iz
+    difference|, iz, winner)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    n0 = rk.pass1_winners.launches
+    iz, win = rk.pass1_winners(coef, bbox, hw, fb)
+    if coef.is_cuda and rk.pass1_winners.launches != n0 + 1:
+        raise AssertionError("batched K1 was not one launch")
+    refs = {"plain": rk.pass1_winners_ref(coef, bbox, hw, fb),
+            "one view at a time": tuple(torch.stack(a) for a in zip(*(
+                rk.pass1_winners(c, b, hw, fb) for c, b in zip(coef, bbox))))}
+    bad = {}
+    for ref_name, (iz_ref, win_ref) in refs.items():
+        bad[ref_name] = (
+            int((win != win_ref).sum()),
+            int((iz.view(torch.int32) != iz_ref.view(torch.int32)).sum()))
+    err = float((iz - refs["plain"][0]).abs().max())
+    covered = [int(c) for c in (iz > 0).sum(dim=(1, 2))]
+    print(f"K1 batched {name}: B={coef.shape[0]} F={coef.shape[-1]} fb={fb} "
+          f"hw={hw} covered per view={covered} (winner, iz bit) mismatches "
+          f"{bad} max|d iz|={err}", flush=True)
+    if any(n for pair in bad.values() for n in pair):
+        raise AssertionError(f"batched K1 disagrees ({name}): {bad}")
+    if min(covered) == 0:
+        raise AssertionError(f"batched K1 case {name}: a view covers nothing")
+    return err, iz, win
+
+
+def check_batched_kernels(tracker):
+    """Phase 3, the batch axis: K1 and K2 on the 8 views of a 4-pair
+    sampler batch of the production mesh, and K1 on a ragged random batch
+    and K2 on a ragged random batch of views. Returns (max K1 error, max K2
+    error, the production views' K1 inputs)."""
+    import torch
+
+    dev = tracker.device
+    case = sampler_views_case(tracker.mesh, tracker.cfg.object_width_mm,
+                              BATCHED_VIEWS // 2, dev, SEED)
+    e1, e2 = check_sampler_views("sampler views", case)
+    rng = np.random.RandomState(SEED + 2)
+    hw = (131, 97)
+    cases = [fuzz_case(rng, 1500, hw, 512, dev) for _ in range(5)]
+    e1 = max(e1, check_batched_pass1(
+        "fuzz", torch.stack([c for c, _ in cases]),
+        torch.stack([b for _, b in cases]), hw, 512)[0])
+    attr_f = torch.as_tensor(rng.randn(3, 700, 36) * 100,
+                             dtype=torch.float32).to(dev)
+    win_f = torch.as_tensor(rng.randint(0, 700, (3, 7013)),
+                            dtype=torch.int32).to(dev)
+    cov_f = torch.as_tensor(rng.rand(3, 7013) > 0.3).to(dev)
+    e2 = max(e2, check_gather("batched fuzz", attr_f, win_f, cov_f))
+    return e1, e2, case[:3]
+
+
+def train_setup(device, res=RES):
+    """The phase-7 sampler (cube, DR, production intrinsics) on
+    ``device`` at ``res``^2, and its TrainConfig."""
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    tm = M.make_cube(0.08)
+    synth = DS.SyntheticPairs(
+        rz.upload(tm, device), K_PROD, resolution=res,
+        object_width_mm=tm.diameter * 1000 * 1.1, max_trans=0.02,
+        max_rot_deg=15.0, xyz_range=TRAIN_XYZ, dr=DS.DRComposite())
+    return tm, synth, tr.TrainConfig(resolution=res, batch_size=TRAIN_BATCH)
+
+
+def run_train(synth, cfg, dev):
+    """Phase 7, the training path through the entry points a user calls:
+    ``compute_mean_std`` over MEAN_STD_BATCHES sampled batches, then
+    TRAIN_STEPS ``train_step_synth`` steps from Flax's initialisers, each
+    between two CUDA events. The kernels' launch counts are zeroed just
+    before and read just after. Returns (launches, model, optimizer, mean,
+    std, losses, step ms)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    model = tracknet.init_params(tracknet.Se3TrackNet(image_size=RES).to(dev),
+                                 torch.Generator().manual_seed(SEED))
+    opt, lr_at = tr.make_optimizer(model, cfg, steps_per_epoch=1000)
+    torch.cuda.synchronize(dev)
+    for fn in (rk.pass1_winners, rk.gather_rows, rk.pass1_worklist):
+        fn.launches = 0
+    t0 = time.perf_counter()
+    mean, std = tr.compute_mean_std(
+        (synth.sample_batch(tr.step_generator(dev, 900, i), cfg.batch_size)
+         for i in range(MEAN_STD_BATCHES)),
+        cfg, dev, max_samples=MEAN_STD_BATCHES * cfg.batch_size)
+    print(f"train: compute_mean_std over {MEAN_STD_BATCHES} batches of "
+          f"{cfg.batch_size}: {time.perf_counter() - t0:.3f} s; mean "
+          f"{np.round(mean, 3).tolist()}, std {np.round(std, 3).tolist()}",
+          flush=True)
+    mean = torch.as_tensor(mean, dtype=torch.float32).to(dev)
+    std = torch.as_tensor(std, dtype=torch.float32).to(dev)
+    losses, step_ms = [], []
+    for i in range(TRAIN_STEPS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = tr.train_step_synth(model, opt, lr_at(i), cfg, synth,
+                                tr.step_generator(dev, 7, i),
+                                tr.step_generator(dev, 7, 10**6 + i),
+                                mean, std)
+        end.record()
+        end.synchronize()
+        step_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+    launches = {"raster_pass1": rk.pass1_winners.launches,
+                "gather_rows": rk.gather_rows.launches,
+                "raster_pass1_worklist": rk.pass1_worklist.launches}
+    return launches, model, opt, mean, std, losses, step_ms
+
+
+def _tree_to(d, device):
+    if isinstance(d, dict):
+        return {k: _tree_to(v, device) for k, v in d.items()}
+    return d.to(device)
+
+
+def random_raw_batch(res, n, seed):
+    """A raw pair batch on the CPU of the kind the JAX parity test uses:
+    RGB uniform in [0, 255], depth uniform in [300, 900] mm with 30% of the
+    pixels invalid, A at random rotations within the view ranges, B = A
+    perturbed by the sampler's pose perturbation."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+
+    rng = np.random.RandomState(seed)
+    A = se3.make_pose(
+        se3.so3_exp(torch.as_tensor(rng.randn(n, 3), dtype=torch.float32)),
+        torch.as_tensor(rng.uniform([-0.05, -0.05, 0.45], [0.05, 0.05, 0.7],
+                                    (n, 3)), dtype=torch.float32))
+    d = se3.draw_gaussian_magnitude(torch.Generator().manual_seed(seed),
+                                    (n,), "cpu")
+    depth = rng.uniform(300, 900, (2, n, res, res)).astype(np.float32)
+    depth[rng.rand(*depth.shape) < 0.3] = 0.0
+    return {"rgbA": torch.as_tensor(rng.uniform(0, 255, (n, res, res, 3)),
+                                    dtype=torch.float32),
+            "depthA": torch.from_numpy(depth[0]),
+            "rgbB": torch.as_tensor(rng.uniform(0, 255, (n, res, res, 3)),
+                                    dtype=torch.float32),
+            "depthB": torch.from_numpy(depth[1]),
+            "maskB": torch.from_numpy(depth[1] > 100),
+            "A_in_cam": A,
+            "B_in_cam": A @ se3.apply_gaussian_magnitude(d, 0.02, 15.0)}
+
+
+def sampled_on_both(synth_cpu, synth_dev, n, seed):
+    """One sampler batch of ``n`` pairs from draws on a CPU generator,
+    rendered on the CPU and on ``synth_dev``'s device. Returns the CPU
+    batch; raises unless RGB more than 1 level apart and depth coverage
+    differ on under 0.1% of pixels each."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+
+    cpu = torch.device("cpu")
+    d = DS.draw_synth(torch.Generator().manual_seed(seed), n,
+                      synth_cpu.resolution, synth_cpu.dr, cpu)
+    raws = {}
+    for s in (synth_cpu, synth_dev):
+        dd = _tree_to(d, s.device)
+        A, B = DS.sample_poses(dd, TRAIN_XYZ, 0.02, 15.0)
+        raws[s.device.type] = _tree_to(DS.render_pairs(
+            s.mesh, s.K, A, B, s.resolution, s.object_width_mm, s.dr,
+            dd["dr"]), cpu)
+    rc, rg = raws["cpu"], raws[synth_dev.device.type]
+    rgb_off = max(float((torch.abs(rc[k] - rg[k]).amax(-1) > 1.0)
+                        .float().mean()) for k in ("rgbA", "rgbB"))
+    cov_off = max(float(((rc[k] > 0) != (rg[k] > 0)).float().mean())
+                  for k in ("depthA", "depthB"))
+    print(f"train card vs plain CPU path: sampled batch of {n} at "
+          f"{synth_cpu.resolution}^2 with DR: rgb >1 level apart on "
+          f"{rgb_off:.2e} of pixels, depth coverage differs on {cov_off:.2e}",
+          flush=True)
+    if rgb_off >= 1e-3 or cov_off >= 1e-3:
+        raise AssertionError("card and CPU sampler batches disagree")
+    return rc
+
+
+def train_run(base, raw, draws, mean, std, cfg, steps, device,
+              onednn=True):
+    """``steps`` train steps of a copy of ``base`` on ``device`` at
+    ``cfg.learning_rate``, on one raw batch with the given augmentation
+    draws. ``onednn=False`` runs the CPU's convolutions without oneDNN
+    (another summation order). Returns (losses, each step's gradients, the
+    state after each step), on the CPU."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.train import compare
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    with torch.backends.mkldnn.flags(enabled=onednn):
+        model = copy.deepcopy(base).to(device)
+        opt, lr_at = tr.make_optimizer(model, cfg, steps_per_epoch=1000)
+        losses, grads, states = [], [], []
+        for i in range(steps):
+            m = tr.train_step(model, opt, lr_at(i), cfg, None,
+                              _tree_to(raw, device), mean.to(device),
+                              std.to(device),
+                              aug_draws=_tree_to(draws[i], device))
+            losses.append(float(m["loss"]))
+            grads.append(compare.grads_of(model))
+            states.append({k: v.to("cpu", copy=True)
+                           for k, v in model.state_dict().items()})
+    return losses, grads, states
+
+
+def compare_train_with_cpu(dev):
+    """Phase 7, train steps on the card against the port's plain CPU path,
+    from the same weights on the same batch and augmentation draws
+    (TRAIN_CHECKS): at 48^2 on a random batch without augmentation, as the
+    JAX parity test runs, under its bars, and at RES^2 on a sampled batch
+    with the augmentation. There, beside the card, the CPU path with its
+    convolutions out of oneDNN (another summation order) is held to the
+    same bars against the CPU path: the witness that those bars are
+    float32's own noise at that size. For each check and each run (lr,
+    steps): losses, the first step's gradients and the state after
+    ``state_after`` steps under ``train/compare.py``'s bars."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import augment as AUG
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.train import compare
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    n = CPU_TRAIN_BATCH
+    bad = []
+    for name, check in TRAIN_CHECKS.items():
+        res = check["res"]
+        if check["sampled"]:
+            _, synth_cpu, _ = train_setup(cpu, res)
+            _, synth_dev, _ = train_setup(dev, res)
+            raw = sampled_on_both(synth_cpu, synth_dev, n, SEED + 5)
+            aug_cfg = AUG.AugmentConfig()
+            mean = torch.tensor([80, 80, 80, 0, 80, 80, 80, 0],
+                                dtype=torch.float32)
+            std = torch.tensor([60, 60, 60, 100, 60, 60, 60, 100],
+                               dtype=torch.float32)
+        else:
+            raw = random_raw_batch(res, n, SEED + 5)
+            aug_cfg = AUG.AugmentConfig(
+                hsv_prob=0.0, noise_prob=0.0, blur_prob=0.0,
+                black_cover_prob=0.0, bright_mag=(1.0, 1.0))
+            mean = torch.tensor([120, 110, 100, 0, 120, 110, 100, 0],
+                                dtype=torch.float32)
+            std = torch.tensor([70, 70, 70, 300, 70, 70, 70, 300],
+                               dtype=torch.float32)
+        base = tracknet.init_params(tracknet.Se3TrackNet(image_size=res),
+                                    torch.Generator().manual_seed(SEED + 6))
+        for lr, steps, state_after, loss_rtol, noisy_share in check["runs"]:
+            cfg = tr.TrainConfig(resolution=res, batch_size=n,
+                                 learning_rate=lr, aug=aug_cfg)
+            draws = [AUG.draw_augment(
+                torch.Generator().manual_seed(SEED + 10 + i), n, (res, res),
+                cfg.aug, cpu) for i in range(steps)]
+            ref = train_run(base, raw, draws, mean, std, cfg, steps, cpu)
+            sides = {"card": (dev, True)}
+            if check["witness"]:
+                sides["CPU without oneDNN"] = (cpu, False)
+            for side, (device, onednn) in sides.items():
+                run = train_run(base, raw, draws, mean, std, cfg, steps,
+                                device, onednn)
+                loss_rel = max(abs(a - b) / abs(b)
+                               for a, b in zip(run[0], ref[0]))
+                grads = compare.compare_grads(base, run[1][0], ref[1][0],
+                                              **check["grads"])
+                states = compare.compare_states(
+                    base, run[2][state_after - 1], ref[2][state_after - 1],
+                    compare.noisy(run[1][:state_after], ref[1][:state_after]),
+                    lr, state_after, noisy_share=noisy_share,
+                    **check["states"])
+                print(f"train {side} vs plain CPU path, {name} batch of {n} "
+                      f"at {res}^2, {steps} steps at lr {lr}: losses "
+                      f"{run[0]} vs {ref[0]} (max rel diff {loss_rel:.3e}, "
+                      f"bar {loss_rtol}); first-step gradients (tensors, "
+                      f"worst / bar, at) {grads}; state after step "
+                      f"{state_after} {states}", flush=True)
+                if loss_rel > loss_rtol or compare.failed(grads, states):
+                    bad.append((side, name, lr))
+    print(f"train card vs plain CPU path: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    if bad:
+        raise AssertionError(f"train steps disagree with the CPU path: {bad}")
+
+
+def track_trained(tm, model, mean, std, dev):
+    """Phase 7, closing the loop: the trained state saved as a training
+    checkpoint, loaded by ``Tracker(ckpt_dir=...)`` on the card, tracks 10
+    frames of a clean rendered video. Returns the poses."""
+    import tempfile
+
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+    from iros20_6d_pose_tracking_tpu_torch.train import checkpoint as ck
+
+    info = {"resolution": RES, "object_width": tm.diameter * 1000 * 1.1,
+            "camera": {"focalX": float(K_PROD[0, 0]),
+                       "focalY": float(K_PROD[1, 1]),
+                       "centerX": float(K_PROD[0, 2]),
+                       "centerY": float(K_PROD[1, 2])}}
+    gt = SB.make_gt_trajectory(11)
+    frames = SB._quantize(*SB.render_test_video(rz.upload(tm, dev), gt,
+                                                K_PROD, hw=FRAME_HW))
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/model_best_train.pt"
+        ck.save_checkpoint(path, {"model": model.state_dict(),
+                                  "mean": mean.cpu(), "std": std.cpu()})
+        tracker = trk.Tracker(info, mean.cpu().numpy(), std.cpu().numpy(),
+                              ckpt_dir=path, mesh=tm, trans_normalizer=0.02,
+                              rot_normalizer=15 * np.pi / 180, device=dev)
+    poses = tracker.track_video(gt[0], frames[0][1:], frames[1][1:])
+    err_mm = np.linalg.norm(poses[:, :3, 3] - gt[1:, :3, 3], axis=1) * 1000
+    print(f"trained checkpoint -> Tracker(ckpt_dir=...) on the card: "
+          f"{len(poses)} frames, finite={np.isfinite(poses).all()}, "
+          f"translation error {np.round(err_mm, 2).tolist()} mm", flush=True)
+    if poses.shape != (10, 4, 4) or not np.isfinite(poses).all():
+        raise AssertionError("the trained tracker's poses are not finite")
+    return poses
+
+
+def time_train(synth, cfg, model, opt, mean, std, batched_cases, card):
+    """Phase 7 timings (CUDA events, median of TRAIN_STEPS): the sampler's
+    parts at batch TRAIN_BATCH (render: draws, poses and the 400-view
+    render; DR; augmentation), forward + backward, the optimizer, and
+    batched K1 against its plain version on each of ``batched_cases``
+    ({name: K1 inputs})."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import augment as AUG
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    dev, n, runs = synth.device, cfg.batch_size, TRAIN_STEPS
+    gen_seed = iter(range(10**9))
+
+    def render():
+        d = DS.draw_synth(tr.step_generator(dev, 5, next(gen_seed)), n, RES,
+                          synth.dr, dev)
+        A, B = DS.sample_poses(d, TRAIN_XYZ, 0.02, 15.0)
+        return d, DS.render_pairs(synth.mesh, synth.K, A, B, RES,
+                                  synth.object_width_mm)
+
+    d, raw = render()
+    bufs = tr.preprocess_batch(tr.step_generator(dev, 6), raw, mean, std,
+                               cfg, train=True)
+
+    def fwd_bwd():
+        out = model(bufs[0], bufs[1])
+        loss, _ = tracknet.loss_fn(out["trans"], out["rot"], bufs[2], bufs[3])
+        opt.zero_grad(set_to_none=False)
+        loss.backward()
+
+    model.train()
+    parts = {
+        "sampler render (draws, poses, 2x200 views)": render,
+        "sampler DR composite": lambda: DS.apply_dr(
+            d["dr"], raw["rgbB"], raw["depthB"], synth.dr),
+        "augmentation (draws + apply)": lambda: AUG.augment_batch(
+            tr.step_generator(dev, 8), raw["rgbB"], raw["depthB"],
+            raw["maskB"], cfg.aug),
+        "forward + backward": fwd_bwd,
+        "optimizer (Adam step)": opt.step,
+    }
+    ms = {}
+    for name, fn in parts.items():
+        ms[name] = cuda_ms(fn, runs=runs, warmup=2)
+        print(f"timing train part {name}: {ms[name]:.4f} ms (batch {n}, "
+              f"{RES}^2, median of {runs}) {card}", flush=True)
+    n_prof = 3
+    prof = profile_share(lambda: [tr.train_step_synth(
+        model, opt, cfg.learning_rate, cfg, synth,
+        tr.step_generator(dev, 9, i), tr.step_generator(dev, 9, 10**6 + i),
+        mean, std) for i in range(n_prof)], top=10)
+    if prof is None:
+        print("profile: torch.profiler recorded no device time; device busy "
+              "share of the train step not measured")
+    else:
+        busy_us, wall_us, n_ops, rows = prof
+        print(f"profile: {n_prof} train_step_synth steps: device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}%), {n_ops} device operations "
+              f"{card}")
+        for key, us, count in rows:
+            print(f"profile:   {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    for name, (coef, bbox, fb) in batched_cases.items():
+        k1 = cuda_ms(lambda: rk.pass1_winners(coef, bbox, (RES, RES), fb))
+        plain_runs = 5 if coef.shape[0] > BATCHED_VIEWS else TIMING_RUNS
+        k1_plain = cuda_ms(lambda: rk.pass1_winners_ref(
+            coef, bbox, (RES, RES), fb), runs=plain_runs, warmup=1)
+        print(f"timing kernel raster_pass1 batched: {k1:.4f} ms, plain "
+              f"version {k1_plain:.4f} ms ({name} at {RES}^2, median of "
+              f"{TIMING_RUNS} and {plain_runs}) {card}", flush=True)
+    return ms
+
+
 def main() -> int:
+    t_main = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -791,6 +1316,9 @@ def main() -> int:
     errs, prod = check_kernels(tracker, pose0)
     errs["raster_pass1_worklist"], ff_cases = check_worklist_cases(tracker,
                                                                    pose0)
+    e1, e2, batched_case = check_batched_kernels(tracker)
+    errs["raster_pass1"] = max(errs["raster_pass1"], e1)
+    errs["gather_rows"] = max(errs["gather_rows"], e2)
 
     # 4. The slice through the entry points a user calls.
     print(f"slice: Se3TrackNet full width at {RES}^2, "
@@ -874,6 +1402,49 @@ def main() -> int:
     ms["raster_pass1_worklist"], plain_ms["raster_pass1_worklist"] = \
         time_eval(obj, gt, result["poses"], ff_cases, card)
 
+    # 7. Synthetic training at full width, the card against the plain CPU
+    # path, the trained tracker, and the training timings.
+    tm_cube, synth, cfg = train_setup(dev)
+    print(f"train: Se3TrackNet full width at {RES}^2, batch {cfg.batch_size}, "
+          f"float32, 0.08 m cube with DRComposite(), {TRAIN_STEPS} "
+          "train_step_synth steps", flush=True)
+    train_case = sampler_views_case(synth.mesh, synth.object_width_mm,
+                                    cfg.batch_size, dev, SEED + 3)
+    e1, e2 = check_sampler_views(
+        f"train batch ({cfg.batch_size} pairs of the cube)", train_case)
+    errs["raster_pass1"] = max(errs["raster_pass1"], e1)
+    errs["gather_rows"] = max(errs["gather_rows"], e2)
+    t0 = time.perf_counter()
+    train_launches, model, opt, mean_t, std_t, losses, step_ms = run_train(
+        synth, cfg, dev)
+    train_s = time.perf_counter() - t0
+    n_batches = MEAN_STD_BATCHES + TRAIN_STEPS
+    want = {"raster_pass1": n_batches, "gather_rows": n_batches,
+            "raster_pass1_worklist": 0}
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"train: losses {losses}; launches {train_launches} (want {want}, "
+          f"one K1 and one K2 launch per sampled batch); {train_s:.3f} s; "
+          f"peak device memory so far {peak_gib:.2f} GiB", flush=True)
+    if train_launches != want:
+        raise AssertionError(f"training launch counts {train_launches} != "
+                             f"{want}")
+    if not np.isfinite(losses).all():
+        raise AssertionError("training losses are not finite")
+    compare_train_with_cpu(dev)
+    track_trained(tm_cube, model, mean_t, std_t, dev)
+    step_med = float(np.median(step_ms))
+    print(f"timing train step (train_step_synth: sampler, augmentation, "
+          f"forward, backward, Adam): {step_med:.4f} ms (median of "
+          f"{TRAIN_STEPS}, all {np.round(step_ms, 2).tolist()}); train "
+          f"{cfg.batch_size / step_med * 1e3:.2f} samples/s at batch "
+          f"{cfg.batch_size}, {RES}^2, float32, TF32 off {card}", flush=True)
+    time_train(synth, cfg, model, opt, mean_t, std_t,
+               {"8 sampler views of the production mesh": batched_case,
+                f"{2 * cfg.batch_size} sampler views of the cube (one train "
+                "batch)": train_case[:3]}, card)
+
+    print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
+          f"the result lines, kernel builds included {card}", flush=True)
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"{PORT}/csrc/{name}.cu", "replaces": REPLACES[name],

@@ -12,10 +12,16 @@
 // window's columns) are skipped. These are the TPU kernel's tie-break rules;
 // keeping them keeps its winners.
 //
-// What bounds it on this card. Arithmetic: P x F (pixel, face) pairs, each
-// 4 forms of 2 mul + 2 add plus the compare/select chain, against a few
-// bytes of output per pixel. At 176^2 pixels and 2048 faces that is about
-// 63M pairs, 1 GFLOP.
+// Batch axis: B views (the TPU kernel under jax.vmap, as the training
+// sampler renders 2 x batch views per step) in one launch. The grid is
+// (pixel tiles, B); each view reads its own coefficients and block bboxes
+// and writes its own outputs, so view b is the same bits as a launch on
+// view b alone. B = 1 is the tracking step's call.
+//
+// What bounds it on this card. Arithmetic: B x P x F (pixel, face) pairs,
+// each 4 forms of 2 mul + 2 add plus the compare/select chain, against a
+// few bytes of output per pixel. At 176^2 pixels and 2048 faces that is
+// about 63M pairs, 1 GFLOP, per view before the block skip.
 //
 // What the design does about it. One thread per pixel keeps its running key
 // in a register; a block of pix_tile threads (a pixel tile) stages the face
@@ -37,6 +43,14 @@ __global__ void raster_pass1_kernel(const float* __restrict__ coef,
                                     int W) {
   // Face-major staging: face f's twelve rows at smem[f * 12 .. f * 12 + 11].
   __shared__ __align__(16) float smem[pass1::kChunk * pass1::kRows];
+
+  // View blockIdx.y: its (12, F) coefficients, (n_blocks, 4) bboxes and
+  // (H * W,) outputs.
+  const long long view = blockIdx.y;
+  coef += view * 12 * F;
+  block_bbox += view * 4 * n_blocks;
+  iz_out += view * H * W;
+  winner_out += view * H * W;
 
   const int pix_tile = blockDim.x;
   const int first_q = blockIdx.x * pix_tile;
@@ -79,18 +93,19 @@ __global__ void raster_pass1_kernel(const float* __restrict__ coef,
 
 extern "C" {
 
-// coef: (12, F) f32; block_bbox: (n_blocks, 4) f32 [xmin, xmax, ymin, ymax];
-// iz, winner: (H * W,) f32 / i32 outputs. face_block is a power of two with
-// n_blocks = ceil(F / face_block); pix_tile (threads per block) is a
-// multiple of 32 in [32, 1024]. All pointers live on the current CUDA
-// device, which the caller sets; the kernel is queued on `stream` and
-// nothing synchronises.
+// coef: (B, 12, F) f32; block_bbox: (B, n_blocks, 4) f32 [xmin, xmax,
+// ymin, ymax]; iz, winner: (B, H * W) f32 / i32 outputs. face_block is a
+// power of two with n_blocks = ceil(F / face_block); pix_tile (threads per
+// block) is a multiple of 32 in [32, 1024]; 1 <= B <= 65535. All pointers
+// live on the current CUDA device, which the caller sets; the kernel is
+// queued on `stream` and nothing synchronises.
 int raster_pass1(const void* coef, const void* block_bbox, void* iz,
                  void* winner, int F, int n_blocks, int face_block, int H,
-                 int W, int pix_tile, void* stream) {
+                 int W, int pix_tile, int B, void* stream) {
   const int P = H * W;
-  if (P == 0) return 0;
-  const int grid = (P + pix_tile - 1) / pix_tile;
+  if (P == 0 || B == 0) return 0;
+  if (B < 0 || B > 65535) return static_cast<int>(cudaErrorInvalidValue);
+  const dim3 grid((P + pix_tile - 1) / pix_tile, B);
   raster_pass1_kernel<<<grid, pix_tile, 0,
                         static_cast<cudaStream_t>(stream)>>>(
       static_cast<const float*>(coef), static_cast<const float*>(block_bbox),

@@ -13,24 +13,36 @@ Every full-frame render goes through the work-list pass 1 (K3,
 ``render(..., worklist=True)``): a small object in a 480x640 frame is the
 sparse case the work list exists for. The tracker's ROI renders keep K1.
 
+:func:`train_object` trains a tracker for one object on the synthetic
+pair sampler (``data/dataset.py``) with ``train/trainer.py``, checkpointing
+and resuming by recipe fingerprint; :func:`hard_aug` is the augmentation
+stack of DR training.
+
 Everything runs on the device of the object's mesh. Not ported yet, and
-raising ``NotImplementedError``: training (``train_object``,
-``train_objects_ensemble``, ``hard_aug``; ROADMAP.md P14), the ensemble
-evaluation (P17), and the shift sweeps and ``run_suite`` (P16).
+raising ``NotImplementedError``: the object ensemble
+(``train_objects_ensemble``, ``ensemble_evaluate_tracking``; ROADMAP.md
+P17), and the shift sweeps and ``run_suite`` (P16).
 """
 from __future__ import annotations
 
+import hashlib
+import os
+import time
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..core import se3
+from ..data import augment as A
+from ..data.dataset import DRComposite, SyntheticPairs
 from ..datagen.pair_producer import _procedural_texture
 from ..models import tracknet
 from ..render import mesh as M
 from ..render import rasterizer as rz
 from ..tracking import tracker as trk
+from ..train import checkpoint as ck
+from ..train import trainer as tr
 from . import metrics as ME
 
 # YCB-Video camera intrinsics (reference dataset_info.yml camera block).
@@ -89,16 +101,135 @@ class BenchObject:
     losses: list = field(default_factory=list)
 
 
-def train_object(*args, **kwargs):
-    raise NotImplementedError(f"train_object: {_NOT_PORTED} (P14)")
+def _print_flush(*a):
+    print(*a, flush=True)
+
+
+def _recipe_fingerprint(dr, aug, device) -> str:
+    """Identifies a training recipe: a checkpoint of another recipe is not
+    resumed."""
+    desc = repr((repr(dr) if dr is not None else None, repr(aug),
+                 torch.device(device).type))
+    return hashlib.sha1(desc.encode()).hexdigest()[:12]
+
+
+def train_object(
+    tm: M.TriMesh,
+    K=YCB_K,
+    *,
+    name: str = "object",
+    steps: int = 10_000,
+    batch: int = 32,
+    res: int = 176,
+    dr: DRComposite | None = None,
+    aug: A.AugmentConfig | None = None,
+    seed_offset: int = 0,
+    log=_print_flush,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 1000,
+    device="cuda",
+) -> BenchObject:
+    """Train Se3TrackNet on synthetic pairs for one object, on ``device``.
+
+    The reference recipe (train.py:85-165): pose-perturbation pairs,
+    photometric augmentation, the mean/std pass, Adam; ``dr`` adds the
+    randomized scenes (``data/dataset.py::DRComposite``).
+
+    ``ckpt_dir``: the full training state is saved every ``ckpt_every``
+    steps and at the end to ``<ckpt_dir>/<name>_last.pt``, and a run of the
+    same name, steps, batch, resolution and recipe resumes from it. Step i
+    samples from ``step_generator(device, 7 + seed_offset, i)`` and augments
+    from ``(7 + seed_offset, 10**6 + i)``, so a resumed run consumes the
+    uninterrupted run's batches."""
+    dev = torch.device(device)
+    se3.pin_full_fp32()
+    mesh = rz.upload(tm, dev)
+    width = tm.diameter * 1000 * 1.1
+    cfg = tr.TrainConfig(
+        resolution=res, batch_size=batch, learning_rate=1e-3,
+        trans_normalizer=0.02, rot_normalizer=15 * np.pi / 180,
+        aug=aug if aug is not None else A.AugmentConfig())
+    recipe = _recipe_fingerprint(dr, cfg.aug, dev)
+    synth = SyntheticPairs(
+        mesh, K, resolution=res, object_width_mm=width, max_trans=0.02,
+        max_rot_deg=15.0,
+        xyz_range=((-0.12, 0.12), (-0.09, 0.09), (0.45, 0.85)), dr=dr)
+    ckpt_path = restored = None
+    if ckpt_dir:
+        os.makedirs(ckpt_dir, exist_ok=True)
+        ckpt_path = os.path.join(ckpt_dir, f"{name}_last.pt")
+        if os.path.exists(ckpt_path):
+            meta = ck.load_metadata(ckpt_path)
+            if (meta.get("name") == name
+                    and int(meta.get("total_steps", -1)) == steps
+                    and int(meta.get("batch", -1)) == batch
+                    and int(meta.get("res", -1)) == res
+                    and meta.get("recipe") == recipe):
+                restored = ck.load_checkpoint(ckpt_path, map_location=dev)
+            else:
+                log(f"[{name}] ignoring {ckpt_path}: different "
+                    "name/steps/batch/res/recipe")
+
+    if restored is not None:
+        mean, std = restored["mean"].to(dev), restored["std"].to(dev)
+    else:
+        mean, std = tr.compute_mean_std(
+            (synth.sample_batch(tr.step_generator(dev, 900 + seed_offset, i),
+                                batch) for i in range(4)),
+            cfg, dev, max_samples=4 * batch)
+        mean = torch.as_tensor(mean, dtype=torch.float32).to(dev)
+        std = torch.as_tensor(std, dtype=torch.float32).to(dev)
+    model = tracknet.Se3TrackNet(image_size=res).to(dev)
+    tracknet.init_params(model, torch.Generator().manual_seed(seed_offset))
+    opt, lr_at = tr.make_optimizer(model, cfg, steps_per_epoch=10_000)
+    start_step = 0
+    if restored is not None:
+        model.load_state_dict(restored["model"], strict=True)
+        opt.load_state_dict(restored["optimizer"])
+        start_step = int(restored["step"]) + 1
+        log(f"[{name}] resumed from {ckpt_path} at step {start_step}")
+
+    def save_ckpt(i):
+        ck.save_checkpoint(
+            ckpt_path, {"model": model.state_dict(),
+                        "optimizer": opt.state_dict(), "step": int(i),
+                        "mean": mean.cpu(), "std": std.cpu()},
+            metadata={"name": name, "step": int(i),
+                      "total_steps": int(steps), "batch": int(batch),
+                      "res": int(res), "recipe": recipe})
+
+    key = 7 + seed_offset
+    losses = []
+    t0 = time.time()
+    for i in range(start_step, steps):
+        m = tr.train_step_synth(
+            model, opt, lr_at(i), cfg, synth, tr.step_generator(dev, key, i),
+            tr.step_generator(dev, key, 10**6 + i), mean, std)
+        if i % 100 == 0 or i == steps - 1:
+            loss = float(m["loss"])
+            losses.append(loss)
+            log(f"[{name}] step {i}: loss={loss:.5f} "
+                f"trans={float(m['trans']):.5f} rot={float(m['rot']):.5f} "
+                f"({time.time() - t0:.0f}s)")
+        if ckpt_path and i and (i % ckpt_every == 0 or i == steps - 1):
+            save_ckpt(i)
+    tcfg = trk.TrackerConfig(
+        resolution=res, trans_normalizer=0.02,
+        rot_normalizer=15 * np.pi / 180, object_width_mm=width)
+    return BenchObject(
+        name=name, tm=tm, mesh=mesh, model=model.eval(), mean=mean, std=std,
+        width_mm=width, tcfg=tcfg, train_secs=time.time() - t0,
+        losses=losses)
 
 
 def train_objects_ensemble(*args, **kwargs):
-    raise NotImplementedError(f"train_objects_ensemble: {_NOT_PORTED} (P14)")
+    raise NotImplementedError(f"train_objects_ensemble: {_NOT_PORTED} (P17)")
 
 
-def hard_aug(*args, **kwargs):
-    raise NotImplementedError(f"hard_aug: {_NOT_PORTED} (P13, P14)")
+def hard_aug() -> A.AugmentConfig:
+    """Augmentation stack for DR training: the reference set plus depth
+    dropout (``depth_missing_prob``, off in reference training)."""
+    return A.AugmentConfig(depth_missing_prob=0.15)
 
 
 def ensemble_evaluate_tracking(*args, **kwargs):
@@ -115,7 +246,7 @@ def shift_axis_ablation(*args, **kwargs):
 
 
 def run_suite(*args, **kwargs):
-    raise NotImplementedError(f"run_suite: {_NOT_PORTED} (P14, P16, P17)")
+    raise NotImplementedError(f"run_suite: {_NOT_PORTED} (P16, P17)")
 
 
 def make_gt_trajectory(T: int, seed: int = 5,

@@ -45,8 +45,9 @@ _I = ctypes.c_int
 SIGNATURES = {
     "raster_pass1": {
         # coef, block_bbox, iz, winner, F, n_blocks, face_block, H, W,
-        # pix_tile, stream
-        "raster_pass1": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+        # pix_tile, B (views), stream
+        "raster_pass1": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                         _I),
     },
     "gather_rows": {
         # attr, winner, covered, rows, F, C, P, stream

@@ -15,7 +15,10 @@ Parameter names are the reference's state_dict keys (``convA1.0.weight``,
 ``convA2.bn1.running_var``, ``trans_out.0.bias``, ...), so reference
 ``.pth.tar`` checkpoints load with ``strict=True``; Flax variables of the
 JAX model come across through :func:`.convert.state_dict_from_jax`.
-BatchNorm uses eps 1e-5 and momentum 0.1 (Flax's momentum 0.9).
+BatchNorm uses eps 1e-5 and momentum 0.1 (Flax's momentum 0.9), and in
+train mode updates its running variance with the biased batch variance, as
+Flax does (:class:`BatchNorm2d`). :func:`init_params` draws Flax's default
+initialisers, so a freshly initialised network is the JAX trainer's.
 
 The public ``forward(A, B)`` takes NHWC ``(N, H, W, 4)`` like the JAX model
 and returns ``{"feature" (N, H/8, W/8, 256) NHWC, "trans" (N, 3),
@@ -23,8 +26,38 @@ and returns ``{"feature" (N, H/8, W/8, 256) NHWC, "trans" (N, 3),
 """
 from __future__ import annotations
 
+import math
+
 import torch
 from torch import nn
+from torch.nn import functional as F
+
+from ..core.se3 import truncated_normal
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` with Flax's running statistics.
+
+    In train mode torch updates ``running_var`` with the unbiased batch
+    variance (x n/(n-1)); Flax's ``nn.BatchNorm`` uses the biased one. Here
+    the normalization is torch's own (``F.batch_norm`` on the batch
+    statistics), and the running buffers are written from the biased
+    variance: ``running = (1 - momentum) * running + momentum * batch``.
+    Eval mode is unchanged. The buffers keep the reference's names, so
+    reference checkpoints load with ``strict=True``."""
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                         self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y
 
 
 class ConvBNSELU(nn.Sequential):
@@ -36,7 +69,7 @@ class ConvBNSELU(nn.Sequential):
         p = (kernel_size - 1) // 2
         super().__init__(
             nn.Conv2d(cin, cout, kernel_size, stride, p, bias=True),
-            nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1),
+            BatchNorm2d(cout, eps=1e-5, momentum=0.1),
             nn.SELU(),
         )
 
@@ -48,9 +81,9 @@ class ResnetBasicBlock(nn.Module):
     def __init__(self, ch: int):
         super().__init__()
         self.conv1 = nn.Conv2d(ch, ch, 3, 1, 1, bias=True)
-        self.bn1 = nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+        self.bn1 = BatchNorm2d(ch, eps=1e-5, momentum=0.1)
         self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=True)
-        self.bn2 = nn.BatchNorm2d(ch, eps=1e-5, momentum=0.1)
+        self.bn2 = BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
         y = torch.relu(self.bn1(self.conv1(x)))
@@ -119,3 +152,29 @@ def loss_fn(pred_trans, pred_rot, target_trans, target_rot,
 
 def create_model(image_size: int = 176) -> Se3TrackNet:
     return Se3TrackNet(image_size=image_size)
+
+
+# Flax's lecun_normal: a normal truncated to [-2, 2] whose stddev is
+# divided by the truncated distribution's own (0.8796...), so the kernel's
+# variance is exactly 1 / fan_in.
+_TRUNC_STD = 0.87962566103423978
+
+
+@torch.no_grad()
+def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Flax's default initialisers, drawn from ``generator``: conv and
+    dense kernels lecun-normal (truncated normal of variance 1 / fan_in),
+    biases 0, BatchNorm scale 1 and bias 0, running mean 0 and variance 1.
+    (Torch's own default, kaiming-uniform, is a different network at step
+    0.) Modules are visited in registration order. Returns ``model``."""
+    for m in model.modules():
+        if isinstance(m, (nn.Conv2d, nn.Linear)):
+            fan_in = m.weight[0].numel()
+            std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
+            z = truncated_normal(tuple(m.weight.shape), generator,
+                                 m.weight.device, -2.0, 2.0)
+            m.weight.copy_(z * std)
+            m.bias.zero_()
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+    return model

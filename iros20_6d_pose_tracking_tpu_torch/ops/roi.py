@@ -20,12 +20,13 @@ def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
                  scale: tuple[float, float, float] = (1.0, 1.0, 1.0),
                  ) -> torch.Tensor:
     """Square ``scale_size`` window centred on the projected object origin,
-    as a (4, 2) int32 tensor of (v, u) = (row, col) corners. ``scale``
-    multiplies the pose translation ((1000, 1000, 1000) for metres -> mm).
-    ``torch.round`` rounds half to even, like ``jnp.round``."""
+    as a (4, 2) int32 tensor of (v, u) = (row, col) corners; a batch of
+    poses (..., 4, 4) gives (..., 4, 2). ``scale`` multiplies the pose
+    translation ((1000, 1000, 1000) for metres -> mm). ``torch.round``
+    rounds half to even, like ``jnp.round``."""
     # Constants come from device kernels, not torch.tensor(): a copy from
     # pageable host memory would make the host wait for the stream.
-    obj = [pose[i, 3] * scale[i] for i in range(3)]
+    obj = [pose[..., i, 3, None] * scale[i] for i in range(3)]
     offset = scale_size / 2.0
     corner = torch.arange(4, device=pose.device)
     dx = torch.where(corner >= 2, 1.0, -1.0) * offset  # [-1, -1, 1, 1]

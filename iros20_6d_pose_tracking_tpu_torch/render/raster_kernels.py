@@ -49,13 +49,15 @@ _PAIRS_PER_CHUNK = 1 << 22
 
 
 def build_face_coefficients(fx, fy, fiz, fvalid):
-    """Per-face linear-form coefficients (12, F), sign-folded, invalid faces
-    poisoned to never-covered (0, 0, -1). Returns (coef, ok).
+    """Per-face linear-form coefficients (..., 12, F), sign-folded, invalid
+    faces poisoned to never-covered (0, 0, -1). Returns (coef, ok).
 
-    fx, fy: (F, 3) screen coords of the triangle corners; fiz: (F, 3)
-    per-corner 1/z; fvalid: (F,) bool."""
-    x0, x1, x2 = fx[:, 0], fx[:, 1], fx[:, 2]
-    y0, y1, y2 = fy[:, 0], fy[:, 1], fy[:, 2]
+    fx, fy: (..., F, 3) screen coords of the triangle corners; fiz:
+    (..., F, 3) per-corner 1/z; fvalid: (..., F) bool. Leading axes are
+    views: every op is elementwise, so a view's coefficients are the same
+    bits batched or alone."""
+    x0, x1, x2 = fx[..., 0], fx[..., 1], fx[..., 2]
+    y0, y1, y2 = fy[..., 0], fy[..., 1], fy[..., 2]
     a0, b0, c0 = y1 - y2, x2 - x1, x1 * y2 - x2 * y1
     a1, b1, c1 = y2 - y0, x0 - x2, x2 * y0 - x0 * y2
     a2, b2, c2 = y0 - y1, x1 - x0, x0 * y1 - x1 * y0
@@ -63,7 +65,8 @@ def build_face_coefficients(fx, fy, fiz, fvalid):
     ok = fvalid & (torch.abs(area) > 1e-4)
     s = torch.where(area >= 0, 1.0, -1.0)
     inv_area = torch.where(ok, 1.0 / torch.where(ok, area, 1.0), 0.0)
-    w0, w1, w2 = fiz[:, 0] * inv_area, fiz[:, 1] * inv_area, fiz[:, 2] * inv_area
+    w0, w1, w2 = (fiz[..., 0] * inv_area, fiz[..., 1] * inv_area,
+                  fiz[..., 2] * inv_area)
     aw = a0 * w0 + a1 * w1 + a2 * w2
     bw = b0 * w0 + b1 * w1 + b2 * w2
     cw = c0 * w0 + c1 * w1 + c2 * w2
@@ -80,42 +83,45 @@ def build_face_coefficients(fx, fy, fiz, fvalid):
         fold(a2), fold(b2), fold_c(c2),
         torch.where(ok, aw, 0.0), torch.where(ok, bw, 0.0),
         torch.where(ok, cw, 0.0),
-    ], dim=0)
+    ], dim=-2)
     return coef.to(torch.float32), ok
 
 
 def build_face_bboxes(fx, fy, fvalid):
-    """Per-face screen bbox (F, 4): [xmin, xmax, ymin, ymax]; invalid faces
-    get an empty bbox (xmin > xmax)."""
-    v = fvalid[:, None]
-    xmin = torch.where(v, fx, _BIG).amin(dim=1)
-    ymin = torch.where(v, fy, _BIG).amin(dim=1)
-    xmax = torch.where(v, fx, -_BIG).amax(dim=1)
-    ymax = torch.where(v, fy, -_BIG).amax(dim=1)
-    return torch.stack([xmin, xmax, ymin, ymax], dim=1).to(torch.float32)
+    """Per-face screen bbox (..., F, 4): [xmin, xmax, ymin, ymax]; invalid
+    faces get an empty bbox (xmin > xmax)."""
+    v = fvalid[..., None]
+    xmin = torch.where(v, fx, _BIG).amin(dim=-1)
+    ymin = torch.where(v, fy, _BIG).amin(dim=-1)
+    xmax = torch.where(v, fx, -_BIG).amax(dim=-1)
+    ymax = torch.where(v, fy, -_BIG).amax(dim=-1)
+    return torch.stack([xmin, xmax, ymin, ymax], dim=-1).to(torch.float32)
 
 
 def reduce_block_bboxes(face_bbox, face_block: int):
-    """Union per-face bboxes into per-face-block bboxes (F / face_block, 4).
-    ``face_bbox.shape[0]`` must be a multiple of ``face_block``."""
-    F = face_bbox.shape[0]
+    """Union per-face bboxes (..., F, 4) into per-face-block bboxes
+    (..., F / face_block, 4). F must be a multiple of ``face_block``."""
+    F = face_bbox.shape[-2]
     if F % face_block:
         raise ValueError(f"{F} faces is not a multiple of {face_block}")
-    r = face_bbox.reshape(F // face_block, face_block, 4)
-    return torch.stack([r[..., 0].amin(dim=1), r[..., 1].amax(dim=1),
-                        r[..., 2].amin(dim=1), r[..., 3].amax(dim=1)], dim=1)
+    r = face_bbox.reshape(face_bbox.shape[:-2]
+                          + (F // face_block, face_block, 4))
+    return torch.stack([r[..., 0].amin(dim=-1), r[..., 1].amax(dim=-1),
+                        r[..., 2].amin(dim=-1), r[..., 3].amax(dim=-1)],
+                       dim=-1)
 
 
 def build_block_bboxes(fx, fy, fvalid, face_block: int):
-    """Per-face-block screen bbox (ceil(F / face_block), 4); a trailing
-    partial block is padded with empty faces, and blocks without valid
-    faces get an empty bbox (xmin > xmax)."""
-    F = fx.shape[0]
+    """Per-face-block screen bbox (..., ceil(F / face_block), 4); a
+    trailing partial block is padded with empty faces, and blocks without
+    valid faces get an empty bbox (xmin > xmax)."""
+    F = fx.shape[-2]
     pad = -F % face_block
     if pad:
-        fx = torch.cat([fx, fx.new_zeros((pad, 3))])
-        fy = torch.cat([fy, fy.new_zeros((pad, 3))])
-        fvalid = torch.cat([fvalid, fvalid.new_zeros((pad,))])
+        lead = fx.shape[:-2]
+        fx = torch.cat([fx, fx.new_zeros(lead + (pad, 3))], dim=-2)
+        fy = torch.cat([fy, fy.new_zeros(lead + (pad, 3))], dim=-2)
+        fvalid = torch.cat([fvalid, fvalid.new_zeros(lead + (pad,))], dim=-1)
     return reduce_block_bboxes(build_face_bboxes(fx, fy, fvalid), face_block)
 
 
@@ -139,14 +145,18 @@ def _check_cuda(*named):
 # ---------------------------------------------------------------------------
 
 def _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile):
+    """Validate K1/K3 arguments, (12, F) and (n_blocks, 4) for one view or
+    (B, 12, F) and (B, n_blocks, 4) for B views. Returns n_blocks."""
     H, W = hw
-    if coef.dim() != 2 or coef.shape[0] != 12:
-        raise ValueError(f"coef must be (12, F), got {tuple(coef.shape)}")
+    if coef.dim() not in (2, 3) or coef.shape[-2] != 12:
+        raise ValueError(f"coef must be (12, F) or (B, 12, F), got "
+                         f"{tuple(coef.shape)}")
     if face_block <= 0 or face_block & (face_block - 1):
         raise ValueError(f"face_block must be a power of two, got {face_block}")
-    n_blocks = -(-coef.shape[1] // face_block)
-    if tuple(block_bbox.shape) != (n_blocks, 4):
-        raise ValueError(f"block_bbox must be ({n_blocks}, 4), got "
+    n_blocks = -(-coef.shape[-1] // face_block)
+    want = coef.shape[:-2] + (n_blocks, 4)
+    if tuple(block_bbox.shape) != want:
+        raise ValueError(f"block_bbox must be {want}, got "
                          f"{tuple(block_bbox.shape)}")
     if pix_tile % 32 or not 32 <= pix_tile <= 1024:
         raise ValueError(f"pix_tile must be a multiple of 32 in [32, 1024], "
@@ -218,13 +228,18 @@ def pass1_winners_ref(coef, block_bbox, hw: tuple[int, int],
                       face_block: int, pix_tile: int = PIX_TILE):
     """Plain version of :func:`pass1_winners`: the same algorithm in
     tensor ops, one face block at a time, in pixel chunks so memory stays
-    bounded.
+    bounded; a batch of views is a loop over them.
 
     Per face block, in ascending order: pixels whose tile (``pix_tile``
     consecutive pixels) passes the block-bbox test are folded in by
     :func:`_update_block`. With ``pix_tile=512`` this is the TPU kernel's
     exact algorithm, tile grid included."""
     n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile)
+    if coef.dim() == 3:
+        views = [pass1_winners_ref(c, b, hw, face_block, pix_tile)
+                 for c, b in zip(coef, block_bbox)]
+        return (torch.stack([v[0] for v in views]),
+                torch.stack([v[1] for v in views]))
     H, W = hw
     P = H * W
     dev = coef.device
@@ -254,6 +269,10 @@ def pass1_winners(coef, block_bbox, hw: tuple[int, int], face_block: int):
     face covers; winner (H, W) int32, 0 where none). ``block_bbox`` is
     (ceil(F / face_block), 4); ``face_block`` a power of two.
 
+    A batch of B views, coef (B, 12, F) and block_bbox (B, n_blocks, 4),
+    gives iz and winner (B, H, W) from one launch; view b equals the call
+    on view b alone, bit for bit.
+
     CPU tensors run :func:`pass1_winners_ref`; CUDA tensors launch
     ``csrc/raster_pass1.cu`` on the current stream."""
     if coef.device.type == "cpu" and block_bbox.device.type == "cpu":
@@ -262,14 +281,19 @@ def pass1_winners(coef, block_bbox, hw: tuple[int, int], face_block: int):
     _check_cuda(("coef", coef, torch.float32),
                 ("block_bbox", block_bbox, torch.float32))
     H, W = hw
+    lead = coef.shape[:-2]
+    B = coef.shape[0] if lead else 1
     dev = coef.device
-    iz = torch.empty((H, W), dtype=torch.float32, device=dev)
-    winner = torch.empty((H, W), dtype=torch.int32, device=dev)
+    iz = torch.empty(lead + (H, W), dtype=torch.float32, device=dev)
+    winner = torch.empty(lead + (H, W), dtype=torch.int32, device=dev)
+    if B == 0:
+        return iz, winner
     lib = kbuild.load("raster_pass1")
     with torch.cuda.device(dev):
         err = lib.raster_pass1(coef.data_ptr(), block_bbox.data_ptr(),
-                               iz.data_ptr(), winner.data_ptr(), coef.shape[1],
-                               n_blocks, face_block, H, W, PIX_TILE,
+                               iz.data_ptr(), winner.data_ptr(),
+                               coef.shape[-1], n_blocks, face_block, H, W,
+                               PIX_TILE, B,
                                torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(lib, "raster_pass1", err)
     pass1_winners.launches += 1
@@ -283,8 +307,21 @@ pass1_winners.launches = 0
 # K2: pass-2 row gather.
 # ---------------------------------------------------------------------------
 
+def _flat_views(attr, winner, covered):
+    """A batch of views as one gather: attr (B, F, C) -> (B * F, C) and
+    each view's winners offset by b * F (int32)."""
+    B, F, C = attr.shape
+    offset = (torch.arange(B, dtype=torch.int32, device=winner.device)
+              * F)[:, None]
+    return (attr.reshape(B * F, C), (winner + offset).reshape(-1),
+            covered.reshape(-1))
+
+
 def gather_rows_ref(attr, winner, covered):
     """Plain version of :func:`gather_rows`."""
+    if attr.dim() == 3:
+        rows = gather_rows_ref(*_flat_views(attr, winner, covered))
+        return rows.reshape(winner.shape + (attr.shape[-1],))
     return torch.where(covered[:, None], attr[winner], 0.0)
 
 
@@ -292,18 +329,31 @@ def gather_rows(attr, winner, covered):
     """rows[p, :] = attr[winner[p], :] where ``covered[p]``, else 0.
 
     attr (F, C) float32; winner (P,) int32, in [0, F) where covered;
-    covered (P,) bool. CPU tensors run :func:`gather_rows_ref`; CUDA
-    tensors launch ``csrc/gather_rows.cu`` on the current stream."""
+    covered (P,) bool. A batch of B views, attr (B, F, C), winner and
+    covered (B, P), is one launch over the views' rows stacked (each
+    view's winners offset by b * F) and gives rows (B, P, C).
+
+    CPU tensors run :func:`gather_rows_ref`; CUDA tensors launch
+    ``csrc/gather_rows.cu`` on the current stream."""
     tensors = (("attr", attr, torch.float32), ("winner", winner, torch.int32),
                ("covered", covered, torch.bool))
     if all(t.device.type == "cpu" for _, t, _ in tensors):
         return gather_rows_ref(attr, winner, covered)
-    if attr.dim() != 2 or winner.dim() != 1 or \
-            tuple(covered.shape) != tuple(winner.shape):
-        raise ValueError(f"need attr (F, C), winner (P,), covered (P,); got "
+    batched = attr.dim() == 3
+    if attr.dim() - 1 != winner.dim() or winner.dim() not in (1, 2) or \
+            tuple(covered.shape) != tuple(winner.shape) or \
+            (batched and winner.shape[0] != attr.shape[0]):
+        raise ValueError(f"need attr (F, C), winner (P,), covered (P,) or "
+                         f"attr (B, F, C), winner (B, P), covered (B, P); got "
                          f"{tuple(attr.shape)}, {tuple(winner.shape)}, "
                          f"{tuple(covered.shape)}")
     _check_cuda(*tensors)
+    out_shape = winner.shape + (attr.shape[-1],)
+    if batched:
+        if attr.shape[0] * attr.shape[1] >= 2 ** 31:
+            raise ValueError(f"{attr.shape[0]} x {attr.shape[1]} rows do not "
+                             "fit int32 winner ids")
+        attr, winner, covered = _flat_views(attr, winner, covered)
     F, C = attr.shape
     P = winner.shape[0]
     dev = attr.device
@@ -315,7 +365,7 @@ def gather_rows(attr, winner, covered):
                               torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(lib, "gather_rows", err)
     gather_rows.launches += 1
-    return rows
+    return rows.reshape(out_shape)
 
 
 gather_rows.launches = 0
@@ -363,6 +413,12 @@ def build_worklist(block_bbox, hw: tuple[int, int], pix_tile: int = PIX_TILE):
     return tuple(a.to(torch.int32) for a in (tiles, blocks, first, valid))
 
 
+def _one_view(coef):
+    if coef.dim() != 2:
+        raise ValueError("the work-list pass 1 takes one view, coef (12, F); "
+                         f"got {tuple(coef.shape)}")
+
+
 def pass1_worklist_ref(coef, block_bbox, hw: tuple[int, int],
                        face_block: int, pix_tile: int = PIX_TILE):
     """Plain version of :func:`pass1_worklist`: the kernel's algorithm in
@@ -372,6 +428,7 @@ def pass1_worklist_ref(coef, block_bbox, hw: tuple[int, int],
     :func:`_update_block`. Each tile's entries are in ascending block order,
     so every pixel sees its blocks in the order the kernel walks them."""
     n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile)
+    _one_view(coef)
     H, W = hw
     P = H * W
     dev = coef.device
@@ -403,6 +460,7 @@ def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
     if coef.device.type == "cpu" and block_bbox.device.type == "cpu":
         return pass1_worklist_ref(coef, block_bbox, hw, face_block)
     _check_pass1_args(coef, block_bbox, hw, face_block, PIX_TILE)
+    _one_view(coef)
     _check_cuda(("coef", coef, torch.float32),
                 ("block_bbox", block_bbox, torch.float32))
     H, W = hw

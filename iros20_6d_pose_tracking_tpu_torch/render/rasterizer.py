@@ -23,6 +23,12 @@ The port follows the JAX package's Pallas path (``impl='pallas'``):
   - pass 2 gathers the winner rows with :func:`~.raster_kernels.gather_rows`
     (the JAX ``fuse_pass2=True``; plain indexing is not ported).
 
+:func:`render` also takes B poses (B, 4, 4) with B windows, unculled and
+through K1: the B views of one mesh (the JAX ``jax.vmap`` over ``render``,
+as the training sampler uses it) in one K1 launch and one K2 launch. Every
+step is batched, not looped, and view b is the same bits as ``render`` of
+pose b alone.
+
 Depth is metric millimetres, 0 where no surface or beyond ``far``. Lighting
 is the reference's: diffuse 0.4 x max(n . l, 0) + ambient 0.65, clamped, with
 a camera-attached light.
@@ -80,39 +86,61 @@ def full_frame_window(width: int, height: int):
     return (-0.5, width - 0.5, -0.5, height - 0.5)
 
 
-def window_from_bbox(bbox: torch.Tensor):
-    """(left, right, top, bottom) float32 scalars from a (4, 2) int (v, u)
-    bbox (the ``ops.roi.compute_bbox`` output)."""
+def window_from_bbox(bbox: torch.Tensor) -> torch.Tensor:
+    """(..., 4) float32 (left, right, top, bottom) from (..., 4, 2) int
+    (v, u) bboxes (the ``ops.roi.compute_bbox`` output)."""
     b = bbox.to(torch.float32)
-    return b[:, 1].min(), b[:, 1].max(), b[:, 0].min(), b[:, 0].max()
+    return torch.stack([b[..., 1].amin(-1), b[..., 1].amax(-1),
+                        b[..., 0].amin(-1), b[..., 0].amax(-1)], dim=-1)
 
 
 def _rotate(x: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
-    """x @ R^T over the last axis (object -> camera rotation)."""
-    return x @ R.transpose(0, 1)
+    """x @ R^T over the last axis (object -> camera rotation); x (..., 3)
+    with R (3, 3), or x (B, ..., 3) with one R (B, 3, 3) per view."""
+    return x @ R.transpose(-1, -2)
+
+
+def _rotate_views(x: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """One x (..., 3) rotated by each of B rotations R (B, 3, 3): (B, ...,
+    3). One matrix product against the B rotations side by side, whose
+    columns are each view's x @ R_b^T."""
+    if R.dim() == 2:
+        return _rotate(x, R)
+    B = R.shape[0]
+    cols = R.permute(2, 0, 1).reshape(3, 3 * B)  # [j, 3b + i] = R[b, i, j]
+    out = x.reshape(-1, 3) @ cols
+    return out.reshape(x.shape[:-1] + (B, 3)).movedim(-2, 0)
 
 
 def _project(mesh: MeshArrays, pose, K, window, out_hw, near):
-    """Face corners -> window pixel space. Returns (fx, fy, fiz, fvalid, R,
-    t) with (F, 3) screen coordinates and inverse depths per face."""
+    """Face corners -> window pixel space. ``window`` is four numbers or a
+    (..., 4) tensor (:func:`window_from_bbox`). Returns (fx, fy, fiz,
+    fvalid, R, t) with (F, 3) screen coordinates and inverse depths per
+    face. A batch of poses (B, 4, 4) with windows (B, 4) gives (B, F, 3)."""
     H, W = out_hw
     dev = mesh.fverts.device
+    lead = pose.shape[:-2]
+    if torch.is_tensor(window):
+        window = window.unbind(-1)
     left, right, top, bottom = [
-        torch.as_tensor(w, dtype=torch.float32, device=dev) for w in window]
-    R = pose[:3, :3]
-    t = pose[:3, 3]
-    xc = _rotate(mesh.fverts, R) + t  # (F, 3, 3)
+        torch.as_tensor(w, dtype=torch.float32, device=dev).reshape(
+            lead + (1, 1)) for w in window]
+    R = pose[..., :3, :3]
+    t = pose[..., :3, 3]
+    xc = _rotate_views(mesh.fverts, R) + t[..., None, None, :]  # (.., F, 3, 3)
     z = xc[..., 2]
     valid = z > near
     inv_z = torch.where(valid, 1.0 / torch.where(valid, z, 1.0), 0.0)
     u = xc[..., 0] * K[0, 0] * inv_z + K[0, 2]
     v = xc[..., 1] * K[1, 1] * inv_z + K[1, 2]
-    # Window pixel space: output pixel (i, j) has centre (j, i).
-    sx = W / (right - left)
-    sy = H / (bottom - top)
+    # Window pixel space: output pixel (i, j) has centre (j, i). A number
+    # over a tensor is reciprocal-then-multiply in torch, which can round
+    # differently from the division JAX computes; divide tensors instead.
+    sx = torch.full_like(right, W) / (right - left)
+    sy = torch.full_like(bottom, H) / (bottom - top)
     fx = (u - left) * sx - 0.5
     fy = (v - top) * sy - 0.5
-    fvalid = valid.all(dim=1) & mesh.fmask
+    fvalid = valid.all(dim=-1) & mesh.fmask
     return fx, fy, inv_z, fvalid, R, t
 
 
@@ -121,34 +149,36 @@ def _face_attr_coefficients(fx, fy, fiz, fvalid, mesh: MeshArrays):
     attr(p) = (alpha px + beta py + gamma) / izpix(p).
 
     Returns (F, 30): [izpix a, b, c | albedo 9 | normal 9 | position 9],
-    or (F, 36) with 6 UV forms appended for textured meshes."""
-    x0, x1, x2 = fx[:, 0], fx[:, 1], fx[:, 2]
-    y0, y1, y2 = fy[:, 0], fy[:, 1], fy[:, 2]
-    a = torch.stack([y1 - y2, y2 - y0, y0 - y1], dim=1)  # (F, 3)
-    b = torch.stack([x2 - x1, x0 - x2, x1 - x0], dim=1)
+    or (F, 36) with 6 UV forms appended for textured meshes; (B, F, ...)
+    for a batch of views."""
+    x0, x1, x2 = fx[..., 0], fx[..., 1], fx[..., 2]
+    y0, y1, y2 = fy[..., 0], fy[..., 1], fy[..., 2]
+    a = torch.stack([y1 - y2, y2 - y0, y0 - y1], dim=-1)  # (F, 3)
+    b = torch.stack([x2 - x1, x0 - x2, x1 - x0], dim=-1)
     c = torch.stack(
-        [x1 * y2 - x2 * y1, x2 * y0 - x0 * y2, x0 * y1 - x1 * y0], dim=1)
-    area = a[:, 0] * x0 + b[:, 0] * y0 + c[:, 0]
+        [x1 * y2 - x2 * y1, x2 * y0 - x0 * y2, x0 * y1 - x1 * y0], dim=-1)
+    area = a[..., 0] * x0 + b[..., 0] * y0 + c[..., 0]
     ok = fvalid & (torch.abs(area) > 1e-4)
     inv_area = torch.where(ok, 1.0 / torch.where(ok, area, 1.0), 0.0)
-    w = fiz * inv_area[:, None]  # (F, 3)
+    w = fiz * inv_area[..., None]  # (F, 3)
     aw, bw, cw = a * w, b * w, c * w
-    iz_abc = torch.stack([aw.sum(1), bw.sum(1), cw.sum(1)], dim=1)
+    iz_abc = torch.stack([aw.sum(-1), bw.sum(-1), cw.sum(-1)], dim=-1)
 
     def attr_forms(vattr):  # (F, 3, C) -> (F, 3C): [a_c..., b_c..., c_c...]
-        return torch.cat([(k[:, :, None] * vattr).sum(1)
-                          for k in (aw, bw, cw)], dim=1)
+        return torch.cat([(k[..., None] * vattr).sum(-2)
+                          for k in (aw, bw, cw)], dim=-1)
 
     packs = [iz_abc, attr_forms(mesh.fcolors), attr_forms(mesh.fnormals),
              attr_forms(mesh.fverts)]
     if mesh.fuvs is not None:
         packs.append(attr_forms(mesh.fuvs))
-    return torch.cat(packs, dim=1).to(torch.float32)
+    return torch.cat(packs, dim=-1).to(torch.float32)
 
 
 def _sample_texture(texture, u, v):
     """Bilinear texture fetch at OBJ-convention UVs (origin bottom-left,
-    wrap addressing). texture (Th, Tw, 3); u, v (P,). Returns (P, 3)."""
+    wrap addressing). texture (Th, Tw, 3); u, v (..., P). Returns
+    (..., P, 3)."""
     th, tw = texture.shape[:2]
     # Wrap, then flip v: image row 0 is the top of the texture.
     x = (u - torch.floor(u)) * (tw - 1)
@@ -157,8 +187,8 @@ def _sample_texture(texture, u, v):
     y0 = torch.clamp(torch.floor(y), 0, th - 1)
     x1 = torch.clamp(x0 + 1, max=tw - 1)
     y1 = torch.clamp(y0 + 1, max=th - 1)
-    fx = (x - x0)[:, None]
-    fy = (y - y0)[:, None]
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
     flat = texture.reshape(-1, 3)
     xi0, yi0 = x0.to(torch.int64), y0.to(torch.int64)
     xi1, yi1 = x1.to(torch.int64), y1.to(torch.int64)
@@ -179,8 +209,11 @@ def shade_rows(R, t, row, hit_f, out_hw, texture=None, lighting=None):
 
     ``lighting``: optional (5,) [ambient, diffuse, lx, ly, lz] overriding
     the reference's shading constants. Returns rgb (H, W, 3) in [0, 255]
-    and depth (H, W) in mm, both 0 where ``hit_f`` is False."""
+    and depth (H, W) in mm, both 0 where ``hit_f`` is False. A batch of
+    views, R (B, 3, 3), t (B, 3), rows (B, P, C) and ``hit_f`` (B, P),
+    gives (B, H, W, 3) and (B, H, W)."""
     H, W = out_hw
+    lead = row.shape[:-2]
     dev = row.device
     if lighting is None:
         ambient, diffuse, light_cam = AMBIENT, DIFFUSE, LIGHT_CAM
@@ -193,44 +226,48 @@ def shade_rows(R, t, row, hit_f, out_hw, texture=None, lighting=None):
     pix_x = pxg.reshape(-1)
     pix_y = pyg.reshape(-1)
 
-    izpix = row[:, 0] * pix_x + row[:, 1] * pix_y + row[:, 2]
+    izpix = row[..., 0] * pix_x + row[..., 1] * pix_y + row[..., 2]
     inv_iz = 1.0 / torch.clamp(izpix, min=1e-9)
 
     def attr(base, c=3):
-        al = row[:, base:base + c]
-        be = row[:, base + c:base + 2 * c]
-        ga = row[:, base + 2 * c:base + 3 * c]
+        al = row[..., base:base + c]
+        be = row[..., base + c:base + 2 * c]
+        ga = row[..., base + 2 * c:base + 3 * c]
         num = al * pix_x[:, None] + be * pix_y[:, None] + ga
-        return num * inv_iz[:, None]
+        return num * inv_iz[..., None]
 
-    if texture is not None and row.shape[1] >= 36:
+    if texture is not None and row.shape[-1] >= 36:
         uv = attr(30, c=2)
-        albedo = _sample_texture(texture, uv[:, 0], uv[:, 1])
+        albedo = _sample_texture(texture, uv[..., 0], uv[..., 1])
     else:
         albedo = attr(3)
     n_cam = _rotate(attr(12), R)
     n_cam = n_cam / torch.clamp(
         torch.linalg.vector_norm(n_cam, dim=-1, keepdim=True), min=1e-9)
-    p_cam = _rotate(attr(21), R) + t
+    p_cam = _rotate(attr(21), R) + t[..., None, :]
     # Per component, so the default light stays Python floats: a
     # torch.tensor() of it would be a host copy that waits for the stream.
-    l_vec = torch.stack([light_cam[i] - p_cam[:, i] for i in range(3)], -1)
+    l_vec = torch.stack([light_cam[i] - p_cam[..., i] for i in range(3)], -1)
     l_dir = l_vec / torch.clamp(
         torch.linalg.vector_norm(l_vec, dim=-1, keepdim=True), min=1e-9)
     ndotl = torch.clamp(torch.sum(n_cam * l_dir, dim=-1), min=0.0)
-    shade = torch.clamp(albedo * (ambient + diffuse * ndotl)[:, None],
+    shade = torch.clamp(albedo * (ambient + diffuse * ndotl)[..., None],
                         0.0, 1.0)
-    rgb = torch.where(hit_f[:, None], shade * 255.0, 0.0).reshape(H, W, 3)
-    depth_mm = torch.where(hit_f, inv_iz * 1000.0, 0.0).reshape(H, W)
+    rgb = torch.where(hit_f[..., None], shade * 255.0, 0.0).reshape(
+        lead + (H, W, 3))
+    depth_mm = torch.where(hit_f, inv_iz * 1000.0, 0.0).reshape(
+        lead + (H, W))
     return rgb, depth_mm
 
 
 def _pass2_shade(mesh: MeshArrays, R, t, attr_coef, zmin, winner, hit,
                  out_hw, lighting=None):
-    """Gather each pixel's winner row through the K2 wrapper and shade it."""
-    covered = torch.isfinite(zmin.reshape(-1))
-    row = rk.gather_rows(attr_coef, winner.reshape(-1), covered)
-    return shade_rows(R, t, row, hit.reshape(-1), out_hw,
+    """Gather each pixel's winner row through the K2 wrapper and shade it
+    (one view, or a batch of views in one gather)."""
+    flat = zmin.shape[:-2] + (-1,)
+    covered = torch.isfinite(zmin.reshape(flat))
+    row = rk.gather_rows(attr_coef, winner.reshape(flat), covered)
+    return shade_rows(R, t, row, hit.reshape(flat), out_hw,
                       texture=mesh.texture, lighting=lighting)
 
 
@@ -282,9 +319,9 @@ def pass1(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
     """Pass-1 winner search over projected faces, without cull compaction,
     through K1 or, with ``worklist``, K3. Returns (zmin, iz, winner): metric
     depth (inf where no face), the best inverse depth (-1 where none) and
-    the winning face index."""
+    the winning face index. A batch of views (B, F, 3) is one K1 launch."""
     coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = pick_face_block(fx.shape[0])
+    fb = pick_face_block(fx.shape[-2])
     bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
     iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
     return _zmin_from_iz(iz), iz, winner
@@ -326,9 +363,13 @@ def render(
     """Render the mesh at ``pose`` (OpenCV camera frame) into the ROI window.
 
     Args:
-      pose: (4, 4) object-in-camera, on the mesh's device, like ``K``.
-      window: (left, right, top, bottom) scalars in full-image pixel
-        coordinates; the output grid resamples this rectangle at ``out_hw``.
+      pose: (4, 4) object-in-camera, on the mesh's device, like ``K``; or
+        B poses (B, 4, 4), rendered unculled through K1 in one K1 and one
+        K2 launch, view b the same bits as ``render`` of pose b alone.
+      window: (left, right, top, bottom) in full-image pixel coordinates,
+        four numbers or a (4,) tensor, or (B, 4) for B poses
+        (:func:`window_from_bbox`); the output grid resamples this
+        rectangle at ``out_hw``.
       cull_backfaces: compact away faces whose oriented geometric normal
         points away from the camera before pass 1. Output-identical for
         closed meshes seen from outside; leave False for open geometry.
@@ -342,16 +383,19 @@ def render(
         it, the tracking step's ROI renders keep K1.
 
     Returns rgb (H, W, 3) float32 in [0, 255] and depth_mm (H, W) float32
-    (0 = no hit).
+    (0 = no hit); (B, H, W, 3) and (B, H, W) for B poses.
     """
     if not fuse_pass2:
         raise ValueError("fuse_pass2=False (plain row indexing) is not part "
                          "of the port: pass 2 always gathers through K2")
+    if pose.dim() == 3 and (cull_backfaces or worklist):
+        raise ValueError("a batch of poses renders unculled through K1: "
+                         "cull_backfaces and worklist take one pose")
     fx, fy, fiz, fvalid, R, t = _project(mesh, pose, K, window, out_hw, near)
     # On the culled path the attribute forms are compacted together with
     # the pass-1 tables, so winner ids index the permuted space throughout.
     attr_coef = _face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
-    F = fx.shape[0]
+    F = fx.shape[-2]
     if cull_backfaces:
         coef, bbox, fb, attr_coef = culled_pass1_inputs(
             mesh, fx, fy, fiz, fvalid, R, t, attr_coef)
@@ -363,3 +407,4 @@ def render(
     hit = torch.isfinite(zmin) & (zmin < far)
     return _pass2_shade(mesh, R, t, attr_coef, zmin, winner, hit, out_hw,
                         lighting=lighting)
+

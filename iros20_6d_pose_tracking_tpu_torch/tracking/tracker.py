@@ -150,12 +150,15 @@ def track_video(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
 
 
 def _load_checkpoint(path: str) -> dict:
-    """state_dict of a reference ``.pth``/``.pth.tar`` checkpoint."""
-    if not (path.endswith((".pth", ".tar")) or ".pth." in path):
+    """Network state_dict of a reference ``.pth``/``.pth.tar`` checkpoint
+    or of the port's own training checkpoint (``.pt``, ``train/``)."""
+    if not (path.endswith((".pth", ".tar", ".pt")) or ".pth." in path):
         raise NotImplementedError(
             f"{path}: Flax checkpoints are {_NOT_PORTED} (convert with "
             "models.convert.state_dict_from_jax)")
     ckpt = torch.load(path, map_location="cpu", weights_only=True)
+    if "model" in ckpt:  # train.checkpoint: model, optimizer, step, ...
+        return ckpt["model"]
     return ckpt.get("state_dict", ckpt)
 
 
@@ -168,8 +171,8 @@ class Tracker:
     ``device`` is where the model, the mesh and every step live; there is
     no fallback to another device. Weights come from ``variables`` (Flax,
     carried across by :func:`~..models.convert.state_dict_from_jax`), a
-    reference ``.pth.tar`` checkpoint at ``ckpt_dir``, or else a seeded
-    random init."""
+    checkpoint at ``ckpt_dir`` (a reference ``.pth.tar``, or a ``.pt`` the
+    port's trainer wrote), or else a seeded random init."""
 
     def __init__(
         self,

@@ -2,10 +2,11 @@
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
-one tracking step and a two-frame hard test video with its scores on the
-CPU, and look at ``sys.modules``. ``chip_smoke.py``
-imports only the port, never the JAX package, and refuses to run without a
-CUDA card.
+one tracking step, a two-frame hard test video with its scores and one
+synthetic train step on the CPU, and look at ``sys.modules``. Importing the
+port loads neither PyYAML nor Pillow (the training CLI and the file-backed
+dataset import them when they read a file). ``chip_smoke.py`` imports only
+the port, never the JAX package, and refuses to run without a CUDA card.
 """
 import ast
 import os
@@ -26,6 +27,7 @@ import iros20_6d_pose_tracking_tpu_torch as port
 for m in pkgutil.walk_packages(port.__path__, port.__name__ + "."):
     importlib.import_module(m.name)
     print("PORT_MODULE", m.name[len(port.__name__) + 1:])
+print("LAZY_MODULES", sorted(m for m in ("yaml", "PIL") if m in sys.modules))
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
 from iros20_6d_pose_tracking_tpu_torch.models import tracknet
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
@@ -49,6 +51,20 @@ rgb_v, dep_v = SB._quantize(*SB.render_test_video(mesh, gt, K, hw=(192, 256),
                                                   hard=True))
 add, adi = SB.ME.batch_errors(gt, gt, M.make_cube(0.08).verts)
 assert 0.9 < (dep_v > 0).mean() < 1 and not add.any() and not adi.any()
+from iros20_6d_pose_tracking_tpu_torch.data import dataset as D
+from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+synth = D.SyntheticPairs(rz.upload(M.make_cube(0.08), "cpu"), K,
+                         resolution=32, object_width_mm=110.0,
+                         dr=D.DRComposite())
+cfg = tr.TrainConfig(resolution=32, batch_size=2)
+net = tracknet.init_params(tracknet.create_model(32),
+                           torch.Generator().manual_seed(0))
+opt, lr_at = tr.make_optimizer(net, cfg, 10)
+m = tr.train_step_synth(net, opt, lr_at(0), cfg, synth,
+                        torch.Generator().manual_seed(1),
+                        torch.Generator().manual_seed(2),
+                        torch.zeros(8), torch.full((8,), 100.0))
+assert torch.isfinite(m["loss"])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 """
@@ -61,11 +77,15 @@ def test_port_imports_and_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
+    assert "LAZY_MODULES []" in proc.stdout, proc.stdout
     walked = {line.split()[1] for line in proc.stdout.splitlines()
               if line.startswith("PORT_MODULE ")}
     assert walked >= {"render.raster_kernels", "eval.metrics", "eval.eval_ycb",
                       "eval.eval_ycbineoat", "eval.synthetic_benchmark",
-                      "datagen.pair_producer", "tracking.tracker"}, walked
+                      "datagen.pair_producer", "tracking.tracker",
+                      "core.camera", "ops.image", "data.augment",
+                      "data.dataset", "train.trainer", "train.checkpoint",
+                      "utils.config", "apps.train"}, walked
 
 
 def _imported_modules(path):
@@ -82,7 +102,8 @@ def test_chip_smoke_imports_only_the_port():
     mods = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
     assert "iros20_6d_pose_tracking_tpu_torch.render" in mods
     bad = sorted(m for m in mods if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "iros20_6d_pose_tracking_tpu"))
+        "jax", "jaxlib", "flax", "iros20_6d_pose_tracking_tpu", "yaml",
+        "PIL"))
     assert not bad, bad
 
 

@@ -234,11 +234,13 @@ def test_evaluate_tracking_follows_jax(scene):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    for fn in (SB.train_object, SB.train_objects_ensemble, SB.hard_aug,
-               SB.ensemble_evaluate_tracking, SB.shift_severity_sweep,
-               SB.shift_axis_ablation, SB.run_suite):
+    # train_object and hard_aug are ported (tests/test_torch_trainer.py).
+    for fn in (SB.train_objects_ensemble, SB.ensemble_evaluate_tracking,
+               SB.shift_severity_sweep, SB.shift_axis_ablation, SB.run_suite):
         with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(P1[3-7]"):
             fn()
+    assert (SB.hard_aug().depth_missing_prob
+            == JSB.hard_aug().depth_missing_prob)
     assert SB.SYMMETRIC_OBJECTS == JSB.SYMMETRIC_OBJECTS
     assert SB.OBJECTS.keys() == JSB.OBJECTS.keys()
     np.testing.assert_array_equal(SB.YCB_K, JSB.YCB_K)
