@@ -15,9 +15,17 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
   3. holds each kernel against its plain PyTorch version on the card: the
      production mesh (a subdiv-4 icosphere decimated to 2048 faces) in a
      176^2 ROI with the back-face cull on and off, and random cases whose
-     pixel count is no multiple of the pixel tile and whose face count is no
-     multiple of the face block. K1 (``pass1_winners``): winners equal and
-     iz bit-equal. K2 (``gather_rows``): rows bit-equal. K3
+     window is no multiple of K1's 16 x 16 pixel block or of the pixel tile
+     and whose face count is no multiple of the face block, sliver
+     triangles and triangles with every corner on a pixel centre. K1
+     (``pass1_winners``): winners equal and iz bit-equal. K2
+     (``gather_rows``, the standalone row gather, off the render path):
+     rows bit-equal. Pass 2 fused (``pass2_shade``) against
+     ``pass2_shade_ref``: depth (and so hit) bit-equal, rgb within 1e-3
+     (of 255) everywhere, textured or not, and more than 1 level apart on
+     under 0.1% of pixels; on the production ROI with the cull on and off, with a
+     lighting override, the textured box, a 480x640 full frame, 8 sampler
+     views and (phase 7) the 400 views of a train batch. K3
      (``pass1_worklist``), in full 480x640 frames: the production mesh
      unculled, a 20,480-face icosphere at face block 256, random ragged
      cases and an empty frame: winners equal and iz bit-equal to its plain
@@ -27,7 +35,8 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      winners equal and iz bit-equal to the plain version, and every view
      bit-equal to the call on that view alone; K2 on those 8 views and on a
      ragged random batch of views (one launch) bit-equal to its plain
-     version;
+     version; the sliver and pixel-centre cases at B = 1 and the 400 views
+     of phase 7 complete K1's adversarial set;
   4. drives the slice: ``Tracker.from_parts`` with the full-width
      Se3TrackNet at 176^2 (seeded random weights, randomised BatchNorm
      statistics, regression heads scaled by 0.05 with zero bias), the
@@ -35,8 +44,8 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      frames.
      ``on_track`` runs 50 frames and ``track_video`` 100; the poses must be
      finite, every step's ROI must hold the centre of the observed object,
-     and each kernel's launch count must rise by exactly the number of
-     frames. Then 20 frames on the card
+     and K1's and ``pass2_shade``'s launch counts must rise by exactly the
+     number of frames (K2 and K3 by none). Then 20 frames on the card
      against the same 20 frames on the port's plain CPU path: within
      5e-4 m and 5e-3 rad per frame;
   5. drives the evaluation path (``eval/synthetic_benchmark.py``) with the
@@ -45,16 +54,25 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      through K3), ``_quantize`` and ``evaluate_tracking`` (ADD, ADD-S,
      VOCap). Poses and scores must be finite, and the launch counts must
      rise by exactly 120 for K3 (object and occluder on 60 frames), 179 for
-     K2 and 59 for K1. Then the card against the port's plain CPU path: the
-     first 3 quantized frames (RGB more than 1 level apart, and depth
-     coverage different, on under 0.1% of pixels each), the card's
-     trajectory scored on the CPU (within 1e-6 m), and 10 tracked frames
-     (within 5e-4 m and 5e-3 rad);
-  6. times K1 and K2 against their plain versions, the parts of one step
-     and the whole step (CUDA events, median of 50), and the steady
-     ``on_track`` and ``track_video`` rates (host clock around work that
-     ends with the pose on the host), and the device's busy share over a
-     ``torch.profiler`` window of 20 frames; then K3, K1 and plain K3 at
+     ``pass2_shade``, 59 for K1 and 0 for K2. Then the card against the
+     port's plain CPU path: the first 3 quantized frames (RGB more than 1
+     level apart, and depth coverage different, on under 0.1% of pixels
+     each), the card's trajectory scored on the CPU (within 1e-6 m), and 10
+     tracked frames (within 5e-4 m and 5e-3 rad);
+  6. times K1, ``pass2_shade``, K2 and ``torch.index_select`` (K2's
+     library yardstick, never called by the port) on the production inputs:
+     CUDA events around 50 launches queued behind a device-side sleep (so
+     the events time the device, not the host's enqueue), each kernel's
+     device time under ``torch.profiler``, its plain version (CUDA events
+     around each call, median of 50) and its bound (the larger of the bytes
+     the function needs over 3.35 TB/s and the float32 operations its
+     inputs need over 67 TFLOP/s); the pass 2 the port ran before (K2's rows written to device
+     memory, then ``shade_rows``); the parts of one step and the whole step
+     (CUDA events, median of 50), and the steady ``on_track`` and
+     ``track_video`` rates (host clock around work that ends with the pose
+     on the host), ``track_video`` in turns with the earlier pass 2, and the
+     device's busy share over a ``torch.profiler`` window of 20 frames;
+     then K3, K1 and plain K3 at
      480x640 on both full-frame meshes, one full-frame ``render`` through
      K3 and through K1, the ``render_test_video`` and ``evaluate_tracking``
      rates over 60 frames, and ``batch_errors`` over 60 frames;
@@ -63,17 +81,18 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      the 480x640 intrinsics, batch 200 at 176^2, float32, TF32 off.
      First K1 and K2 at the main path's own shapes, the 400 views of one
      batch-200 sampler batch of the cube (one launch each): bit-equal to
-     their plain versions, and K1 to the 400 one-view calls. Then
+     their plain versions, and K1 to the 400 one-view calls; and
+     ``pass2_shade`` on those views against its plain version. Then
      ``compute_mean_std`` over 4 sampled batches and 10
-     ``train_step_synth`` steps: losses finite, and K1 and K2 launched
-     exactly once per sampled batch (the 400 views of a batch in one
-     launch). Then train steps on the card against the port's plain CPU
-     path from the same weights on the same batch and draws, with
-     ``train/compare.py`` (TRAIN_CHECKS): at 48^2 on a random batch without
-     augmentation, the JAX parity test's kind, under its bars; at 176^2 on
-     a sampled batch of 4 (RGB more than 1 level apart, and depth coverage
-     different, on under 0.1% of pixels) with the augmentation, under
-     float32's noise at that size. Each: 3 steps at lr 1e-5 and 2 at lr
+     ``train_step_synth`` steps: losses finite, and K1 and ``pass2_shade``
+     launched exactly once per sampled batch (the 400 views of a batch in
+     one launch), K2 never. Then train steps on the card against the
+     port's plain CPU path from the same weights on the same batch and
+     draws, with ``train/compare.py`` (TRAIN_CHECKS): at 48^2 on a random
+     batch without augmentation, the JAX parity test's kind, under its
+     bars; at 176^2 on a sampled batch of 4 (RGB more than 1 level apart,
+     and depth coverage different, on under 0.1% of pixels) with the
+     augmentation, under float32's noise at that size. Each: 3 steps at lr 1e-5 and 2 at lr
      1e-3; losses, the first step's gradients per tensor and the state
      after 3 steps (after 1 at lr 1e-3). The CPU path with its convolutions
      out of oneDNN is held to the same bars beside the card, as the witness
@@ -81,18 +100,26 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      by ``Tracker(ckpt_dir=...)`` on the card and tracks 10 frames with
      finite poses. Timings: sampler ms per batch-200 step split into
      render, DR and augmentation; forward + backward, optimizer and
-     whole-step ms (CUDA events, median of 10); train samples/s; batched K1
-     against its plain version at 8 and at 400 views.
+     whole-step ms (CUDA events, median of 10); train samples/s; the
+     sampler render and the train step in turns with the earlier pass 2;
+     batched K1 and ``pass2_shade`` against their plain versions and
+     bounds at 8 and at 400 views.
 
 Every timing line carries the card's name and power limit. The line before
-the last is ``{"kernels": [...]}``; the last is
+the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
+kernel it replaces, its launches on the main path (the tracking slice; K3's
+from the evaluation path), its largest error against its plain version, and
+``ms``, ``plain_ms``, ``bound_ms`` / ``bound_by`` and ``library_ms`` on the
+production inputs (K3: the full frame). The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import copy
+import functools
 import json
 import subprocess
 import sys
@@ -102,6 +129,7 @@ import numpy as np
 
 SEED = 0
 RES = 176
+FAR = 2.0  # rasterizer.FAR_M, the render's far plane (m)
 FRAME_HW = (480, 640)
 # Intrinsics and ROI scale of the production configuration (bench.py).
 K_PROD = np.array([[1066.778, 0, 312.9869], [0, 1067.487, 241.3109],
@@ -111,20 +139,46 @@ TIMING_RUNS = 50
 # moves a little every frame and stays on the object.
 HEAD_SCALE = 0.05
 PORT = "iros20_6d_pose_tracking_tpu_torch"
-# The TPU kernels the CUDA kernels replace, by file and line.
+# The TPU kernels the CUDA kernels replace, by file and line. pass2_shade
+# replaces the row gather on the render path, fused with the shading of its
+# rows; gather_rows stays as the gather's standalone counterpart.
 REPLACES = {
     "raster_pass1": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:141",
     "gather_rows": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:299",
     "raster_pass1_worklist":
         "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:429",
+    "pass2_shade": "iros20_6d_pose_tracking_tpu/render/pallas_raster.py:299",
 }
+# Each kernel's wrapper in render/raster_kernels.py, and its __global__
+# function's name as the profiler shows it.
+WRAPPERS = {"raster_pass1": "pass1_winners", "gather_rows": "gather_rows",
+            "raster_pass1_worklist": "pass1_worklist",
+            "pass2_shade": "pass2_shade"}
+DEVICE_FN = {"raster_pass1": "raster_pass1_kernel",
+             "gather_rows": "gather_rows_kernel",
+             "raster_pass1_worklist": "raster_pass1_worklist_kernel",
+             "pass2_shade": "pass2_shade_kernel"}
+# The bound of a kernel: the larger of its bytes (each input the function
+# needs read once, each output written once) over the H100's memory rate
+# and the float32 operations its inputs need over the H100's float32 peak
+# outside the tensor cores (NVIDIA's data sheet, SXM, at 700 W). Pass 1
+# needs the coefficients of the faces whose screen bbox holds a pixel, and
+# 16 operations (four forms of 2 mul + 2 add) per (pixel, face) pair of
+# those bboxes; a gather (pass 2, K2) needs the distinct rows its pixels'
+# winners name, and pass 2 about 120 operations per hit pixel.
+HBM_BYTES_PER_S = 3.35e12
+F32_OPS_PER_S = 67e12
+OPS_PER_PAIR = 16
+OPS_PER_HIT_PIXEL = 120
 # Frames of the evaluation path's ground-truth video, and how many of them
 # the card-against-CPU phase renders and tracks.
 EVAL_FRAMES = 60
 CPU_RENDER_FRAMES = 3
 CPU_TRACK_FRAMES = 10
-# Calls of a pass-1 wrapper in one profiler window (phase 6).
+# Calls of a pass-1 wrapper in one profiler window (phase 6), and calls of
+# K3 (its work list and kernel, 52 device operations) in one queued run.
 PROFILE_CALLS = 20
+K3_RUNS = 10
 # Phase 7: the JAX bench.py train_synth configuration, and the sizes of the
 # card-against-CPU check.
 TRAIN_BATCH = 200
@@ -229,32 +283,56 @@ def make_tracker(net, device):
         np.zeros(8, np.float32), np.full(8, 100.0, np.float32))
 
 
+def render_case(mesh, pose, K, window, hw, cull, fb=None):
+    """The pass-1 and pass-2 inputs of one render of ``mesh`` (on its
+    device) at ``pose`` into ``window`` at ``hw``, with or without the
+    back-face cull, as ``rasterizer.render`` builds them: a dict of coef,
+    bbox, fb (``pick_face_block`` unless given), attr, R, t, and face_bbox,
+    the screen bboxes of the faces pass 1 searches (for the bound)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    dev = mesh.fverts.device
+    fx, fy, fiz, fvalid, R, t = rz._project(
+        mesh, torch.as_tensor(pose).to(dev), torch.as_tensor(K).to(dev),
+        window, hw, rz.NEAR_M)
+    attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    if cull:
+        coef, bbox, fb, attr = rz.culled_pass1_inputs(mesh, fx, fy, fiz,
+                                                      fvalid, R, t, attr)
+        searched = fvalid & ~rz._backface_mask(mesh, R, t)
+    else:
+        coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+        fb = fb or rz.pick_face_block(fx.shape[-2])
+        bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
+        searched = fvalid
+    return {"coef": coef, "bbox": bbox, "fb": fb, "attr": attr, "R": R,
+            "t": t, "face_bbox": rk.build_face_bboxes(fx, fy, searched)}
+
+
 def pass1_case(tracker, pose, cull):
-    """K1 and K2 inputs of one production render: (coef, block_bbox,
-    face_block, attr_coef) with or without the cull."""
+    """The inputs (``render_case``) of one production render in the ROI of
+    ``pose``, with or without the cull."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.ops import roi
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
 
     pose = torch.as_tensor(pose).to(tracker.device)
     bbox = roi.compute_bbox(pose, tracker.K, tracker.cfg.object_width_mm,
                             (1000.0, 1000.0, 1000.0))
-    fx, fy, fiz, fvalid, R, t = rz._project(
-        tracker.mesh, pose, tracker.K, rz.window_from_bbox(bbox), (RES, RES),
-        tracker.cfg.near)
-    attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, tracker.mesh)
-    if cull:
-        return rz.culled_pass1_inputs(tracker.mesh, fx, fy, fiz, fvalid, R,
-                                      t, attr)
-    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = rz.pick_face_block(fx.shape[0])
-    return coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb, attr
+    return render_case(tracker.mesh, pose, tracker.K,
+                       rz.window_from_bbox(bbox), (RES, RES), cull)
 
 
-def fuzz_case(rng, F, hw, fb, device):
-    """Random triangles over (and past) an (H, W) window, F faces."""
+def fuzz_case(rng, F, hw, fb, device, kind="random"):
+    """F triangles over (and past) an (H, W) window: "random" ones up to 25
+    pixels across; "slivers", two corners up to 240 pixels apart and the
+    third within 1e-3 to 1 pixel of the line between them; or
+    "corners_on_centres", random ones with every corner rounded to a pixel
+    centre. Returns (coef, block_bbox)."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
@@ -262,11 +340,24 @@ def fuzz_case(rng, F, hw, fb, device):
     H, W = hw
     cx = rng.uniform(-10, W + 10, (F, 1))
     cy = rng.uniform(-10, H + 10, (F, 1))
-    size = rng.uniform(1.0, 25.0, (F, 1))
-    fx = torch.as_tensor(cx + rng.uniform(-1, 1, (F, 3)) * size,
-                         dtype=torch.float32).to(device)
-    fy = torch.as_tensor(cy + rng.uniform(-1, 1, (F, 3)) * size,
-                         dtype=torch.float32).to(device)
+    if kind == "slivers":
+        ang = rng.uniform(0, np.pi, (F, 1))
+        half = rng.uniform(3, 120, (F, 1))
+        d = np.concatenate([np.cos(ang), np.sin(ang)], 1)
+        off = rng.uniform(-1, 1, (F, 1)) * 10.0 ** rng.uniform(-3, 0, (F, 1))
+        s = rng.uniform(-1, 1, (F, 1))
+        c = np.concatenate([cx, cy], 1)
+        pts = np.stack([c - half * d, c + half * d,
+                        c + s * half * d + off * d[:, ::-1] * [-1, 1]], 1)
+        x, y = pts[..., 0], pts[..., 1]
+    else:
+        size = rng.uniform(1.0, 25.0, (F, 1))
+        x = cx + rng.uniform(-1, 1, (F, 3)) * size
+        y = cy + rng.uniform(-1, 1, (F, 3)) * size
+        if kind == "corners_on_centres":
+            x, y = np.round(x), np.round(y)
+    fx = torch.as_tensor(x, dtype=torch.float32).to(device)
+    fy = torch.as_tensor(y, dtype=torch.float32).to(device)
     fiz = torch.as_tensor(rng.uniform(0.5, 3.0, (F, 3)),
                           dtype=torch.float32).to(device)
     fvalid = torch.as_tensor(rng.rand(F) > 0.05).to(device)
@@ -314,6 +405,233 @@ def check_gather(name, attr, winner, covered):
     if n_bits:
         raise AssertionError(f"K2 disagrees with its plain version ({name})")
     return err
+
+
+def check_pass2(name, case, hw, texture=None, lighting=None):
+    """``pass2_shade`` against ``pass2_shade_ref`` on one case's attr, R, t
+    and pass-1 outputs (iz, win): depth bit-equal (so hit too), rgb finite
+    and within 1e-3 (of 255) everywhere, textured or not (the kernel sums
+    the rotation and the norms in its own order), and, as a second count,
+    more than 1 level apart on under 0.1% of pixels. Returns the max |rgb
+    difference|."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    args = (case["attr"], case["iz"], case["win"], case["R"], case["t"], hw,
+            FAR)
+    rgb, depth = rk.pass2_shade(*args, texture=texture, lighting=lighting)
+    rgb_r, depth_r = rk.pass2_shade_ref(*args, texture=texture,
+                                        lighting=lighting)
+    n_bits = int((depth.view(torch.int32) != depth_r.view(torch.int32))
+                 .sum())
+    d_rgb = (rgb - rgb_r).abs()
+    err = float(d_rgb.max())
+    off = float((d_rgb.amax(-1) > 1.0).float().mean())
+    hits = int((depth_r > 0).sum())
+    print(f"pass2_shade {name}: attr {tuple(case['attr'].shape)} hw={hw} "
+          f"views={depth.numel() // (hw[0] * hw[1])} hit pixels={hits} "
+          f"textured={texture is not None} lighting="
+          f"{None if lighting is None else lighting.tolist()}: depth bit "
+          f"mismatches={n_bits}, rgb max|d|={err:.3e}, rgb >1 level apart on "
+          f"{off:.2e} of pixels", flush=True)
+    if n_bits or off >= 1e-3 or not bool(torch.isfinite(rgb).all()) or \
+            not err <= 1e-3:
+        raise AssertionError(f"pass2_shade disagrees with its plain version "
+                             f"({name})")
+    if hits == 0:
+        raise AssertionError(f"pass2_shade case {name} hits no pixel")
+    return err
+
+
+def nbytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bbox_pixels(face_bbox, hw):
+    """Per face of the screen bboxes (..., F, 4), the pixel centres of the
+    (H, W) window its bbox holds: the pixels pass 1 must test it at."""
+    import torch
+
+    H, W = hw
+    b = face_bbox.to(torch.float64)
+    nx = (torch.clamp(torch.floor(b[..., 1]), max=W - 1)
+          - torch.clamp(torch.ceil(b[..., 0]), min=0) + 1).clamp(min=0)
+    ny = (torch.clamp(torch.floor(b[..., 3]), max=H - 1)
+          - torch.clamp(torch.ceil(b[..., 2]), min=0) + 1).clamp(min=0)
+    return nx * ny
+
+
+def winner_rows_bytes(attr, win, mask):
+    """Bytes of the distinct rows of attr ([B,] F, C) that the clamped
+    winners ``win`` ([B,] ...) name where ``mask`` holds: the only rows a
+    gather of those pixels must read."""
+    import torch
+
+    F = attr.shape[-2]
+    ids = torch.clamp(win, 0, F - 1).to(torch.int64)
+    if attr.dim() == 3:  # each view's rows apart
+        ids = ids + F * torch.arange(attr.shape[0], device=ids.device).reshape(
+            (-1,) + (1,) * (ids.dim() - 1))
+    return (torch.unique(ids[mask]).numel() * attr.shape[-1]
+            * attr.element_size())
+
+
+def bound(n_bytes, ops):
+    """(bound ms, "bytes" or "operations") of n_bytes moved and ops
+    float32 operations on the H100."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S, ops / F32_OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def pass1_bound(case, hw):
+    """K1's (and K3's) bound on one case with its outputs iz, win: the
+    coefficients of the faces whose screen bbox holds a pixel of the window
+    (no other face can cover one), the block bboxes and the outputs;
+    OPS_PER_PAIR for each (pixel, face) pair of those bboxes."""
+    pix = bbox_pixels(case["face_bbox"], hw)
+    coef = case["coef"]
+    coef_bytes = int((pix > 0).sum()) * coef.shape[-2] * coef.element_size()
+    return bound(coef_bytes + nbytes(case["bbox"], case["iz"], case["win"]),
+                 OPS_PER_PAIR * int(pix.sum()))
+
+
+def pass2_bound(case):
+    """pass2_shade's bound on an untextured case: iz, win, R and t read,
+    and the distinct attribute rows the hit pixels' winners name; rgb and
+    depth written; OPS_PER_HIT_PIXEL for each hit pixel."""
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    hit = rk.zmin_from_iz(case["iz"]) < FAR
+    return bound(nbytes(case["iz"], case["win"], case["R"], case["t"])
+                 + winner_rows_bytes(case["attr"], case["win"], hit)
+                 + case["iz"].numel() * 16,
+                 OPS_PER_HIT_PIXEL * int(hit.sum()))
+
+
+@functools.cache
+def sleep_cycles_per_ms():
+    """Cycles per millisecond of ``torch.cuda._sleep`` on the card."""
+    import torch
+
+    cycles = 20_000_000
+    torch.cuda._sleep(cycles // 10)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    torch.cuda._sleep(cycles)
+    end.record()
+    end.synchronize()
+    return cycles / start.elapsed_time(end)
+
+
+def run_ms(fn, runs=TIMING_RUNS):
+    """Milliseconds per launch of ``fn`` over ``runs`` back-to-back calls
+    between two CUDA events, with the stream held by a device-side sleep
+    twice as long as the host takes to enqueue them, so the events time the
+    device's run of the launches and not the host's enqueue. The card
+    queues about a thousand launches before the host waits, so ``runs``
+    times the device operations of one call stays under that."""
+    import torch
+
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda._sleep(int(2 * host_ms * sleep_cycles_per_ms()))
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(runs):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / runs
+
+
+def device_ms(fn, kernel):
+    """Device time per launch of the __global__ function ``DEVICE_FN[
+    kernel]`` over PROFILE_CALLS calls of ``fn`` under torch.profiler, or
+    None when the profiler saw none."""
+    prof = profile_share(lambda: [fn() for _ in range(PROFILE_CALLS)],
+                         top=100)
+    if prof is None:
+        return None
+    rows = [(us, n) for key, us, n in prof[3] if DEVICE_FN[kernel] in key]
+    if not rows:
+        return None
+    return sum(us for us, _ in rows) / 1e3 / sum(n for _, n in rows)
+
+
+def report_kernel(name, label, fn, plain_fn, bnd, card, plain_runs=None,
+                  library_fn=None, runs=TIMING_RUNS):
+    """Time one kernel (``run_ms`` over ``runs`` calls), its device time
+    (profiler), its plain version (``cuda_ms``) and, where given, the
+    library call; print them beside the bound. Returns the kernels-line
+    numbers."""
+    ms = run_ms(fn, runs)
+    dev_ms = device_ms(fn, name)
+    plain = cuda_ms(plain_fn, runs=plain_runs or TIMING_RUNS,
+                    warmup=1 if plain_runs else 3)
+    lib = run_ms(library_fn) if library_fn is not None else None
+    bound_ms, bound_by = bnd
+    print(f"timing kernel {name} {label}: {ms:.5f} ms per launch (CUDA "
+          f"events around {runs} queued launches), device "
+          f"{'not measured' if dev_ms is None else f'{dev_ms:.5f} ms'} "
+          f"(profiler), plain version {plain:.4f} ms, bound {bound_ms:.5f} ms "
+          f"({bound_by})" + ("" if lib is None else
+                             f", library call {lib:.5f} ms") + f" {card}",
+          flush=True)
+    return {"ms": ms, "plain_ms": plain, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": lib, "device_ms": dev_ms}
+
+
+def zero_launches():
+    """Set every kernel wrapper's launch count to 0."""
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    for fn in WRAPPERS.values():
+        getattr(rk, fn).launches = 0
+
+
+def read_launches():
+    """Every kernel's launch count, by kernel name."""
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    return {k: getattr(rk, fn).launches for k, fn in WRAPPERS.items()}
+
+
+@contextlib.contextmanager
+def unfused_pass2():
+    """For timing only: renders run the port's earlier pass 2 (the K2 row
+    gather written to device memory, then ``shade_rows``' eager ops) in
+    place of ``pass2_shade``, for turn-by-turn comparison in one run."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    def unfused(attr, iz, winner, R, t, out_hw, far, texture=None,
+                lighting=None):
+        zmin = rk.zmin_from_iz(iz)
+        winner = torch.clamp(winner, 0, attr.shape[-2] - 1)
+        hit = torch.isfinite(zmin) & (zmin < far)
+        flat = zmin.shape[:-2] + (-1,)
+        covered = torch.isfinite(zmin.reshape(flat))
+        row = rk.gather_rows(attr, winner.reshape(flat), covered)
+        return rk.shade_rows(R, t, row, hit.reshape(flat), out_hw,
+                             texture=texture, lighting=lighting)
+
+    fused = rk.pass2_shade
+    rk.pass2_shade = unfused
+    try:
+        yield
+    finally:
+        rk.pass2_shade = fused
 
 
 def cuda_ms(fn, runs=TIMING_RUNS, warmup=3):
@@ -369,30 +687,78 @@ def profile_share(fn, top=8):
     return busy_us, wall_us, n_ops, sorted(rows, key=lambda r: -r[1])[:top]
 
 
+def textured_case(dev):
+    """The pass-1 and pass-2 inputs, culled, of one ROI render of the
+    textured box (36 attribute columns, a 3x2 texture atlas) at 0.55 m,
+    with its K1 outputs; and the texture."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    tm = M.make_textured_box()
+    mesh = rz.upload(tm, dev)
+    pose = se3.make_pose(se3.so3_exp(torch.tensor([0.5, 0.3, -0.2])),
+                         torch.tensor([0.01, -0.01, 0.55])).to(dev)
+    K = torch.as_tensor(K_PROD).to(dev)
+    window = rz.window_from_bbox(roi.compute_bbox(
+        pose, K, tm.diameter * 1000 * 1.1, (1000.0, 1000.0, 1000.0)))
+    case = render_case(mesh, pose, K, window, (RES, RES), cull=True)
+    case["iz"], case["win"] = rk.pass1_winners(case["coef"], case["bbox"],
+                                               (RES, RES), case["fb"])
+    return case, mesh.texture
+
+
 def check_kernels(tracker, pose0):
     """Phase 3: each kernel against its plain version on the production
-    inputs (cull off and on) and on random ragged cases. Returns the max
-    error per kernel and the production inputs of both cull settings."""
+    inputs (cull off and on), on random ragged cases, sliver triangles and
+    triangles with every corner on a pixel centre, and pass 2 fused on the
+    production inputs (with the default lighting and an override) and the
+    textured box. Returns the max error per kernel and the production
+    cases of both cull settings (``render_case`` dicts with K1's outputs
+    iz and win, K2's clamped winner and covered)."""
     import torch
 
     dev = tracker.device
-    errs = {"raster_pass1": 0.0, "gather_rows": 0.0}
+    errs = {"raster_pass1": 0.0, "gather_rows": 0.0, "pass2_shade": 0.0}
     prod = {}
     for cull in (False, True):
-        coef, bbox, fb, attr = pass1_case(tracker, pose0, cull)
-        err, iz, win = check_pass1(f"production cull={cull}", coef, bbox,
-                                   (RES, RES), fb)
+        case = pass1_case(tracker, pose0, cull)
+        err, iz, win = check_pass1(f"production cull={cull}", case["coef"],
+                                   case["bbox"], (RES, RES), case["fb"])
         errs["raster_pass1"] = max(errs["raster_pass1"], err)
-        winner = torch.clamp(win, 0, coef.shape[1] - 1).reshape(-1)
+        winner = torch.clamp(win, 0, case["coef"].shape[1] - 1).reshape(-1)
         covered = (iz > 1e-9).reshape(-1)
         errs["gather_rows"] = max(errs["gather_rows"], check_gather(
-            f"production cull={cull}", attr, winner, covered))
-        prod[cull] = (coef, bbox, fb, attr, winner, covered)
+            f"production cull={cull}", case["attr"], winner, covered))
+        case.update(iz=iz, win=win, winner=winner, covered=covered)
+        errs["pass2_shade"] = max(errs["pass2_shade"], check_pass2(
+            f"production cull={cull}", case, (RES, RES)))
+        prod[cull] = case
+    light = torch.tensor([0.5, 0.7, 0.3, -0.4, -1.2], device=dev)
+    errs["pass2_shade"] = max(errs["pass2_shade"], check_pass2(
+        "production cull=True, lighting override", prod[True], (RES, RES),
+        lighting=light))
+    tex_case, texture = textured_case(dev)
+    errs["pass2_shade"] = max(errs["pass2_shade"], check_pass2(
+        "textured box cull=True", tex_case, (RES, RES), texture=texture))
+    errs["pass2_shade"] = max(errs["pass2_shade"], check_pass2(
+        "textured box cull=True, lighting override", tex_case, (RES, RES),
+        texture=texture, lighting=light))
     rng = np.random.RandomState(SEED)
-    for F, hw, fb in ((700, (37, 53), 256), (1500, (131, 97), 512),
-                      (3000, (57, 203), 1024), (2048, (RES, RES), 1024)):
-        coef, bbox = fuzz_case(rng, F, hw, fb, dev)
-        err, _, _ = check_pass1("fuzz", coef, bbox, hw, fb)
+    for kind, F, hw, fb in (("random", 700, (37, 53), 256),
+                            ("random", 1500, (131, 97), 512),
+                            ("random", 3000, (57, 203), 1024),
+                            ("random", 2048, (RES, RES), 1024),
+                            ("slivers", 600, (57, 203), 512),
+                            ("slivers", 2048, (RES, RES), 1024),
+                            ("corners_on_centres", 500, (41, 67), 256),
+                            ("corners_on_centres", 2048, (RES, RES), 1024)):
+        coef, bbox = fuzz_case(rng, F, hw, fb, dev, kind)
+        err, _, _ = check_pass1(kind, coef, bbox, hw, fb)
         errs["raster_pass1"] = max(errs["raster_pass1"], err)
     for F, C, P in ((1280, 36, 7013), (2048, 30, RES * RES + 5)):
         attr = torch.as_tensor(rng.randn(F, C) * 100,
@@ -413,7 +779,6 @@ def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
     (launches, on_track poses, track_video poses, on_s, video_s)."""
     import torch
 
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
     dev = tracker.device
@@ -423,8 +788,7 @@ def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
         tracker.on_track(pose0, rgb, depth)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
-    for fn in (rk.pass1_winners, rk.gather_rows, rk.pass1_worklist):
-        fn.launches = 0
+    zero_launches()
     pose, on_poses = pose0, []
     t0 = time.perf_counter()
     for _ in range(n_on):
@@ -437,10 +801,7 @@ def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
         tracker.std, torch.as_tensor(pose0).to(dev), frames_rgb,
         frames_depth).cpu().numpy()
     video_s = time.perf_counter() - t0
-    launches = {"raster_pass1": rk.pass1_winners.launches,
-                "gather_rows": rk.gather_rows.launches,
-                "raster_pass1_worklist": rk.pass1_worklist.launches}
-    return launches, np.stack(on_poses), video, on_s, video_s
+    return read_launches(), np.stack(on_poses), video, on_s, video_s
 
 
 def check_on_object(runs, pose0, width_mm):
@@ -499,8 +860,9 @@ def compare_with_cpu(net, tracker, pose0, rgb, depth, n):
 
 def step_parts(tracker, pose0, rgb, depth, prod_case):
     """Callables for the parts of one production step, on its inputs:
-    crop + normalize, pass 1 (K1), pass 2 (K2 gather + shading), the whole
-    render, the CNN and the whole step."""
+    crop + normalize, pass 1 (K1), pass 2 (``pass2_shade``), the earlier
+    unfused pass 2 (K2 gather + ``shade_rows``), the whole render, the CNN
+    and the whole step."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.ops import roi
@@ -509,7 +871,7 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
     from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
     t, cfg, dev = tracker, tracker.cfg, tracker.device
-    coef, bbox, fb, attr, winner, covered = prod_case
+    c = prod_case
     pose = torch.as_tensor(pose0).to(dev)
     rgb_t, depth_t = trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev)
     _, aux = trk.track_step(t.model, cfg, t.mesh, t.K, t.mean, t.std, pose,
@@ -527,9 +889,12 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
                                   depthB.float(), pose, t.mean, t.std)
 
     def pass2():
-        rows = rk.gather_rows(attr, winner, covered)
-        return rz.shade_rows(pose[:3, :3], pose[:3, 3], rows, covered,
-                             (RES, RES))
+        return rk.pass2_shade(c["attr"], c["iz"], c["win"], c["R"], c["t"],
+                              (RES, RES), FAR)
+
+    def pass2_unfused():
+        with unfused_pass2():
+            return pass2()
 
     @torch.no_grad()
     def cnn():
@@ -537,8 +902,10 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
 
     return {
         "crop_normalize": crop_normalize,
-        "pass1": lambda: rk.pass1_winners(coef, bbox, (RES, RES), fb),
-        "pass2": pass2,
+        "pass1": lambda: rk.pass1_winners(c["coef"], c["bbox"], (RES, RES),
+                                          c["fb"]),
+        "pass2 (pass2_shade)": pass2,
+        "pass2 unfused (K2 + shade_rows, before)": pass2_unfused,
         "render": lambda: rz.render(
             t.mesh, pose, t.K, window, out_hw=(RES, RES),
             cull_backfaces=cfg.cull_backfaces),
@@ -549,21 +916,14 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
 
 
 def full_frame_case(mesh, pose, fb=None):
-    """K1 and K3 inputs of one unculled full-frame render (FRAME_HW, K_PROD)
-    of ``mesh`` at ``pose``: (coef, block_bbox, face_block), at face block
-    ``fb`` or ``pick_face_block``."""
-    import torch
-
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    """The inputs (``render_case``) of one unculled full-frame render
+    (FRAME_HW, K_PROD) of ``mesh`` at ``pose``, at face block ``fb`` or
+    ``pick_face_block``."""
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
 
-    dev = mesh.fverts.device
-    fx, fy, fiz, fvalid, _, _ = rz._project(
-        mesh, torch.as_tensor(pose).to(dev), torch.as_tensor(K_PROD).to(dev),
-        rz.full_frame_window(FRAME_HW[1], FRAME_HW[0]), FRAME_HW, rz.NEAR_M)
-    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = fb or rz.pick_face_block(fx.shape[0])
-    return coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb
+    return render_case(mesh, pose, K_PROD,
+                       rz.full_frame_window(FRAME_HW[1], FRAME_HW[0]),
+                       FRAME_HW, cull=False, fb=fb)
 
 
 def check_worklist(name, coef, bbox, hw, fb):
@@ -594,8 +954,9 @@ def check_worklist(name, coef, bbox, hw, fb):
 def check_worklist_cases(tracker, pose0):
     """Phase 3, K3: full 480x640 frames of the production mesh (unculled,
     face block 1024) and of a 20,480-face icosphere at face block 256, random
-    ragged cases, and an empty frame. Returns the max error and the two
-    full-frame meshes' inputs."""
+    ragged cases, sliver triangles, and an empty frame; and pass 2 fused on
+    the production mesh's full frame. Returns K3's and pass 2's max errors
+    and the two full-frame meshes' cases (with K3's outputs iz, win)."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
@@ -606,26 +967,31 @@ def check_worklist_cases(tracker, pose0):
     cases = {"production": full_frame_case(tracker.mesh, pose0),
              "icosphere20480": full_frame_case(big, pose0, 256)}
     err = 0.0
-    for name, (coef, bbox, fb) in cases.items():
-        e, iz, _ = check_worklist(f"{name} full frame", coef, bbox, FRAME_HW,
-                                  fb)
+    for name, c in cases.items():
+        e, c["iz"], c["win"] = check_worklist(
+            f"{name} full frame", c["coef"], c["bbox"], FRAME_HW, c["fb"])
         err = max(err, e)
-        if not (iz > 0).any():
+        if not (c["iz"] > 0).any():
             raise AssertionError(f"K3 case {name} covers no pixel")
+    err2 = check_pass2("production full frame", cases["production"],
+                       FRAME_HW)
     rng = np.random.RandomState(SEED + 1)
-    for F, hw, fb in ((768, (37, 53), 256), (1500, (131, 97), 512),
-                      (3072, (479, 641), 1024)):
-        coef, bbox = fuzz_case(rng, F, hw, fb, dev)
-        err = max(err, check_worklist("fuzz", coef, bbox, hw, fb)[0])
+    for kind, F, hw, fb in (("random", 768, (37, 53), 256),
+                            ("random", 1500, (131, 97), 512),
+                            ("random", 3072, (479, 641), 1024),
+                            ("slivers", 1000, (131, 97), 512)):
+        coef, bbox = fuzz_case(rng, F, hw, fb, dev, kind)
+        err = max(err, check_worklist(kind, coef, bbox, hw, fb)[0])
     away = pose0.copy()
     away[0, 3] = 3.0  # far off the right edge of the frame
-    coef, bbox, fb = full_frame_case(tracker.mesh, away)
-    e, iz, win = check_worklist("empty frame", coef, bbox, FRAME_HW, fb)
+    c = full_frame_case(tracker.mesh, away)
+    e, iz, win = check_worklist("empty frame", c["coef"], c["bbox"],
+                                FRAME_HW, c["fb"])
     if not (bool((iz == -1.0).all()) and not bool(win.any())):
         raise AssertionError("K3 empty frame: not the init values")
     if tracker.device.type == "cuda":
         torch.cuda.synchronize(dev)
-    return max(err, e), cases
+    return max(err, e), err2, cases
 
 
 def make_bench_object(tracker, tm):
@@ -649,12 +1015,10 @@ def run_eval(obj, gt):
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 
     if obj.mesh.fverts.device.type == "cuda":
         torch.cuda.synchronize(obj.mesh.fverts.device)
-    for fn in (rk.pass1_winners, rk.gather_rows, rk.pass1_worklist):
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     frames = SB._quantize(*SB.render_test_video(obj.mesh, gt, K_PROD,
                                                 hw=FRAME_HW, hard=True))
@@ -662,17 +1026,14 @@ def run_eval(obj, gt):
     t0 = time.perf_counter()
     result = SB.evaluate_tracking(obj, gt, *frames, K=K_PROD)
     eval_s = time.perf_counter() - t0
-    launches = {"raster_pass1": rk.pass1_winners.launches,
-                "gather_rows": rk.gather_rows.launches,
-                "raster_pass1_worklist": rk.pass1_worklist.launches}
-    return launches, frames, result, render_s, eval_s
+    return read_launches(), frames, result, render_s, eval_s
 
 
 def check_eval(launches, result, T):
     """Finite poses and scores, and the launch counts of a T-frame hard
     video (object and occluder per frame) tracked over T - 1 frames."""
-    want = {"raster_pass1": T - 1, "gather_rows": 2 * T + T - 1,
-            "raster_pass1_worklist": 2 * T}
+    want = {"raster_pass1": T - 1, "gather_rows": 0,
+            "raster_pass1_worklist": 2 * T, "pass2_shade": 2 * T + T - 1}
     scores = {k: result[k] for k in ("add_auc", "adi_auc", "add_mean_mm",
                                      "add_max_mm", "final_trans_err_mm",
                                      "baseline_add_mean_mm",
@@ -724,12 +1085,13 @@ def compare_eval_with_cpu(cpu_obj, gt, frames, result):
 
 
 def time_eval(obj, gt, poses, ff_cases, card):
-    """Phase 6, the evaluation path's timings: K3, K1 and plain K3 on the
-    full-frame inputs with each wrapper's device time split by
-    ``torch.profiler``, one full-frame render through K3 and K1 (CUDA
-    events, median of TIMING_RUNS), the warm ``render_test_video`` and
-    ``evaluate_tracking`` rates (host clock), and ``batch_errors``. Returns
-    K3's and plain K3's ms on the production mesh."""
+    """Phase 6, the evaluation path's timings: K3 (``report_kernel``), K1
+    and plain K3 on the full-frame inputs with each wrapper's device time
+    split by ``torch.profiler``, pass 2 fused on the production full frame,
+    one full-frame render through K3 and K1 (CUDA events, median of
+    TIMING_RUNS), the warm ``render_test_video`` and ``evaluate_tracking``
+    rates (host clock), and ``batch_errors``. Returns K3's kernels-line
+    numbers on the production mesh."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.eval import metrics as ME
@@ -740,18 +1102,19 @@ def time_eval(obj, gt, poses, ff_cases, card):
 
     dev = obj.mesh.fverts.device
     out = {}
-    for name, (coef, bbox, fb) in ff_cases.items():
-        ms = {"K3": cuda_ms(lambda: rk.pass1_worklist(coef, bbox, FRAME_HW,
-                                                      fb)),
-              "K1": cuda_ms(lambda: rk.pass1_winners(coef, bbox, FRAME_HW,
-                                                     fb)),
-              "plain K3": cuda_ms(lambda: rk.pass1_worklist_ref(
-                  coef, bbox, FRAME_HW, fb))}
-        out[name] = ms
-        print(f"timing full frame {FRAME_HW[0]}x{FRAME_HW[1]} {name} "
-              f"(F={coef.shape[1]}, fb={fb}): " + ", ".join(
-                  f"{k} {v:.4f} ms" for k, v in ms.items())
-              + f" (median of {TIMING_RUNS}) {card}", flush=True)
+    for name, c in ff_cases.items():
+        coef, bbox, fb = c["coef"], c["bbox"], c["fb"]
+        label = (f"full frame {FRAME_HW[0]}x{FRAME_HW[1]} {name} "
+                 f"(F={coef.shape[1]}, fb={fb})")
+        out[name] = report_kernel(
+            "raster_pass1_worklist", label,
+            lambda: rk.pass1_worklist(coef, bbox, FRAME_HW, fb),
+            lambda: rk.pass1_worklist_ref(coef, bbox, FRAME_HW, fb),
+            pass1_bound(c, FRAME_HW), card, runs=K3_RUNS)
+        k1 = run_ms(lambda: rk.pass1_winners(coef, bbox, FRAME_HW, fb))
+        print(f"timing kernel raster_pass1 {label}: {k1:.5f} ms per launch "
+              f"(CUDA events around {TIMING_RUNS} queued launches) {card}",
+              flush=True)
         for label, fn in (("K3", rk.pass1_worklist), ("K1", rk.pass1_winners)):
             prof = profile_share(lambda: [fn(coef, bbox, FRAME_HW, fb)
                                           for _ in range(PROFILE_CALLS)],
@@ -767,6 +1130,14 @@ def time_eval(obj, gt, poses, ff_cases, card):
                   + "; ".join(f"{us / 1e3 / count:.4f} ms x{count} "
                               f"{key[:60]}" for key, us, count in rows)
                   + f" {card}", flush=True)
+    c = ff_cases["production"]
+    report_kernel("pass2_shade", f"full frame {FRAME_HW[0]}x{FRAME_HW[1]} "
+                  "production",
+                  lambda: rk.pass2_shade(c["attr"], c["iz"], c["win"], c["R"],
+                                         c["t"], FRAME_HW, FAR),
+                  lambda: rk.pass2_shade_ref(c["attr"], c["iz"], c["win"],
+                                             c["R"], c["t"], FRAME_HW, FAR),
+                  pass2_bound(c), card)
     pose = torch.as_tensor(gt[0]).to(dev)
     K = torch.as_tensor(K_PROD).to(dev)
     window = rz.full_frame_window(FRAME_HW[1], FRAME_HW[0])
@@ -792,20 +1163,19 @@ def time_eval(obj, gt, poses, ff_cases, card):
     ms = cuda_ms(lambda: ME.batch_errors(poses, gt, cloud, device=dev))
     print(f"timing batch_errors: {ms:.4f} ms ({len(gt)} frames, "
           f"{len(cloud)} points, median of {TIMING_RUNS}) {card}", flush=True)
-    return out["production"]["K3"], out["production"]["plain K3"]
+    return out["production"]
 
 
 def sampler_views_case(mesh, width_mm, n_pairs, device, seed):
-    """K1 and K2 inputs of the 2 x ``n_pairs`` views one training-sampler
-    batch renders (poses from ``draw_synth`` on a CPU generator; A views,
-    then B views, both in A's window) of ``mesh`` at RES^2, unculled, as
-    ``data/dataset.py::render_pairs`` builds them: (coef (2n, 12, F),
-    block_bbox, face_block, attr (2n, F, C))."""
+    """The inputs (``render_case``) of the 2 x ``n_pairs`` views one
+    training-sampler batch renders (poses from ``draw_synth`` on a CPU
+    generator; A views, then B views, both in A's window) of ``mesh`` at
+    RES^2, unculled, as ``data/dataset.py::render_pairs`` builds them:
+    coef (2n, 12, F), attr (2n, F, C), R (2n, 3, 3), t (2n, 3), ..."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
     from iros20_6d_pose_tracking_tpu_torch.ops import roi
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
 
     d = DS.draw_synth(torch.Generator().manual_seed(seed), n_pairs, RES, None,
@@ -814,34 +1184,34 @@ def sampler_views_case(mesh, width_mm, n_pairs, device, seed):
     K = torch.as_tensor(K_PROD).to(device)
     window = rz.window_from_bbox(roi.compute_bbox(A, K, width_mm,
                                                   (1000.0, 1000.0, 1000.0)))
-    fx, fy, fiz, fvalid, _, _ = rz._project(
-        mesh, torch.cat([A, B]), K, torch.cat([window, window]), (RES, RES),
-        rz.NEAR_M)
-    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = rz.pick_face_block(fx.shape[-2])
-    return (coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb,
-            rz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh))
+    return render_case(mesh, torch.cat([A, B]), K,
+                       torch.cat([window, window]), (RES, RES), cull=False)
 
 
 def check_sampler_views(name, case):
     """Batched K1 (one launch) on a sampler batch's views against its plain
-    version and the per-view calls, then batched K2 (one launch) on the
-    same views' attribute forms, winners and coverage against its plain
-    version. Returns (K1 error, K2 error, iz, winner)."""
+    version and the per-view calls, then batched K2 and ``pass2_shade``
+    (one launch each) on the same views' attribute forms and K1's outputs
+    against their plain versions. Keeps K1's outputs in the case (iz,
+    win). Returns (K1 error, K2 error, pass 2 error)."""
     import torch
 
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 
-    coef, bbox, fb, attr = case
-    e1, iz, win = check_batched_pass1(name, coef, bbox, (RES, RES), fb)
+    coef, attr = case["coef"], case["attr"]
+    e1, iz, win = check_batched_pass1(name, coef, case["bbox"], (RES, RES),
+                                      case["fb"])
+    case.update(iz=iz, win=win)
     n = coef.shape[0]
     winner = torch.clamp(win, 0, coef.shape[-1] - 1).reshape(n, -1)
     covered = (iz > 1e-9).reshape(n, -1)
-    n0 = rk.gather_rows.launches
+    n0 = read_launches()
     e2 = check_gather(f"batched {name}", attr, winner, covered)
-    if attr.is_cuda and rk.gather_rows.launches != n0 + 1:
-        raise AssertionError("batched K2 was not one launch")
-    return e1, e2
+    e3 = check_pass2(f"batched {name}", case, (RES, RES))
+    n1 = read_launches()
+    if attr.is_cuda and (n1["gather_rows"], n1["pass2_shade"]) != (
+            n0["gather_rows"] + 1, n0["pass2_shade"] + 1):
+        raise AssertionError("batched K2 or pass2_shade was not one launch")
+    return e1, e2, e3
 
 
 def check_batched_pass1(name, coef, bbox, hw, fb):
@@ -866,8 +1236,10 @@ def check_batched_pass1(name, coef, bbox, hw, fb):
             int((iz.view(torch.int32) != iz_ref.view(torch.int32)).sum()))
     err = float((iz - refs["plain"][0]).abs().max())
     covered = [int(c) for c in (iz > 0).sum(dim=(1, 2))]
+    shown = covered if len(covered) <= BATCHED_VIEWS else \
+        f"{min(covered)}-{max(covered)}"
     print(f"K1 batched {name}: B={coef.shape[0]} F={coef.shape[-1]} fb={fb} "
-          f"hw={hw} covered per view={covered} (winner, iz bit) mismatches "
+          f"hw={hw} covered per view={shown} (winner, iz bit) mismatches "
           f"{bad} max|d iz|={err}", flush=True)
     if any(n for pair in bad.values() for n in pair):
         raise AssertionError(f"batched K1 disagrees ({name}): {bad}")
@@ -877,16 +1249,16 @@ def check_batched_pass1(name, coef, bbox, hw, fb):
 
 
 def check_batched_kernels(tracker):
-    """Phase 3, the batch axis: K1 and K2 on the 8 views of a 4-pair
-    sampler batch of the production mesh, and K1 on a ragged random batch
-    and K2 on a ragged random batch of views. Returns (max K1 error, max K2
-    error, the production views' K1 inputs)."""
+    """Phase 3, the batch axis: K1, K2 and ``pass2_shade`` on the 8 views
+    of a 4-pair sampler batch of the production mesh, and K1 on a ragged
+    random batch and K2 on a ragged random batch of views. Returns (max K1
+    error, max K2 error, max pass 2 error, the production views' case)."""
     import torch
 
     dev = tracker.device
     case = sampler_views_case(tracker.mesh, tracker.cfg.object_width_mm,
                               BATCHED_VIEWS // 2, dev, SEED)
-    e1, e2 = check_sampler_views("sampler views", case)
+    e1, e2, e3 = check_sampler_views("sampler views", case)
     rng = np.random.RandomState(SEED + 2)
     hw = (131, 97)
     cases = [fuzz_case(rng, 1500, hw, 512, dev) for _ in range(5)]
@@ -899,7 +1271,7 @@ def check_batched_kernels(tracker):
                             dtype=torch.int32).to(dev)
     cov_f = torch.as_tensor(rng.rand(3, 7013) > 0.3).to(dev)
     e2 = max(e2, check_gather("batched fuzz", attr_f, win_f, cov_f))
-    return e1, e2, case[:3]
+    return e1, e2, e3, case
 
 
 def train_setup(device, res=RES):
@@ -928,15 +1300,13 @@ def run_train(synth, cfg, dev):
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.models import tracknet
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
 
     model = tracknet.init_params(tracknet.Se3TrackNet(image_size=RES).to(dev),
                                  torch.Generator().manual_seed(SEED))
     opt, lr_at = tr.make_optimizer(model, cfg, steps_per_epoch=1000)
     torch.cuda.synchronize(dev)
-    for fn in (rk.pass1_winners, rk.gather_rows, rk.pass1_worklist):
-        fn.launches = 0
+    zero_launches()
     t0 = time.perf_counter()
     mean, std = tr.compute_mean_std(
         (synth.sample_batch(tr.step_generator(dev, 900, i), cfg.batch_size)
@@ -961,10 +1331,7 @@ def run_train(synth, cfg, dev):
         end.synchronize()
         step_ms.append(start.elapsed_time(end))
         losses.append(float(m["loss"]))
-    launches = {"raster_pass1": rk.pass1_winners.launches,
-                "gather_rows": rk.gather_rows.launches,
-                "raster_pass1_worklist": rk.pass1_worklist.launches}
-    return launches, model, opt, mean, std, losses, step_ms
+    return read_launches(), model, opt, mean, std, losses, step_ms
 
 
 def _tree_to(d, device):
@@ -1184,9 +1551,11 @@ def track_trained(tm, model, mean, std, dev):
 def time_train(synth, cfg, model, opt, mean, std, batched_cases, card):
     """Phase 7 timings (CUDA events, median of TRAIN_STEPS): the sampler's
     parts at batch TRAIN_BATCH (render: draws, poses and the 400-view
-    render; DR; augmentation), forward + backward, the optimizer, and
-    batched K1 against its plain version on each of ``batched_cases``
-    ({name: K1 inputs})."""
+    render; DR; augmentation), forward + backward, the optimizer; the
+    sampler render and the whole train step in turns with the earlier
+    unfused pass 2; and batched K1 and ``pass2_shade`` against their plain
+    versions and bounds on each of ``batched_cases`` ({name: case with
+    K1's outputs})."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.data import augment as AUG
@@ -1247,15 +1616,55 @@ def time_train(synth, cfg, model, opt, mean, std, batched_cases, card):
               f"{card}")
         for key, us, count in rows:
             print(f"profile:   {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
-    for name, (coef, bbox, fb) in batched_cases.items():
-        k1 = cuda_ms(lambda: rk.pass1_winners(coef, bbox, (RES, RES), fb))
-        plain_runs = 5 if coef.shape[0] > BATCHED_VIEWS else TIMING_RUNS
-        k1_plain = cuda_ms(lambda: rk.pass1_winners_ref(
-            coef, bbox, (RES, RES), fb), runs=plain_runs, warmup=1)
-        print(f"timing kernel raster_pass1 batched: {k1:.4f} ms, plain "
-              f"version {k1_plain:.4f} ms ({name} at {RES}^2, median of "
-              f"{TIMING_RUNS} and {plain_runs}) {card}", flush=True)
+    turns = {}
+    for which in ("fused", "unfused", "unfused", "fused"):
+        with unfused_pass2() if which == "unfused" else \
+                contextlib.nullcontext():
+            r = cuda_ms(render, runs=runs, warmup=1)
+            st = cuda_ms(lambda: tr.train_step_synth(
+                model, opt, cfg.learning_rate, cfg, synth,
+                tr.step_generator(dev, 10, next(gen_seed)),
+                tr.step_generator(dev, 10, next(gen_seed)), mean, std),
+                runs=5, warmup=1)
+        turns.setdefault(which, []).append((r, st))
+    for which, vals in turns.items():
+        print(f"timing train in turns, pass 2 {which}: sampler render "
+              f"{[round(v[0], 4) for v in vals]} ms (median of {runs}), "
+              f"train step {[round(v[1], 4) for v in vals]} ms (median of 5; "
+              f"{[round(n / v[1] * 1e3, 2) for v in vals]} samples/s) {card}",
+              flush=True)
+    for name, c in batched_cases.items():
+        args = (c["coef"], c["bbox"], (RES, RES), c["fb"])
+        plain_runs = 3 if c["coef"].shape[0] > BATCHED_VIEWS else None
+        report_kernel("raster_pass1", f"batched, {name} at {RES}^2",
+                      lambda: rk.pass1_winners(*args),
+                      lambda: rk.pass1_winners_ref(*args),
+                      pass1_bound(c, (RES, RES)), card, plain_runs=plain_runs)
+        p2 = (c["attr"], c["iz"], c["win"], c["R"], c["t"], (RES, RES), FAR)
+        report_kernel("pass2_shade", f"batched, {name} at {RES}^2",
+                      lambda: rk.pass2_shade(*p2),
+                      lambda: rk.pass2_shade_ref(*p2), pass2_bound(c), card,
+                      plain_runs=plain_runs)
     return ms
+
+
+def time_video_in_turns(tracker, pose0, rgb, depth, n, card):
+    """``Tracker.track_video`` over ``n`` frames with pass 2 fused and with
+    the earlier unfused pass 2, in turns (fused, unfused, unfused, fused),
+    host clock around work that ends with the poses on the host."""
+    rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
+    hz = {}
+    for which in ("fused", "unfused", "unfused", "fused"):
+        with unfused_pass2() if which == "unfused" else \
+                contextlib.nullcontext():
+            tracker.track_video(pose0, rgbs[:3], depths[:3])  # warm
+            t0 = time.perf_counter()
+            tracker.track_video(pose0, rgbs, depths)
+            hz.setdefault(which, []).append(n / (time.perf_counter() - t0))
+    print(f"timing track_video in turns ({n} frames each): pass 2 fused "
+          f"{[round(h, 2) for h in hz['fused']]} Hz, unfused (K2 + "
+          f"shade_rows) {[round(h, 2) for h in hz['unfused']]} Hz {card}",
+          flush=True)
 
 
 def main() -> int:
@@ -1314,11 +1723,13 @@ def main() -> int:
     tracker = make_tracker(net, dev)
     pose0, rgb, depth = production_frames()
     errs, prod = check_kernels(tracker, pose0)
-    errs["raster_pass1_worklist"], ff_cases = check_worklist_cases(tracker,
-                                                                   pose0)
-    e1, e2, batched_case = check_batched_kernels(tracker)
+    errs["raster_pass1_worklist"], e3, ff_cases = check_worklist_cases(
+        tracker, pose0)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
+    e1, e2, e3, batched_case = check_batched_kernels(tracker)
     errs["raster_pass1"] = max(errs["raster_pass1"], e1)
     errs["gather_rows"] = max(errs["gather_rows"], e2)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
 
     # 4. The slice through the entry points a user calls.
     print(f"slice: Se3TrackNet full width at {RES}^2, "
@@ -1331,8 +1742,9 @@ def main() -> int:
         tracker, pose0, rgb, depth, n_on, n_video)
     print(f"launches in the main path ({n_on} on_track + {n_video} "
           f"track_video frames): {launches}", flush=True)
-    want = {"raster_pass1": n_on + n_video, "gather_rows": n_on + n_video,
-            "raster_pass1_worklist": 0}  # ROI renders keep K1
+    # ROI renders keep K1; pass 2 runs fused, the K2 row gather not at all.
+    want = {"raster_pass1": n_on + n_video, "gather_rows": 0,
+            "raster_pass1_worklist": 0, "pass2_shade": n_on + n_video}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
     check_on_object({"on_track": on_poses, "track_video": video}, pose0,
@@ -1357,28 +1769,44 @@ def main() -> int:
         make_bench_object(make_tracker(net, torch.device("cpu")), tm), gt,
         frames, result)
 
-    # 6. Timings.
+    # 6. Timings: the kernels on the production inputs beside their plain
+    # versions, bounds and (K2) library call, then the step and the rates.
     cull = tracker.cfg.cull_backfaces
-    coef, bbox, fb, attr, winner, covered = prod[cull]
-    ms = {"raster_pass1": cuda_ms(
-              lambda: rk.pass1_winners(coef, bbox, (RES, RES), fb)),
-          "gather_rows": cuda_ms(
-              lambda: rk.gather_rows(attr, winner, covered))}
-    plain_ms = {"raster_pass1": cuda_ms(
-                    lambda: rk.pass1_winners_ref(coef, bbox, (RES, RES), fb)),
-                "gather_rows": cuda_ms(
-                    lambda: rk.gather_rows_ref(attr, winner, covered))}
-    for name in ms:
-        print(f"timing kernel {name}: {ms[name]:.4f} ms, plain version "
-              f"{plain_ms[name]:.4f} ms (production inputs, cull={cull}, "
-              f"median of {TIMING_RUNS}) {card}")
-    coef_nc, bbox_nc, fb_nc = prod[False][:3]
-    nc_ms = cuda_ms(lambda: rk.pass1_winners(coef_nc, bbox_nc, (RES, RES),
-                                             fb_nc))
-    print(f"timing kernel raster_pass1 without the cull: {nc_ms:.4f} ms "
-          f"{card}")
-    for name, fn in step_parts(tracker, pose0, rgb, depth,
-                               prod[cull]).items():
+    c = prod[cull]
+    label = f"(production inputs, cull={cull})"
+    report = {
+        "raster_pass1": report_kernel(
+            "raster_pass1", label,
+            lambda: rk.pass1_winners(c["coef"], c["bbox"], (RES, RES),
+                                     c["fb"]),
+            lambda: rk.pass1_winners_ref(c["coef"], c["bbox"], (RES, RES),
+                                         c["fb"]),
+            pass1_bound(c, (RES, RES)), card),
+        "pass2_shade": report_kernel(
+            "pass2_shade", label,
+            lambda: rk.pass2_shade(c["attr"], c["iz"], c["win"], c["R"],
+                                   c["t"], (RES, RES), FAR),
+            lambda: rk.pass2_shade_ref(c["attr"], c["iz"], c["win"], c["R"],
+                                       c["t"], (RES, RES), FAR),
+            pass2_bound(c), card),
+        "gather_rows": report_kernel(
+            "gather_rows", label,
+            lambda: rk.gather_rows(c["attr"], c["winner"], c["covered"]),
+            lambda: rk.gather_rows_ref(c["attr"], c["winner"], c["covered"]),
+            bound(nbytes(c["winner"], c["covered"])
+                  + winner_rows_bytes(c["attr"], c["winner"], c["covered"])
+                  + c["winner"].numel() * c["attr"].shape[1] * 4, 0), card,
+            library_fn=lambda: torch.index_select(c["attr"], 0,
+                                                  c["winner"])),
+    }
+    nc = prod[False]
+    report_kernel("raster_pass1", "(production inputs, cull=False)",
+                  lambda: rk.pass1_winners(nc["coef"], nc["bbox"], (RES, RES),
+                                           nc["fb"]),
+                  lambda: rk.pass1_winners_ref(nc["coef"], nc["bbox"],
+                                               (RES, RES), nc["fb"]),
+                  pass1_bound(nc, (RES, RES)), card)
+    for name, fn in step_parts(tracker, pose0, rgb, depth, c).items():
         print(f"timing step part {name}: {cuda_ms(fn):.4f} ms (median of "
               f"{TIMING_RUNS}) {card}")
     n_prof = 20
@@ -1399,8 +1827,9 @@ def main() -> int:
           f"fetched to the host every frame) {card}")
     print(f"timing track_video: {n_video / video_s:.2f} Hz ({n_video} "
           f"frames, poses fetched at the end) {card}", flush=True)
-    ms["raster_pass1_worklist"], plain_ms["raster_pass1_worklist"] = \
-        time_eval(obj, gt, result["poses"], ff_cases, card)
+    time_video_in_turns(tracker, pose0, rgb, depth, n_video, card)
+    report["raster_pass1_worklist"] = time_eval(obj, gt, result["poses"],
+                                                ff_cases, card)
 
     # 7. Synthetic training at full width, the card against the plain CPU
     # path, the trained tracker, and the training timings.
@@ -1410,21 +1839,23 @@ def main() -> int:
           "train_step_synth steps", flush=True)
     train_case = sampler_views_case(synth.mesh, synth.object_width_mm,
                                     cfg.batch_size, dev, SEED + 3)
-    e1, e2 = check_sampler_views(
+    e1, e2, e3 = check_sampler_views(
         f"train batch ({cfg.batch_size} pairs of the cube)", train_case)
     errs["raster_pass1"] = max(errs["raster_pass1"], e1)
     errs["gather_rows"] = max(errs["gather_rows"], e2)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
     t0 = time.perf_counter()
     train_launches, model, opt, mean_t, std_t, losses, step_ms = run_train(
         synth, cfg, dev)
     train_s = time.perf_counter() - t0
     n_batches = MEAN_STD_BATCHES + TRAIN_STEPS
-    want = {"raster_pass1": n_batches, "gather_rows": n_batches,
-            "raster_pass1_worklist": 0}
+    want = {"raster_pass1": n_batches, "gather_rows": 0,
+            "raster_pass1_worklist": 0, "pass2_shade": n_batches}
     peak_gib = torch.cuda.max_memory_allocated(dev) / 2**30
     print(f"train: losses {losses}; launches {train_launches} (want {want}, "
-          f"one K1 and one K2 launch per sampled batch); {train_s:.3f} s; "
-          f"peak device memory so far {peak_gib:.2f} GiB", flush=True)
+          f"one K1 and one pass2_shade launch per sampled batch); "
+          f"{train_s:.3f} s; peak device memory so far {peak_gib:.2f} GiB",
+          flush=True)
     if train_launches != want:
         raise AssertionError(f"training launch counts {train_launches} != "
                              f"{want}")
@@ -1441,15 +1872,16 @@ def main() -> int:
     time_train(synth, cfg, model, opt, mean_t, std_t,
                {"8 sampler views of the production mesh": batched_case,
                 f"{2 * cfg.batch_size} sampler views of the cube (one train "
-                "batch)": train_case[:3]}, card)
+                "batch)": train_case}, card)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = [
         {"name": name, "route": "cuda",
          "source": f"{PORT}/csrc/{name}.cu", "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],
-         "ms": ms[name], "plain_ms": plain_ms[name]}
+         **{k: report[name][k] for k in keys}}
         for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

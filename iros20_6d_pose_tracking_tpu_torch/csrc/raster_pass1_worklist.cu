@@ -24,11 +24,14 @@
 // into offsets), made on the device, so the number of real entries never
 // reaches the host. The grid is static: one thread block per tile.
 //
-// What bounds it on this card: as K1, the arithmetic of the (pixel, face)
-// pairs it visits, which are the same pairs K1 visits. The list replaces
-// K1's per-tile bbox test of every block (cheap, uniform) with a read of the
+// What bounds it on this card: as K1, the coefficient and output bytes;
+// the (pixel, face) pairs it evaluates are K1's. The list replaces K1's
+// per-run bbox test of every block (cheap, uniform) with a read of the
 // tile's segment; on a sparse full frame (a small object in 480x640) most
-// tiles have an empty segment and only store their init values.
+// tiles have an empty segment and only store their init values. Within a
+// listed block each warp bins the staged faces against the rectangle of
+// its 32 pixels (raster_pass1_block.cuh, as K1 does against its patches),
+// so a pixel evaluates only the faces that can reach its warp's pixels.
 
 #include <cuda_runtime.h>
 
@@ -36,7 +39,9 @@
 
 namespace {
 
-__global__ void raster_pass1_worklist_kernel(
+constexpr int kThreads = 128;  // one pixel tile (PIX_TILE pixels)
+
+__global__ void __launch_bounds__(kThreads) raster_pass1_worklist_kernel(
     const float* __restrict__ coef, const int* __restrict__ block_ids,
     const int* __restrict__ tile_offsets, const int* __restrict__ tile_counts,
     float* __restrict__ iz_out, int* __restrict__ winner_out, int F,
@@ -48,6 +53,9 @@ __global__ void raster_pass1_worklist_kernel(
   const int q = tile * blockDim.x + threadIdx.x;
   const float px = static_cast<float>(q % W);
   const float py = static_cast<float>(q / W);
+  // The warp's 32 consecutive pixels span one or more rows: its rectangle
+  // is their bounding box.
+  const pass1::Rect rect = pass1::warp_rect(q % W, q / W, q < H * W);
   const int lane_mask = face_block - 1;
   // The tile's segment of the list; uniform across the block.
   const int begin = tile_offsets[tile];
@@ -57,9 +65,9 @@ __global__ void raster_pass1_worklist_kernel(
   int acc_idx = 0;
   for (int k = begin; k < end; ++k) {
     const int block_start = block_ids[k] * face_block;
-    const int best = pass1::block_best_key(
+    const int best = pass1::block_best_key<kThreads, 1>(
         coef, smem, F, block_start, min(block_start + face_block, F),
-        lane_mask, px, py);
+        lane_mask, px, py, rect, 0);
     if (best > acc_key) {  // strict: an earlier block keeps its ties
       acc_key = best;
       acc_idx = (best & lane_mask) + block_start;
@@ -78,15 +86,16 @@ extern "C" {
 // (int32); tile_offsets, tile_counts: (n_tiles,) int32, tile t's entries are
 // block_ids[tile_offsets[t] .. tile_offsets[t] + tile_counts[t]); iz,
 // winner: (H * W,) f32 / i32 outputs, n_tiles = ceil(H * W / pix_tile).
-// face_block is a power of two; pix_tile (threads per block) a multiple of
-// 32 in [32, 1024]. All pointers live on the current CUDA device, which the
-// caller sets; the kernel is queued on `stream` and nothing synchronises.
+// face_block is a power of two; pix_tile (threads per block) is 128. All
+// pointers live on the current CUDA device, which the caller sets; the
+// kernel is queued on `stream` and nothing synchronises.
 int raster_pass1_worklist(const void* coef, const void* block_ids,
                           const void* tile_offsets, const void* tile_counts,
                           void* iz, void* winner, int F, int face_block,
                           int H, int W, int pix_tile, void* stream) {
   const int P = H * W;
   if (P == 0) return 0;
+  if (pix_tile != kThreads) return static_cast<int>(cudaErrorInvalidValue);
   const int n_tiles = (P + pix_tile - 1) / pix_tile;
   raster_pass1_worklist_kernel<<<n_tiles, pix_tile, 0,
                                  static_cast<cudaStream_t>(stream)>>>(

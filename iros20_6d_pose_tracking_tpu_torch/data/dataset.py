@@ -13,8 +13,8 @@ feed the trainer:
      device of its mesh: B uniform in the configured view ranges, the prior
      A = B . inv(perturbation), both rendered in A's ROI window. The 2N
      views of a batch go through one batched
-     :func:`~..render.rasterizer.render`: one K1 and one K2 launch per
-     batch. ``DRComposite`` adds the
+     :func:`~..render.rasterizer.render`: one K1 and one fused pass-2
+     launch per batch. ``DRComposite`` adds the
      randomized scene (valid-depth background, occluder blob) to B.
 
 Randomness is split from the computation (ROADMAP F7): :func:`draw_synth`
@@ -284,7 +284,7 @@ def render_pairs(mesh: rz.MeshArrays, K, A_in_cam, B_in_cam, resolution: int,
                  dr_draws: dict | None = None) -> dict:
     """Render both branches of N pairs in the ROI window of each A pose:
     the 2N views in one batched :func:`~..render.rasterizer.render` (one
-    K1 and one K2 launch), then the DR composite of the B branches. Returns
+    K1 and one fused pass-2 launch), then the DR composite of the B branches. Returns
     the raw batch dict (rgbA, depthA, rgbB, depthB, maskB, A_in_cam,
     B_in_cam)."""
     n = A_in_cam.shape[0]

@@ -14,8 +14,8 @@ File protocol preserved exactly (reference eval_ycb.py:67-162):
   - per-class ADD/ADI VOCap x100, then pooled over 21 classes with the
     14025-keyframe total assertion (reference eval_ycb.py:154).
 
-Error computation runs batched (eval/metrics.py, on the CPU) instead of a
-per-frame cKDTree loop.
+Error computation runs batched (eval/metrics.py, on the card unless
+``--device cpu`` asks for the CPU) instead of a per-frame cKDTree loop.
 """
 from __future__ import annotations
 
@@ -34,9 +34,9 @@ def _load_keyframes(ycb_dir: str) -> set[str]:
 
 
 def eval_one_class(res_dir: str, ycb_dir: str, class_id: int,
-                   verbose: bool = True):
-    """Score one class; returns (adi_errs, add_errs) sorted ascending
-    (reference eval_ycb.py:67-119)."""
+                   verbose: bool = True, device="cuda"):
+    """Score one class on ``device``; returns (adi_errs, add_errs) sorted
+    ascending (reference eval_ycb.py:67-119)."""
     pose_files = sorted(glob.glob(os.path.join(res_dir, "**", "*.txt"),
                                   recursive=True))
     assert len(pose_files) > 0, f"no predictions under {res_dir}"
@@ -67,9 +67,8 @@ def eval_one_class(res_dir: str, ycb_dir: str, class_id: int,
         gts.append(np.loadtxt(gt_file))
 
     assert len(preds) > 0, "no keyframe predictions matched"
-    add_errs, adi_errs = batch_errors(
-        np.stack(preds), np.stack(gts), points
-    )
+    add_errs, adi_errs = batch_errors(np.stack(preds), np.stack(gts), points,
+                                      device=device)
     add_errs = np.sort(add_errs)
     adi_errs = np.sort(adi_errs)
     if verbose:
@@ -80,9 +79,10 @@ def eval_one_class(res_dir: str, ycb_dir: str, class_id: int,
     return adi_errs, add_errs
 
 
-def eval_all(root: str, ycb_dir: str, expect_total: int | None = 14025):
-    """All 21 classes; result folders laid out one-per-class under ``root``
-    (reference eval_ycb.py:121-162)."""
+def eval_all(root: str, ycb_dir: str, expect_total: int | None = 14025,
+             device="cuda"):
+    """All 21 classes on ``device``; result folders laid out one-per-class
+    under ``root`` (reference eval_ycb.py:121-162)."""
     class_folders = sorted(os.listdir(root))
     res_dirs = []
     for cf in class_folders:
@@ -97,7 +97,8 @@ def eval_all(root: str, ycb_dir: str, expect_total: int | None = 14025):
 
     adi_all, add_all = [], []
     for class_id, res_dir in zip(class_ids, res_dirs):
-        adi, add = eval_one_class(res_dir, ycb_dir, int(class_id))
+        adi, add = eval_one_class(res_dir, ycb_dir, int(class_id),
+                                  device=device)
         adi_all.extend(adi)
         add_all.extend(add)
 
@@ -122,13 +123,16 @@ def main(argv=None):
     parser.add_argument("--root", type=str, default=None,
                         help="per-class results root for eval_all")
     parser.add_argument("--no_total_check", action="store_true")
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the error computation")
     args = parser.parse_args(argv)
 
     if args.class_id is not None and args.res_dir is not None:
-        eval_one_class(args.res_dir, args.ycb_dir, args.class_id)
+        eval_one_class(args.res_dir, args.ycb_dir, args.class_id,
+                       device=args.device)
     else:
         eval_all(args.root, args.ycb_dir,
-                 None if args.no_total_check else 14025)
+                 None if args.no_total_check else 14025, device=args.device)
 
 
 if __name__ == "__main__":

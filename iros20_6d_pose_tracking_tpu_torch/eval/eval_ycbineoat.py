@@ -2,7 +2,8 @@
 eval_ycbineoat.py:49-122).
 
 Counterpart of ``iros20_6d_pose_tracking_tpu/eval/eval_ycbineoat.py``, on
-the port's metrics (``eval/metrics.py``, on the CPU).
+the port's metrics (``eval/metrics.py``, on the card unless ``--device cpu``
+asks for the CPU).
 
 Protocol preserved:
   - 5 objects matched by substring in the result folder name
@@ -34,7 +35,9 @@ def _load_models(ycb_dir: str) -> dict[str, np.ndarray]:
     return models
 
 
-def eval_all(res_dir: str, ycbineoat_dir: str, ycb_dir: str):
+def eval_all(res_dir: str, ycbineoat_dir: str, ycb_dir: str,
+             device="cuda"):
+    """Score every result folder of the five objects on ``device``."""
     models = _load_models(ycb_dir)
     per_obj = {o: {"add": [], "add-s": []} for o in OBJECTS}
 
@@ -54,7 +57,7 @@ def eval_all(res_dir: str, ycbineoat_dir: str, ycb_dir: str):
         )
         preds = np.stack([np.loadtxt(p) for p in pred_files])
         gts = np.stack([np.loadtxt(g) for g in gt_files])
-        add, adi = batch_errors(preds, gts, models[obj])
+        add, adi = batch_errors(preds, gts, models[obj], device=device)
         per_obj[obj]["add"].extend(add)
         per_obj[obj]["add-s"].extend(adi)
 
@@ -84,8 +87,11 @@ def main(argv=None):
     parser.add_argument("--YCBInEOAT_dir", required=True)
     parser.add_argument("--ycb_dir", required=True)
     parser.add_argument("--res_dir", required=True)
+    parser.add_argument("--device", default="cuda",
+                        help="torch device of the error computation")
     args = parser.parse_args(argv)
-    eval_all(args.res_dir, args.YCBInEOAT_dir, args.ycb_dir)
+    eval_all(args.res_dir, args.YCBInEOAT_dir, args.ycb_dir,
+             device=args.device)
 
 
 if __name__ == "__main__":

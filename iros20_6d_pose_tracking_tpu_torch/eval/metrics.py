@@ -73,9 +73,10 @@ def adi_err(pred: torch.Tensor, gt: torch.Tensor,
 
 
 def batch_errors(preds: np.ndarray, gts: np.ndarray, points: np.ndarray,
-                 chunk: int = 256, device="cpu"):
+                 chunk: int = 256, device="cuda"):
     """ADD and ADD-S (float32 numpy, (T,)) for (T, 4, 4) pose arrays,
-    computed on ``device`` ``chunk`` frames at a time."""
+    computed on ``device`` (the card unless the caller asks for the CPU)
+    ``chunk`` frames at a time."""
     def put(a):
         return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(device)
 

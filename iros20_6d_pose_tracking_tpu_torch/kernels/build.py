@@ -53,6 +53,11 @@ SIGNATURES = {
         # attr, winner, covered, rows, F, C, P, stream
         "gather_rows": ([_P, _P, _P, _P, _I, _I, _I, _P], _I),
     },
+    "pass2_shade": {
+        # attr, iz, winner, R, t, lighting, texture, rgb, depth, B, H, W, F,
+        # C, r_sv, r_si, r_sj, t_sv, t_si, th, tw, far, stream
+        "pass2_shade": ([_P] * 9 + [_I] * 12 + [ctypes.c_float, _P], _I),
+    },
     "raster_pass1_worklist": {
         # coef, block_ids, tile_offsets, tile_counts, iz, winner, F,
         # face_block, H, W, pix_tile, stream

@@ -1,9 +1,10 @@
 """Weights carried across from the JAX package.
 
-Counterpart of ``iros20_6d_pose_tracking_tpu/models/torch_import.py``,
-whose numpy-only ``variables_to_state_dict`` does the layout work (HWIO ->
-OIHW kernels, (I, O) -> (O, I) dense weights, Flax BatchNorm scale/bias and
-batch stats -> the reference's BatchNorm keys).
+Counterpart of ``iros20_6d_pose_tracking_tpu/models/torch_import.py``: the
+port keeps its own copy of that module's ``variables_to_state_dict`` and key
+tables (numpy only), so it imports nothing of the JAX package. The layout
+work: HWIO -> OIHW kernels, (I, O) -> (O, I) dense weights, Flax BatchNorm
+scale/bias and batch stats -> the reference's BatchNorm keys.
 """
 from __future__ import annotations
 
@@ -12,7 +13,48 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-from iros20_6d_pose_tracking_tpu.models import torch_import
+# Sequential-module key prefixes in the reference model and the Flax names.
+_CONV_BN_BLOCKS = ("convA1", "convB1", "convAB1", "trans_conv1", "rot_conv1")
+_RES_BLOCKS = ("convA2", "convB2", "convB3", "convAB2", "trans_conv2",
+               "rot_conv2")
+_DENSE_HEADS = ("trans_out", "rot_out")
+
+
+def variables_to_state_dict(variables: Mapping[str, Any]) -> dict:
+    """Flax ``{"params", "batch_stats"}`` -> reference-format numpy
+    state_dict (the JAX package's conversion, key for key)."""
+    params = variables["params"]
+    stats = variables["batch_stats"]
+    out: dict = {}
+
+    def oihw(kernel):
+        return np.transpose(np.asarray(kernel), (3, 2, 0, 1))
+
+    for blk in _CONV_BN_BLOCKS:
+        p, s = params[blk], stats[blk]["bn"]
+        out[f"{blk}.0.weight"] = oihw(p["conv"]["kernel"])
+        out[f"{blk}.0.bias"] = np.asarray(p["conv"]["bias"])
+        out[f"{blk}.1.weight"] = np.asarray(p["bn"]["scale"])
+        out[f"{blk}.1.bias"] = np.asarray(p["bn"]["bias"])
+        out[f"{blk}.1.running_mean"] = np.asarray(s["mean"])
+        out[f"{blk}.1.running_var"] = np.asarray(s["var"])
+
+    for blk in _RES_BLOCKS:
+        for i in (1, 2):
+            conv, bn = params[blk][f"conv{i}"], params[blk][f"bn{i}"]
+            st = stats[blk][f"bn{i}"]
+            out[f"{blk}.conv{i}.weight"] = oihw(conv["kernel"])
+            if "bias" in conv:
+                out[f"{blk}.conv{i}.bias"] = np.asarray(conv["bias"])
+            out[f"{blk}.bn{i}.weight"] = np.asarray(bn["scale"])
+            out[f"{blk}.bn{i}.bias"] = np.asarray(bn["bias"])
+            out[f"{blk}.bn{i}.running_mean"] = np.asarray(st["mean"])
+            out[f"{blk}.bn{i}.running_var"] = np.asarray(st["var"])
+
+    for head in _DENSE_HEADS:
+        out[f"{head}.0.weight"] = np.asarray(params[head]["kernel"]).T
+        out[f"{head}.0.bias"] = np.asarray(params[head]["bias"])
+    return out
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict:
@@ -23,7 +65,7 @@ def state_dict_from_jax(variables: Mapping[str, Any]) -> dict:
     The Flax variables hold no BatchNorm step count, so every
     ``num_batches_tracked`` buffer starts at 0."""
     sd = {k: torch.from_numpy(np.array(v, dtype=np.float32, order="C"))
-          for k, v in torch_import.variables_to_state_dict(variables).items()}
+          for k, v in variables_to_state_dict(variables).items()}
     for k in [k for k in sd if k.endswith(".running_var")]:
         sd[k[:-len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -6,10 +6,16 @@ Counterpart of ``iros20_6d_pose_tracking_tpu/render/pallas_raster.py``:
     ``build_face_bboxes``, ``reduce_block_bboxes``, ``build_block_bboxes``)
     with the same (12, F) row layout ``ROW_*``;
   - :func:`pass1_winners`, the z-buffer winner search (the TPU kernel
-    ``_kernel`` / ``pallas_pass1``), CUDA source ``csrc/raster_pass1.cu``;
-  - :func:`gather_rows`, the pass-2 row gather (the TPU kernel
-    ``_gather_kernel`` / ``pallas_gather_rows``), CUDA source
-    ``csrc/gather_rows.cu``;
+    ``_kernel`` / ``pallas_pass1``), CUDA source ``csrc/raster_pass1.cu``:
+    pixel patches whose warps bin the faces with :func:`pass1_may_cover`;
+  - :func:`pass2_shade`, pass 2 fused: the winner-row gather (the TPU
+    kernel ``_gather_kernel`` / ``pallas_gather_rows``) and the shading
+    that consumes the rows (:func:`shade_rows`, with :func:`zmin_from_iz`
+    and ``_sample_texture`` part of its plain version) in one kernel, CUDA
+    source ``csrc/pass2_shade.cu``. Every render's pass 2 runs through it;
+  - :func:`gather_rows`, the row gather alone, CUDA source
+    ``csrc/gather_rows.cu``: the standalone counterpart of
+    ``pallas_gather_rows``, off the render path since :func:`pass2_shade`;
   - :func:`pass1_worklist`, the work-list pass 1 (the TPU kernel
     ``_wl_kernel`` / ``pallas_pass1_worklist``, with its list from
     :func:`build_worklist`), CUDA source ``csrc/raster_pass1_worklist.cu``.
@@ -23,8 +29,8 @@ Hopper loads the rows directly.
 Each wrapper runs its plain version (``*_ref``, beside it) when its tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a CUDA
 device; anything else raises. Each counts its kernel launches in a plain
-integer attribute (``pass1_winners.launches``, ``gather_rows.launches``,
-``pass1_worklist.launches``).
+integer attribute (``pass1_winners.launches``, ``pass2_shade.launches``,
+``gather_rows.launches``, ``pass1_worklist.launches``).
 """
 from __future__ import annotations
 
@@ -38,8 +44,9 @@ ROW_A1, ROW_B1, ROW_C1 = 3, 4, 5
 ROW_A2, ROW_B2, ROW_C2 = 6, 7, 8
 ROW_AW, ROW_BW, ROW_CW = 9, 10, 11
 
-# Pixels per tile of pass 1: one CUDA thread block, and the row range of
-# the block-bbox skip test. The TPU kernel's tile is 512 (DEF_PIX_TILE).
+# Pixels per tile of pass 1: the run of consecutive pixels whose row range
+# the block-bbox skip test takes (K1 and its plain version), and K3's
+# thread block. The TPU kernel's tile is 512 (DEF_PIX_TILE).
 PIX_TILE = 128
 
 _BIG = 3.0e8
@@ -125,9 +132,9 @@ def build_block_bboxes(fx, fy, fvalid, face_block: int):
     return reduce_block_bboxes(build_face_bboxes(fx, fy, fvalid), face_block)
 
 
-def _check_cuda(*named):
-    """Every (name, tensor, dtype) must be a contiguous tensor of that dtype
-    on one CUDA device."""
+def _check_cuda(*named, strided=()):
+    """Every (name, tensor, dtype) must be a tensor of that dtype on one
+    CUDA device, contiguous unless its name is in ``strided``."""
     dev = named[0][1].device
     for name, t, dtype in named:
         if t.device.type != "cuda" or t.device != dev:
@@ -135,7 +142,7 @@ def _check_cuda(*named):
                 f"{name} is on {t.device}: the kernel takes tensors on one "
                 f"CUDA device (first on {dev}); the plain version takes them "
                 "all on the CPU")
-        if t.dtype != dtype or not t.is_contiguous():
+        if t.dtype != dtype or not (name in strided or t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} tensor, "
                              f"got {t.dtype}")
 
@@ -263,11 +270,42 @@ def pass1_winners_ref(coef, block_bbox, hw: tuple[int, int],
     return _winners_from_key(acc_key, acc_idx, hw, face_block)
 
 
+def pass1_may_cover(coef, rect):
+    """K1's and K3's skip predicate, the warp-level binning of
+    ``csrc/raster_pass1_block.cuh`` in tensor ops: False only where a face
+    provably covers no pixel of a rectangle.
+
+    coef (12, F); rect (..., 4) [xlo, xhi, ylo, yhi], the pixel-centre
+    bounds of a warp's pixels. The rectangle is widened by one pixel, and a
+    face is dropped when one of its edge forms has a maximum over the
+    widened corners below 0, or its 1/z form a maximum <= 0. Returns (...,
+    F) bool. The widening leaves a margin of |a| + |b| at every pixel of the
+    rectangle, far above the forms' rounding, so a face the exact forms of
+    :func:`_update_block` mark covered at a pixel always passes for that
+    pixel's rectangle."""
+    rect = torch.as_tensor(rect, dtype=torch.float32, device=coef.device)
+    xlo, xhi, ylo, yhi = (rect[..., k, None] for k in range(4))
+    xlo, ylo, xhi, yhi = xlo - 1.0, ylo - 1.0, xhi + 1.0, yhi + 1.0
+
+    def rect_max(row):
+        a, b, c = coef[row], coef[row + 1], coef[row + 2]
+        return (a * torch.where(a >= 0.0, xhi, xlo)
+                + b * torch.where(b >= 0.0, yhi, ylo) + c)
+
+    return ~((rect_max(ROW_A0) < 0.0) | (rect_max(ROW_A1) < 0.0)
+             | (rect_max(ROW_A2) < 0.0) | (rect_max(ROW_AW) <= 0.0))
+
+
 def pass1_winners(coef, block_bbox, hw: tuple[int, int], face_block: int):
     """Pass-1 z-buffer winner search over the (12, F) coefficients for an
     (H, W) window. Returns (iz (H, W) f32, the winner's 1/z or -1 where no
     face covers; winner (H, W) int32, 0 where none). ``block_bbox`` is
     (ceil(F / face_block), 4); ``face_block`` a power of two.
+
+    The kernel runs 16 x 16 pixel blocks, each warp an 8 x 4 patch that
+    evaluates only the faces :func:`pass1_may_cover` keeps for it; what it
+    leaves out cannot cover its pixels, so the result is the plain
+    version's, bit for bit.
 
     A batch of B views, coef (B, 12, F) and block_bbox (B, n_blocks, 4),
     gives iz and winner (B, H, W) from one launch; view b equals the call
@@ -304,6 +342,203 @@ pass1_winners.launches = 0
 
 
 # ---------------------------------------------------------------------------
+# Pass 2 fused: row gather and shading.
+# ---------------------------------------------------------------------------
+
+# The reference's shading: diffuse 0.4 x max(n . l, 0) + ambient 0.65,
+# clamped, with a camera-space light slightly above the optical axis.
+AMBIENT = 0.65
+DIFFUSE = 0.4
+LIGHT_CAM = (0.0, -0.1, -0.9)
+
+
+def zmin_from_iz(iz):
+    """Metric depth from pass 1's best 1/z: inf where no face covers."""
+    return torch.where(iz > 1e-9, 1.0 / torch.clamp(iz, min=1e-9),
+                       torch.inf)
+
+
+def _sample_texture(texture, u, v):
+    """Bilinear texture fetch at OBJ-convention UVs (origin bottom-left,
+    wrap addressing). texture (Th, Tw, 3); u, v (..., P). Returns
+    (..., P, 3)."""
+    th, tw = texture.shape[:2]
+    # Wrap, then flip v: image row 0 is the top of the texture.
+    x = (u - torch.floor(u)) * (tw - 1)
+    y = (1.0 - (v - torch.floor(v))) * (th - 1)
+    x0 = torch.clamp(torch.floor(x), 0, tw - 1)
+    y0 = torch.clamp(torch.floor(y), 0, th - 1)
+    x1 = torch.clamp(x0 + 1, max=tw - 1)
+    y1 = torch.clamp(y0 + 1, max=th - 1)
+    fx = (x - x0)[..., None]
+    fy = (y - y0)[..., None]
+    flat = texture.reshape(-1, 3)
+    xi0, yi0 = x0.to(torch.int64), y0.to(torch.int64)
+    xi1, yi1 = x1.to(torch.int64), y1.to(torch.int64)
+    c00 = flat[yi0 * tw + xi0]
+    c01 = flat[yi0 * tw + xi1]
+    c10 = flat[yi1 * tw + xi0]
+    c11 = flat[yi1 * tw + xi1]
+    top = c00 * (1 - fx) + c01 * fx
+    bot = c10 * (1 - fx) + c11 * fx
+    return top * (1 - fy) + bot * fy
+
+
+def shade_rows(R, t, row, hit_f, out_hw, texture=None, lighting=None):
+    """Shade pre-gathered per-pixel attribute rows (P, 30), or (P, 36) with
+    UV forms, in which case ``texture`` is sampled for the albedo. Depth is
+    taken from the row's 1/z form (the JAX Pallas path's
+    ``depth_from_form=True``). Part of :func:`pass2_shade_ref`; the kernel
+    computes the same per pixel.
+
+    ``lighting``: optional (5,) [ambient, diffuse, lx, ly, lz] overriding
+    the reference's shading constants. Returns rgb (H, W, 3) in [0, 255]
+    and depth (H, W) in mm, both 0 where ``hit_f`` is False. A batch of
+    views, R (B, 3, 3), t (B, 3), rows (B, P, C) and ``hit_f`` (B, P),
+    gives (B, H, W, 3) and (B, H, W)."""
+    H, W = out_hw
+    lead = row.shape[:-2]
+    dev = row.device
+    if lighting is None:
+        ambient, diffuse, light_cam = AMBIENT, DIFFUSE, LIGHT_CAM
+    else:
+        lighting = torch.as_tensor(lighting, dtype=torch.float32, device=dev)
+        ambient, diffuse, light_cam = lighting[0], lighting[1], lighting[2:5]
+    pxg, pyg = torch.meshgrid(
+        torch.arange(W, dtype=torch.float32, device=dev),
+        torch.arange(H, dtype=torch.float32, device=dev), indexing="xy")
+    pix_x = pxg.reshape(-1)
+    pix_y = pyg.reshape(-1)
+
+    izpix = row[..., 0] * pix_x + row[..., 1] * pix_y + row[..., 2]
+    inv_iz = 1.0 / torch.clamp(izpix, min=1e-9)
+
+    def attr(base, c=3):
+        al = row[..., base:base + c]
+        be = row[..., base + c:base + 2 * c]
+        ga = row[..., base + 2 * c:base + 3 * c]
+        num = al * pix_x[:, None] + be * pix_y[:, None] + ga
+        return num * inv_iz[..., None]
+
+    if texture is not None and row.shape[-1] >= 36:
+        uv = attr(30, c=2)
+        albedo = _sample_texture(texture, uv[..., 0], uv[..., 1])
+    else:
+        albedo = attr(3)
+    # x @ R^T: object -> camera rotation, one R per view.
+    n_cam = attr(12) @ R.transpose(-1, -2)
+    n_cam = n_cam / torch.clamp(
+        torch.linalg.vector_norm(n_cam, dim=-1, keepdim=True), min=1e-9)
+    p_cam = attr(21) @ R.transpose(-1, -2) + t[..., None, :]
+    # Per component, so the default light stays Python floats: a
+    # torch.tensor() of it would be a host copy that waits for the stream.
+    l_vec = torch.stack([light_cam[i] - p_cam[..., i] for i in range(3)], -1)
+    l_dir = l_vec / torch.clamp(
+        torch.linalg.vector_norm(l_vec, dim=-1, keepdim=True), min=1e-9)
+    ndotl = torch.clamp(torch.sum(n_cam * l_dir, dim=-1), min=0.0)
+    shade = torch.clamp(albedo * (ambient + diffuse * ndotl)[..., None],
+                        0.0, 1.0)
+    rgb = torch.where(hit_f[..., None], shade * 255.0, 0.0).reshape(
+        lead + (H, W, 3))
+    depth_mm = torch.where(hit_f, inv_iz * 1000.0, 0.0).reshape(
+        lead + (H, W))
+    return rgb, depth_mm
+
+
+def pass2_shade_ref(attr, iz, winner, R, t, out_hw: tuple[int, int],
+                    far: float, texture=None, lighting=None):
+    """Plain version of :func:`pass2_shade`: the unfused pass 2, op for op.
+    zmin from pass 1's 1/z, coverage and hit, the winner clamp,
+    :func:`gather_rows_ref` and :func:`shade_rows`."""
+    zmin = zmin_from_iz(iz)
+    winner = torch.clamp(winner, 0, attr.shape[-2] - 1)
+    hit = torch.isfinite(zmin) & (zmin < far)
+    flat = zmin.shape[:-2] + (-1,)
+    covered = torch.isfinite(zmin.reshape(flat))
+    row = gather_rows_ref(attr, winner.reshape(flat), covered)
+    return shade_rows(R, t, row, hit.reshape(flat), out_hw,
+                      texture=texture, lighting=lighting)
+
+
+def pass2_shade(attr, iz, winner, R, t, out_hw: tuple[int, int],
+                far: float, texture=None, lighting=None):
+    """Pass 2: each pixel's winner row of the attribute forms, gathered and
+    shaded. Returns rgb (H, W, 3) in [0, 255] and depth (H, W) in mm, both
+    0 where pass 1 found no surface nearer than ``far`` (metres).
+
+    attr (F, 30), or (F, 36) with UV forms (then ``texture`` (Th, Tw, 3)
+    is sampled for the albedo); iz and winner (H, W), pass 1's outputs; R
+    (3, 3) and t (3,) object to camera (views of the pose matrix are fine);
+    ``lighting`` None or (5,) [ambient, diffuse, lx, ly, lz]. A batch of B
+    views takes attr (B, F, C), iz and winner (B, H, W), R (B, 3, 3) and t
+    (B, 3), in one launch, and gives (B, H, W, 3) and (B, H, W).
+
+    CPU tensors run :func:`pass2_shade_ref`; CUDA tensors launch
+    ``csrc/pass2_shade.cu`` on the current stream: depth and hit the plain
+    version's bits, rgb within float32 rounding of it. The gathered rows are
+    never written."""
+    f32 = torch.float32
+    named = [("attr", attr, f32), ("iz", iz, f32),
+             ("winner", winner, torch.int32), ("R", R, f32), ("t", t, f32)]
+    if texture is not None:
+        named.append(("texture", texture, f32))
+    if torch.is_tensor(lighting):
+        named.append(("lighting", lighting, f32))
+    if all(v.device.type == "cpu" for _, v, _ in named):
+        return pass2_shade_ref(attr, iz, winner, R, t, out_hw, far,
+                               texture=texture, lighting=lighting)
+    H, W = out_hw
+    lead = iz.shape[:-2]
+    C = attr.shape[-1]
+    if len(lead) > 1 or tuple(iz.shape) != lead + (H, W) or \
+            tuple(winner.shape) != tuple(iz.shape) or \
+            attr.dim() != len(lead) + 2 or attr.shape[:-2] != lead or \
+            C not in (30, 36) or tuple(R.shape) != lead + (3, 3) or \
+            tuple(t.shape) != lead + (3,):
+        raise ValueError(
+            f"need attr ([B,] F, 30|36), iz and winner ([B,] {H}, {W}), R "
+            f"([B,] 3, 3), t ([B,] 3); got {tuple(attr.shape)}, "
+            f"{tuple(iz.shape)}, {tuple(winner.shape)}, {tuple(R.shape)}, "
+            f"{tuple(t.shape)}")
+    if lighting is not None and not torch.is_tensor(lighting):
+        lighting = torch.as_tensor(lighting, dtype=f32, device=iz.device)
+        named.append(("lighting", lighting, f32))
+    if lighting is not None and lighting.shape != (5,):
+        raise ValueError(f"lighting must be (5,), got {tuple(lighting.shape)}")
+    _check_cuda(*named, strided=("R", "t"))
+    if texture is not None and (texture.dim() != 3 or texture.shape[2] != 3):
+        raise ValueError(f"texture must be (Th, Tw, 3), got "
+                         f"{tuple(texture.shape)}")
+    if attr.data_ptr() % 8:
+        raise ValueError("attr rows must be 8-byte aligned")
+    B = lead[0] if lead else 1
+    F = attr.shape[-2]
+    if B * F * C >= 2 ** 31:
+        raise ValueError(f"{B} x {F} x {C} attribute floats do not fit int32")
+    r_sv, r_si, r_sj = R.stride() if lead else (0,) + R.stride()
+    t_sv, t_si = t.stride() if lead else (0,) + t.stride()
+    th, tw = texture.shape[:2] if texture is not None else (0, 0)
+    dev = iz.device
+    rgb = torch.empty(lead + (H, W, 3), dtype=torch.float32, device=dev)
+    depth = torch.empty(lead + (H, W), dtype=torch.float32, device=dev)
+    lib = kbuild.load("pass2_shade")
+    with torch.cuda.device(dev):
+        err = lib.pass2_shade(
+            attr.data_ptr(), iz.data_ptr(), winner.data_ptr(), R.data_ptr(),
+            t.data_ptr(), lighting.data_ptr() if lighting is not None else None,
+            texture.data_ptr() if texture is not None else None,
+            rgb.data_ptr(), depth.data_ptr(), B, H, W, F, C, r_sv, r_si, r_sj,
+            t_sv, t_si, th, tw, float(far),
+            torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(lib, "pass2_shade", err)
+    pass2_shade.launches += 1
+    return rgb, depth
+
+
+pass2_shade.launches = 0
+
+
+# ---------------------------------------------------------------------------
 # K2: pass-2 row gather.
 # ---------------------------------------------------------------------------
 
@@ -326,7 +561,9 @@ def gather_rows_ref(attr, winner, covered):
 
 
 def gather_rows(attr, winner, covered):
-    """rows[p, :] = attr[winner[p], :] where ``covered[p]``, else 0.
+    """rows[p, :] = attr[winner[p], :] where ``covered[p]``, else 0: the
+    standalone counterpart of ``pallas_gather_rows``. A render's pass 2 no
+    longer calls it; :func:`pass2_shade` gathers and shades in one kernel.
 
     attr (F, C) float32; winner (P,) int32, in [0, F) where covered;
     covered (P,) bool. A batch of B views, attr (B, F, C), winner and

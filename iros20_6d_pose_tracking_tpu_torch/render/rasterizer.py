@@ -20,14 +20,16 @@ The port follows the JAX package's Pallas path (``impl='pallas'``):
   - ``cull_backfaces`` compacts the front faces to the front of every
     per-face table (:func:`_compact_front`), so whole trailing face blocks
     are skipped;
-  - pass 2 gathers the winner rows with :func:`~.raster_kernels.gather_rows`
-    (the JAX ``fuse_pass2=True``; plain indexing is not ported).
+  - pass 2 gathers each pixel's winner row and shades it in one kernel,
+    :func:`~.raster_kernels.pass2_shade` (the JAX ``fuse_pass2=True``
+    gather fused with :func:`~.raster_kernels.shade_rows`; plain indexing
+    is not ported).
 
 :func:`render` also takes B poses (B, 4, 4) with B windows, unculled and
 through K1: the B views of one mesh (the JAX ``jax.vmap`` over ``render``,
-as the training sampler uses it) in one K1 launch and one K2 launch. Every
-step is batched, not looped, and view b is the same bits as ``render`` of
-pose b alone.
+as the training sampler uses it) in one K1 launch and one pass-2 launch.
+Every step is batched, not looped, and view b is the same bits as
+``render`` of pose b alone.
 
 Depth is metric millimetres, 0 where no surface or beyond ``far``. Lighting
 is the reference's: diffuse 0.4 x max(n . l, 0) + ambient 0.65, clamped, with
@@ -44,10 +46,6 @@ from .mesh import TriMesh
 
 NEAR_M = 0.1
 FAR_M = 2.0
-AMBIENT = 0.65
-DIFFUSE = 0.4
-# Camera-space light offset (headlight slightly above the optical axis).
-LIGHT_CAM = (0.0, -0.1, -0.9)
 
 
 class MeshArrays(NamedTuple):
@@ -175,102 +173,6 @@ def _face_attr_coefficients(fx, fy, fiz, fvalid, mesh: MeshArrays):
     return torch.cat(packs, dim=-1).to(torch.float32)
 
 
-def _sample_texture(texture, u, v):
-    """Bilinear texture fetch at OBJ-convention UVs (origin bottom-left,
-    wrap addressing). texture (Th, Tw, 3); u, v (..., P). Returns
-    (..., P, 3)."""
-    th, tw = texture.shape[:2]
-    # Wrap, then flip v: image row 0 is the top of the texture.
-    x = (u - torch.floor(u)) * (tw - 1)
-    y = (1.0 - (v - torch.floor(v))) * (th - 1)
-    x0 = torch.clamp(torch.floor(x), 0, tw - 1)
-    y0 = torch.clamp(torch.floor(y), 0, th - 1)
-    x1 = torch.clamp(x0 + 1, max=tw - 1)
-    y1 = torch.clamp(y0 + 1, max=th - 1)
-    fx = (x - x0)[..., None]
-    fy = (y - y0)[..., None]
-    flat = texture.reshape(-1, 3)
-    xi0, yi0 = x0.to(torch.int64), y0.to(torch.int64)
-    xi1, yi1 = x1.to(torch.int64), y1.to(torch.int64)
-    c00 = flat[yi0 * tw + xi0]
-    c01 = flat[yi0 * tw + xi1]
-    c10 = flat[yi1 * tw + xi0]
-    c11 = flat[yi1 * tw + xi1]
-    top = c00 * (1 - fx) + c01 * fx
-    bot = c10 * (1 - fx) + c11 * fx
-    return top * (1 - fy) + bot * fy
-
-
-def shade_rows(R, t, row, hit_f, out_hw, texture=None, lighting=None):
-    """Shade pre-gathered per-pixel attribute rows (P, 30), or (P, 36) with
-    UV forms, in which case ``texture`` is sampled for the albedo. Depth is
-    taken from the row's 1/z form (the JAX Pallas path's
-    ``depth_from_form=True``).
-
-    ``lighting``: optional (5,) [ambient, diffuse, lx, ly, lz] overriding
-    the reference's shading constants. Returns rgb (H, W, 3) in [0, 255]
-    and depth (H, W) in mm, both 0 where ``hit_f`` is False. A batch of
-    views, R (B, 3, 3), t (B, 3), rows (B, P, C) and ``hit_f`` (B, P),
-    gives (B, H, W, 3) and (B, H, W)."""
-    H, W = out_hw
-    lead = row.shape[:-2]
-    dev = row.device
-    if lighting is None:
-        ambient, diffuse, light_cam = AMBIENT, DIFFUSE, LIGHT_CAM
-    else:
-        lighting = torch.as_tensor(lighting, dtype=torch.float32, device=dev)
-        ambient, diffuse, light_cam = lighting[0], lighting[1], lighting[2:5]
-    pxg, pyg = torch.meshgrid(
-        torch.arange(W, dtype=torch.float32, device=dev),
-        torch.arange(H, dtype=torch.float32, device=dev), indexing="xy")
-    pix_x = pxg.reshape(-1)
-    pix_y = pyg.reshape(-1)
-
-    izpix = row[..., 0] * pix_x + row[..., 1] * pix_y + row[..., 2]
-    inv_iz = 1.0 / torch.clamp(izpix, min=1e-9)
-
-    def attr(base, c=3):
-        al = row[..., base:base + c]
-        be = row[..., base + c:base + 2 * c]
-        ga = row[..., base + 2 * c:base + 3 * c]
-        num = al * pix_x[:, None] + be * pix_y[:, None] + ga
-        return num * inv_iz[..., None]
-
-    if texture is not None and row.shape[-1] >= 36:
-        uv = attr(30, c=2)
-        albedo = _sample_texture(texture, uv[..., 0], uv[..., 1])
-    else:
-        albedo = attr(3)
-    n_cam = _rotate(attr(12), R)
-    n_cam = n_cam / torch.clamp(
-        torch.linalg.vector_norm(n_cam, dim=-1, keepdim=True), min=1e-9)
-    p_cam = _rotate(attr(21), R) + t[..., None, :]
-    # Per component, so the default light stays Python floats: a
-    # torch.tensor() of it would be a host copy that waits for the stream.
-    l_vec = torch.stack([light_cam[i] - p_cam[..., i] for i in range(3)], -1)
-    l_dir = l_vec / torch.clamp(
-        torch.linalg.vector_norm(l_vec, dim=-1, keepdim=True), min=1e-9)
-    ndotl = torch.clamp(torch.sum(n_cam * l_dir, dim=-1), min=0.0)
-    shade = torch.clamp(albedo * (ambient + diffuse * ndotl)[..., None],
-                        0.0, 1.0)
-    rgb = torch.where(hit_f[..., None], shade * 255.0, 0.0).reshape(
-        lead + (H, W, 3))
-    depth_mm = torch.where(hit_f, inv_iz * 1000.0, 0.0).reshape(
-        lead + (H, W))
-    return rgb, depth_mm
-
-
-def _pass2_shade(mesh: MeshArrays, R, t, attr_coef, zmin, winner, hit,
-                 out_hw, lighting=None):
-    """Gather each pixel's winner row through the K2 wrapper and shade it
-    (one view, or a batch of views in one gather)."""
-    flat = zmin.shape[:-2] + (-1,)
-    covered = torch.isfinite(zmin.reshape(flat))
-    row = rk.gather_rows(attr_coef, winner.reshape(flat), covered)
-    return shade_rows(R, t, row, hit.reshape(flat), out_hw,
-                      texture=mesh.texture, lighting=lighting)
-
-
 def _compact_front(keep, *tables):
     """Stable-partition the rows with ``keep`` True to the front of every
     table at once (one row scatter over their concatenation). Returns the
@@ -305,14 +207,17 @@ def pick_face_block(F: int) -> int:
     return next((b for b in (1024, 512, 256) if F % b == 0), F)
 
 
-def _zmin_from_iz(iz):
-    return torch.where(iz > 1e-9, 1.0 / torch.clamp(iz, min=1e-9),
-                       torch.inf)
-
-
 def _pass1_kernel(worklist: bool):
     """The pass-1 wrapper: K3 (work list) or K1. Both give the same bits."""
     return rk.pass1_worklist if worklist else rk.pass1_winners
+
+
+def _pass1_iz(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
+    """(iz, winner) of :func:`pass1`, without the metric depth."""
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = pick_face_block(fx.shape[-2])
+    bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
+    return _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
 
 
 def pass1(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
@@ -320,11 +225,8 @@ def pass1(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
     through K1 or, with ``worklist``, K3. Returns (zmin, iz, winner): metric
     depth (inf where no face), the best inverse depth (-1 where none) and
     the winning face index. A batch of views (B, F, 3) is one K1 launch."""
-    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = pick_face_block(fx.shape[-2])
-    bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
-    iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
-    return _zmin_from_iz(iz), iz, winner
+    iz, winner = _pass1_iz(fx, fy, fiz, fvalid, out_hw, worklist)
+    return rk.zmin_from_iz(iz), iz, winner
 
 
 def culled_pass1_inputs(mesh: MeshArrays, fx, fy, fiz, fvalid, R, t,
@@ -365,7 +267,7 @@ def render(
     Args:
       pose: (4, 4) object-in-camera, on the mesh's device, like ``K``; or
         B poses (B, 4, 4), rendered unculled through K1 in one K1 and one
-        K2 launch, view b the same bits as ``render`` of pose b alone.
+        pass-2 launch, view b the same bits as ``render`` of pose b alone.
       window: (left, right, top, bottom) in full-image pixel coordinates,
         four numbers or a (4,) tensor, or (B, 4) for B poses
         (:func:`window_from_bbox`); the output grid resamples this
@@ -374,8 +276,8 @@ def render(
         points away from the camera before pass 1. Output-identical for
         closed meshes seen from outside; leave False for open geometry.
       fuse_pass2: kept from the JAX signature, and only True is accepted:
-        the winner rows are always gathered by the K2 wrapper
-        (:func:`~.raster_kernels.gather_rows`).
+        the winner rows are always gathered, and shaded, by the fused pass-2
+        wrapper (:func:`~.raster_kernels.pass2_shade`).
       worklist: run pass 1 through K3, the work list of intersecting (pixel
         tile, face block) pairs (:func:`~.raster_kernels.pass1_worklist`),
         instead of K1. The output is the same bit for bit; the full-frame
@@ -387,7 +289,7 @@ def render(
     """
     if not fuse_pass2:
         raise ValueError("fuse_pass2=False (plain row indexing) is not part "
-                         "of the port: pass 2 always gathers through K2")
+                         "of the port: pass 2 always gathers in its kernel")
     if pose.dim() == 3 and (cull_backfaces or worklist):
         raise ValueError("a batch of poses renders unculled through K1: "
                          "cull_backfaces and worklist take one pose")
@@ -395,16 +297,13 @@ def render(
     # On the culled path the attribute forms are compacted together with
     # the pass-1 tables, so winner ids index the permuted space throughout.
     attr_coef = _face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
-    F = fx.shape[-2]
     if cull_backfaces:
         coef, bbox, fb, attr_coef = culled_pass1_inputs(
             mesh, fx, fy, fiz, fvalid, R, t, attr_coef)
         iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
-        zmin = _zmin_from_iz(iz)
     else:
-        zmin, _, winner = pass1(fx, fy, fiz, fvalid, out_hw, worklist)
-    winner = torch.clamp(winner, 0, F - 1)
-    hit = torch.isfinite(zmin) & (zmin < far)
-    return _pass2_shade(mesh, R, t, attr_coef, zmin, winner, hit, out_hw,
-                        lighting=lighting)
+        iz, winner = _pass1_iz(fx, fy, fiz, fvalid, out_hw, worklist)
+    # zmin, coverage, hit (zmin < far) and the winner clamp are pass 2's.
+    return rk.pass2_shade(attr_coef, iz, winner, R, t, out_hw, far,
+                          texture=mesh.texture, lighting=lighting)
 

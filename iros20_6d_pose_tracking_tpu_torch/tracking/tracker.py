@@ -6,7 +6,8 @@ step (reference predict.py:217-296 ``Tracker.on_track``):
   1. ROI: the square ``object_width`` mm bbox at the projected previous pose;
   2. B branch: nearest crop-resize of the observed RGB-D frame;
   3. A branch: ROI-windowed render of the CAD model at the previous pose
-     (pass 1 through the K1 wrapper, the pass-2 row gather through K2);
+     (pass 1 through the K1 wrapper, pass 2 through the fused
+     gather-and-shade kernel's wrapper);
   4. OffsetDepth and the 8-channel NormalizeChannels;
   5. the Se3TrackNet forward at batch 1;
   6. the pose decode (tanh outputs x normalizers, Rodrigues compose).
@@ -47,7 +48,7 @@ class TrackerConfig:
     """Static configuration of the tracking step. The JAX config's
     ``render_impl`` has no counterpart: the tensors' device picks the
     kernels (CUDA) or their plain versions (CPU). Nor has ``fuse_pass2``:
-    pass 2 always gathers through the K2 wrapper (the JAX
+    pass 2 always gathers in its fused kernel (the JAX
     ``fuse_pass2=True``)."""
 
     resolution: int = 176

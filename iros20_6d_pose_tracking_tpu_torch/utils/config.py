@@ -1,20 +1,46 @@
 """Config loading: the reference's config.yml and dataset_info.yml.
 
-Counterpart of ``iros20_6d_pose_tracking_tpu/utils/config.py``. Its
-file-resolution helpers are numpy only and are re-exported, not copied;
-:func:`train_config_from_yaml` builds the port's own ``TrainConfig``.
-PyYAML is imported only when a file is read.
+Counterpart of ``iros20_6d_pose_tracking_tpu/utils/config.py``, whose four
+file-resolution helpers the port keeps its own copy of (numpy only), so it
+imports nothing of the JAX package; :func:`train_config_from_yaml` builds
+the port's own ``TrainConfig``. PyYAML is imported only when a file is
+read.
 """
 from __future__ import annotations
 
+import os
 from typing import Any
 
-from iros20_6d_pose_tracking_tpu.utils.config import (  # noqa: F401
-    find_dataset_info,
-    load_mean_std,
-    load_yaml,
-    normalizers_from_info,
-)
+import numpy as np
+
+
+def load_yaml(path: str) -> dict:
+    import yaml
+
+    with open(path) as f:
+        return yaml.safe_load(f)
+
+
+def find_dataset_info(train_data_path: str) -> str:
+    """dataset_info.yml lives one level above the data folder
+    (reference train.py:76, predict.py:652), or beside it."""
+    for cand in (os.path.join(train_data_path, "..", "dataset_info.yml"),
+                 os.path.join(train_data_path, "dataset_info.yml")):
+        if os.path.exists(cand):
+            return cand
+    raise FileNotFoundError(f"dataset_info.yml near {train_data_path}")
+
+
+def load_mean_std(path: str) -> tuple[np.ndarray, np.ndarray]:
+    """mean.npy/std.npy artifacts (reference train.py:124-125)."""
+    return (np.load(os.path.join(path, "mean.npy")),
+            np.load(os.path.join(path, "std.npy")))
+
+
+def normalizers_from_info(dataset_info: dict) -> tuple[float, float]:
+    """(trans m, rot rad) training normalizers (dataset_info.yml:12-13)."""
+    return (float(dataset_info["max_translation"]),
+            float(dataset_info["max_rotation"]) * np.pi / 180.0)
 
 
 def train_config_from_yaml(config: dict, dataset_info: dict,

@@ -1,5 +1,6 @@
 """The PyTorch port's pose-error metrics and scoring CLIs against the JAX
 package, on the same numpy inputs made from a seed."""
+import inspect
 import os
 
 import jax.numpy as jnp
@@ -69,7 +70,7 @@ def test_batch_errors_match_jax(chunk):
     rng = np.random.RandomState(2)
     pts = rng.randn(500, 3) * 0.04
     preds, gts = _poses(rng, 11, noise=0.005)
-    add, adi = ME.batch_errors(preds, gts, pts, chunk=chunk)
+    add, adi = ME.batch_errors(preds, gts, pts, chunk=chunk, device="cpu")
     add_j, adi_j = JME.batch_errors(preds, gts, pts, chunk=chunk)
     assert add.dtype == np.float32 and add.shape == (11,)
     np.testing.assert_allclose(add, add_j, atol=1e-6, rtol=0)
@@ -130,14 +131,15 @@ def ycb_tree(tmp_path):
 
 def test_eval_ycb_matches_jax(ycb_tree, capsys):
     res, ycb = ycb_tree
-    adi, add = eval_ycb.eval_one_class(res, ycb, 1)
+    adi, add = eval_ycb.eval_one_class(res, ycb, 1, device="cpu")
     adi_j, add_j = jycb.eval_one_class(res, ycb, 1)
     assert len(adi) == 3  # keyframes only
     np.testing.assert_allclose(add, add_j, atol=1e-6, rtol=0)
     np.testing.assert_allclose(adi, adi_j, atol=1e-6, rtol=0)
     assert ME.vocap(add) * 100 > 90
     capsys.readouterr()
-    eval_ycb.main(["--ycb_dir", ycb, "--class_id", "1", "--res_dir", res])
+    eval_ycb.main(["--ycb_dir", ycb, "--class_id", "1", "--res_dir", res,
+                   "--device", "cpu"])
     out = capsys.readouterr().out
     assert "002_master_chef_can" in out and "add:" in out and "adi:" in out
 
@@ -156,7 +158,7 @@ def test_eval_ycbineoat_matches_jax(tmp_path, capsys):
         pred = gt.copy()
         pred[:3, 3] += rng.randn(3) * 0.001
         _write_pose(str(res / video / f"{i:06d}.txt"), pred)
-    out = eval_ycbineoat.eval_all(str(res), str(data), str(ycb))
+    out = eval_ycbineoat.eval_all(str(res), str(data), str(ycb), device="cpu")
     ref = jineoat.eval_all(str(res), str(data), str(ycb))
     assert out.keys() == ref.keys() and out["overall"]["n"] == 5
     for key in out:
@@ -165,5 +167,36 @@ def test_eval_ycbineoat_matches_jax(tmp_path, capsys):
     assert out["mustard"]["add"] > 90
     capsys.readouterr()
     eval_ycbineoat.main(["--YCBInEOAT_dir", str(data), "--ycb_dir", str(ycb),
-                         "--res_dir", str(res)])
+                         "--res_dir", str(res), "--device", "cpu"])
     assert "Overall, adi=" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("fn", [ME.batch_errors, eval_ycb.eval_one_class,
+                                eval_ycb.eval_all, eval_ycbineoat.eval_all])
+def test_scorers_default_to_the_card(fn):
+    """The scorers run on ``cuda`` unless the caller asks for the CPU (read
+    from the signature, nothing run)."""
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+
+
+@pytest.mark.parametrize("cli", ["eval_ycb_one", "eval_ycb_all",
+                                 "eval_ycbineoat"])
+def test_scorer_clis_default_to_the_card(cli, monkeypatch):
+    """Both CLIs pass ``device="cuda"`` without ``--device``: the scoring
+    function is replaced by a recorder, so nothing is read or run."""
+    seen = {}
+
+    def record(*args, device):
+        seen["device"] = device
+
+    if cli == "eval_ycbineoat":
+        monkeypatch.setattr(eval_ycbineoat, "eval_all", record)
+        eval_ycbineoat.main(["--YCBInEOAT_dir", "d", "--ycb_dir", "y",
+                             "--res_dir", "r"])
+    elif cli == "eval_ycb_one":
+        monkeypatch.setattr(eval_ycb, "eval_one_class", record)
+        eval_ycb.main(["--ycb_dir", "y", "--class_id", "1", "--res_dir", "r"])
+    else:
+        monkeypatch.setattr(eval_ycb, "eval_all", record)
+        eval_ycb.main(["--ycb_dir", "y", "--root", "r"])
+    assert seen == {"device": "cuda"}

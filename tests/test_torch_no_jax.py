@@ -1,9 +1,12 @@
-"""The PyTorch port and ``chip_smoke.py`` never import jax.
+"""The PyTorch port and ``chip_smoke.py`` never import jax, nor any module
+of the JAX package (``iros20_6d_pose_tracking_tpu``), not even a numpy-only
+one.
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
 one tracking step, a two-frame hard test video with its scores and one
-synthetic train step on the CPU, and look at ``sys.modules``. Importing the
+synthetic train step on the CPU, and look at ``sys.modules``. Every source
+file of the port is also parsed, and its imports read. Importing the
 port loads neither PyYAML nor Pillow (the training CLI and the file-backed
 dataset import them when they read a file). ``chip_smoke.py`` imports only
 the port, never the JAX package, and refuses to run without a CUDA card.
@@ -49,7 +52,7 @@ gt = SB.make_gt_trajectory(2)
 mesh = rz.upload(M.make_cube(0.08), "cpu")
 rgb_v, dep_v = SB._quantize(*SB.render_test_video(mesh, gt, K, hw=(192, 256),
                                                   hard=True))
-add, adi = SB.ME.batch_errors(gt, gt, M.make_cube(0.08).verts)
+add, adi = SB.ME.batch_errors(gt, gt, M.make_cube(0.08).verts, device="cpu")
 assert 0.9 < (dep_v > 0).mean() < 1 and not add.any() and not adi.any()
 from iros20_6d_pose_tracking_tpu_torch.data import dataset as D
 from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
@@ -67,6 +70,9 @@ m = tr.train_step_synth(net, opt, lr_at(0), cfg, synth,
 assert torch.isfinite(m["loss"])
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
+pkg = sorted(m for m in sys.modules if m == "iros20_6d_pose_tracking_tpu"
+             or m.startswith("iros20_6d_pose_tracking_tpu."))
+print("JAX_PACKAGE_MODULES", pkg)
 """
 
 
@@ -77,6 +83,7 @@ def test_port_imports_and_runs_without_jax():
                           capture_output=True, text=True, timeout=300)
     assert proc.returncode == 0, proc.stderr
     assert "JAX_MODULES []" in proc.stdout, proc.stdout
+    assert "JAX_PACKAGE_MODULES []" in proc.stdout, proc.stdout
     assert "LAZY_MODULES []" in proc.stdout, proc.stdout
     walked = {line.split()[1] for line in proc.stdout.splitlines()
               if line.startswith("PORT_MODULE ")}
@@ -98,12 +105,34 @@ def _imported_modules(path):
     return mods
 
 
+_JAX_SIDE = ("jax", "jaxlib", "flax", "iros20_6d_pose_tracking_tpu")
+
+
+def test_port_sources_import_nothing_of_jax():
+    """Every ``.py`` under the port, parsed: no import of jax, jaxlib, flax
+    or the JAX package, absolute or relative (a relative import cannot
+    leave the port's package)."""
+    root = os.path.join(REPO, "iros20_6d_pose_tracking_tpu_torch")
+    files, bad = 0, {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(dirpath, name)
+            files += 1
+            hits = sorted(m for m in _imported_modules(path)
+                          if m.split(".")[0] in _JAX_SIDE)
+            if hits:
+                bad[os.path.relpath(path, REPO)] = hits
+    assert files >= 30, files
+    assert not bad, bad
+
+
 def test_chip_smoke_imports_only_the_port():
     mods = _imported_modules(os.path.join(REPO, "chip_smoke.py"))
     assert "iros20_6d_pose_tracking_tpu_torch.render" in mods
-    bad = sorted(m for m in mods if m.split(".")[0] in (
-        "jax", "jaxlib", "flax", "iros20_6d_pose_tracking_tpu", "yaml",
-        "PIL"))
+    bad = sorted(m for m in mods if m.split(".")[0] in _JAX_SIDE + (
+        "yaml", "PIL"))
     assert not bad, bad
 
 

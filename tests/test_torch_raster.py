@@ -282,7 +282,7 @@ def test_sample_texture_matches_jax():
     v = rng.uniform(-1.5, 2.5, 500).astype(np.float32)
     ref = np.asarray(Rz._sample_texture(jnp.asarray(tex), jnp.asarray(u),
                                         jnp.asarray(v)))
-    ours = TRz._sample_texture(_t(tex), _t(u), _t(v)).numpy()
+    ours = rk._sample_texture(_t(tex), _t(u), _t(v)).numpy()
     np.testing.assert_allclose(ours, ref, atol=1e-6)
 
 
@@ -306,16 +306,18 @@ def test_textured_box_render_matches_jax():
 @pytest.mark.parametrize("cull", [False, True])
 def test_render_gathers_rows_through_k2(cull, monkeypatch):
     """Every render runs pass 1 and pass 2 through the kernel wrappers once
-    each; ``fuse_pass2=False`` (plain row indexing) is refused."""
+    each: K1 and the fused gather-and-shade pass 2 (the standalone K2 row
+    gather is off the render path); ``fuse_pass2=False`` (plain row
+    indexing) is refused."""
     tmh = TRz.upload(MESHES["icosphere"](), "cpu")
     calls = []
-    for name in ("pass1_winners", "gather_rows"):
+    for name in ("pass1_winners", "pass2_shade", "gather_rows"):
         fn = getattr(rk, name)
-        monkeypatch.setattr(rk, name, lambda *a, _f=fn, _n=name: (
-            calls.append(_n), _f(*a))[1])
+        monkeypatch.setattr(rk, name, lambda *a, _f=fn, _n=name, **k: (
+            calls.append(_n), _f(*a, **k))[1])
     rgb, d = TRz.render(tmh, _t(POSE), _t(K), WIN, out_hw=HW,
                         cull_backfaces=cull)
-    assert calls == ["pass1_winners", "gather_rows"]
+    assert calls == ["pass1_winners", "pass2_shade"]
     assert (d > 0).sum() > 500 and torch.isfinite(rgb).all()
     with pytest.raises(ValueError, match="fuse_pass2"):
         TRz.render(tmh, _t(POSE), _t(K), WIN, out_hw=HW,

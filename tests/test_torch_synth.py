@@ -190,12 +190,12 @@ def test_batched_render_equals_render_per_view():
                                                     (1000.0,) * 3))
     calls = []
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("pass1_winners", "gather_rows"):
+        for name in ("pass1_winners", "pass2_shade", "gather_rows"):
             fn = getattr(rk, name)
-            mp.setattr(rk, name, lambda *a, _f=fn, _n=name: (
-                calls.append(_n), _f(*a))[1])
+            mp.setattr(rk, name, lambda *a, _f=fn, _n=name, **k: (
+                calls.append(_n), _f(*a, **k))[1])
         rgb, depth = TRz.render(mesh, poses, Kt, windows, (RES, RES))
-    assert sorted(calls) == ["gather_rows", "pass1_winners"]
+    assert sorted(calls) == ["pass1_winners", "pass2_shade"]
     assert rgb.shape == (5, RES, RES, 3) and depth.shape == (5, RES, RES)
     for b in range(5):
         bbox = roi.compute_bbox(poses[b], Kt, WIDTH, (1000.0,) * 3)
@@ -291,12 +291,13 @@ def test_sample_batch_is_one_launch_per_kernel():
                              dr=D.DRComposite())
     calls = []
     with pytest.MonkeyPatch.context() as mp:
-        for name in ("pass1_winners", "gather_rows", "pass1_worklist"):
+        for name in ("pass1_winners", "pass2_shade", "gather_rows",
+                     "pass1_worklist"):
             fn = getattr(rk, name)
-            mp.setattr(rk, name, lambda *a, _f=fn, _n=name: (
-                calls.append(_n), _f(*a))[1])
+            mp.setattr(rk, name, lambda *a, _f=fn, _n=name, **k: (
+                calls.append(_n), _f(*a, **k))[1])
         raw = synth.sample_batch(torch.Generator().manual_seed(5), 3)
-    assert sorted(calls) == ["gather_rows", "pass1_winners"]
+    assert sorted(calls) == ["pass1_winners", "pass2_shade"]
     assert raw["rgbA"].shape == (3, RES, RES, 3)
     assert raw["maskB"].dtype == torch.bool
     t, r = se3.encode_delta(raw["A_in_cam"], raw["B_in_cam"], 0.02,

@@ -111,9 +111,11 @@ def test_track_video_follows_jax_trajectory(scene):
         jnp.asarray(s["mean"]), jnp.asarray(s["std"]),
         jnp.asarray(s["init"]), jnp.asarray(frames_rgb),
         jnp.asarray(frames_depth)))
-    n1, n2 = rk.pass1_winners.launches, rk.gather_rows.launches
+    counts = (rk.pass1_winners.launches, rk.pass2_shade.launches,
+              rk.gather_rows.launches)
     poses = s["tracker"].track_video(s["init"], frames_rgb, frames_depth)
-    assert (rk.pass1_winners.launches, rk.gather_rows.launches) == (n1, n2)
+    assert (rk.pass1_winners.launches, rk.pass2_shade.launches,
+            rk.gather_rows.launches) == counts
     assert poses.shape == (T_FRAMES, 4, 4) and np.isfinite(poses).all()
     assert np.linalg.norm(poses[-1, :3, 3] - s["init"][:3, 3]) > 1e-3
     for i in range(T_FRAMES):
