@@ -28,8 +28,10 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      views and (phase 7) the 400 views of a train batch. K3
      (``pass1_worklist``), in full 480x640 frames: the production mesh
      unculled, a 20,480-face icosphere at face block 256, random ragged
-     cases and an empty frame: winners equal and iz bit-equal to its plain
-     version, and to K1 on the same full-frame inputs. K1 with a batch
+     cases, slivers, 8 face blocks holding the same faces at the same lanes
+     (every key ties across blocks; block 0's face must win) and an empty
+     frame: winners equal and iz bit-equal to its plain version, and to K1
+     on the same full-frame inputs. K1 with a batch
      axis: the 8 views of a 4-pair training-sampler batch of the
      production mesh at 176^2 and a ragged random batch, one launch each:
      winners equal and iz bit-equal to the plain version, and every view
@@ -72,10 +74,12 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      ``track_video`` rates (host clock around work that ends with the pose
      on the host), ``track_video`` in turns with the earlier pass 2, and the
      device's busy share over a ``torch.profiler`` window of 20 frames;
-     then K3, K1 and plain K3 at
-     480x640 on both full-frame meshes, one full-frame ``render`` through
-     K3 and through K1, the ``render_test_video`` and ``evaluate_tracking``
-     rates over 60 frames, and ``batch_errors`` over 60 frames;
+     then K3, K1 and plain K3 at 480x640 on both full-frame meshes, with
+     each wrapper's host time and device operations per call (from the
+     profiler; K3 fails the run above 4), one
+     full-frame ``render`` through K3 and through K1 in 5 pairs of turns,
+     the ``render_test_video`` and ``evaluate_tracking`` rates over 60
+     frames, and ``batch_errors`` over 60 frames;
   7. drives synthetic training at full width, the configuration of the
      JAX ``bench.py`` train_synth row: a 0.08 m cube, ``DRComposite()``,
      the 480x640 intrinsics, batch 200 at 176^2, float32, TF32 off.
@@ -175,10 +179,15 @@ OPS_PER_HIT_PIXEL = 120
 EVAL_FRAMES = 60
 CPU_RENDER_FRAMES = 3
 CPU_TRACK_FRAMES = 10
-# Calls of a pass-1 wrapper in one profiler window (phase 6), and calls of
-# K3 (its work list and kernel, 52 device operations) in one queued run.
+# Calls of a pass-1 wrapper in one profiler window (phase 6); the device
+# operations a K3 call may make, enforced from the profiler (it makes one:
+# a cooperative kernel that builds the list, searches it and decodes); the
+# plain K3's timed calls; and the full-frame renders through K3 and K1
+# timed in turns.
 PROFILE_CALLS = 20
-K3_RUNS = 10
+K3_MAX_OPS = 4
+K3_PLAIN_RUNS = 10
+RENDER_PAIRS = 5
 # Phase 7: the JAX bench.py train_synth configuration, and the sizes of the
 # card-against-CPU check.
 TRAIN_BATCH = 200
@@ -554,18 +563,34 @@ def run_ms(fn, runs=TIMING_RUNS):
     return start.elapsed_time(end) / runs
 
 
+def host_ms(fn, runs=TIMING_RUNS):
+    """Host milliseconds per call of ``fn`` over ``runs`` calls enqueued
+    back to back (the card idle at the start; the calls' device operations
+    stay under the launch queue's depth, so the host never waits)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(runs):
+        fn()
+    ms = (time.perf_counter() - t0) * 1e3 / runs
+    torch.cuda.synchronize()
+    return ms
+
+
 def device_ms(fn, kernel):
-    """Device time per launch of the __global__ function ``DEVICE_FN[
-    kernel]`` over PROFILE_CALLS calls of ``fn`` under torch.profiler, or
-    None when the profiler saw none."""
+    """Device time per call of ``fn`` in the __global__ functions whose
+    names hold ``DEVICE_FN[kernel]`` (summed over them), over PROFILE_CALLS
+    calls under torch.profiler, or None when the profiler saw none."""
     prof = profile_share(lambda: [fn() for _ in range(PROFILE_CALLS)],
                          top=100)
     if prof is None:
         return None
-    rows = [(us, n) for key, us, n in prof[3] if DEVICE_FN[kernel] in key]
+    rows = [us for key, us, _ in prof[3] if DEVICE_FN[kernel] in key]
     if not rows:
         return None
-    return sum(us for us, _ in rows) / 1e3 / sum(n for _, n in rows)
+    return sum(rows) / 1e3 / PROFILE_CALLS
 
 
 def report_kernel(name, label, fn, plain_fn, bnd, card, plain_runs=None,
@@ -928,8 +953,9 @@ def full_frame_case(mesh, pose, fb=None):
 
 def check_worklist(name, coef, bbox, hw, fb):
     """K3 against its plain version and against K1 on the same inputs:
-    winners equal, iz bit-equal. Returns (max |iz difference| to the plain
-    version, iz, winner) of the kernel."""
+    winners equal, iz bit-equal; prints the (patch, chunk) items K3's list
+    holds. Returns (max |iz difference| to the plain version, iz, winner)
+    of the kernel."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
@@ -943,20 +969,31 @@ def check_worklist(name, coef, bbox, hw, fb):
             int((win != win_ref).sum()),
             int((iz.view(torch.int32) != iz_ref.view(torch.int32)).sum()))
     err = float((iz - refs["plain K3"][0]).abs().max())
-    print(f"K3 {name}: F={coef.shape[1]} fb={fb} hw={hw} covered="
-          f"{int((iz > 0).sum())} (winner, iz bit) mismatches {bad} "
+    items = rk.worklist_items(bbox, hw, coef.shape[1], fb).shape[0]
+    print(f"K3 {name}: F={coef.shape[1]} fb={fb} hw={hw} items={items} "
+          f"covered={int((iz > 0).sum())} (winner, iz bit) mismatches {bad} "
           f"max|d iz|={err}", flush=True)
     if any(n for pair in bad.values() for n in pair):
         raise AssertionError(f"K3 disagrees ({name}): {bad}")
     return err, iz, win
 
 
+def tied_case(rng, copies, fb, hw, device):
+    """``fuzz_case``'s random triangles of one face block, repeated in blocks
+    0 .. copies - 1 at the same lanes: every covered pixel's key ties across
+    all blocks, so every item of a busy patch collides on equal keys.
+    Returns (coef, block_bbox)."""
+    coef, bbox = fuzz_case(rng, fb, hw, fb, device)
+    return coef.repeat(1, copies), bbox.repeat(copies, 1)
+
+
 def check_worklist_cases(tracker, pose0):
     """Phase 3, K3: full 480x640 frames of the production mesh (unculled,
     face block 1024) and of a 20,480-face icosphere at face block 256, random
-    ragged cases, sliver triangles, and an empty frame; and pass 2 fused on
-    the production mesh's full frame. Returns K3's and pass 2's max errors
-    and the two full-frame meshes' cases (with K3's outputs iz, win)."""
+    ragged cases, sliver triangles, a full frame whose 8 face blocks tie
+    (block 0's face must win) and an empty frame; and pass 2 fused on the
+    production mesh's full frame. Returns K3's and pass 2's max errors and
+    the two full-frame meshes' cases (with K3's outputs iz, win)."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
@@ -982,6 +1019,14 @@ def check_worklist_cases(tracker, pose0):
                             ("slivers", 1000, (131, 97), 512)):
         coef, bbox = fuzz_case(rng, F, hw, fb, dev, kind)
         err = max(err, check_worklist(kind, coef, bbox, hw, fb)[0])
+    copies, fb = 8, 256
+    coef, bbox = tied_case(rng, copies, fb, FRAME_HW, dev)
+    e, iz, win = check_worklist(f"{copies} tied blocks", coef, bbox,
+                                FRAME_HW, fb)
+    err = max(err, e)
+    if not bool((iz > 0).any()) or not bool((win[iz > 0] < fb).all()):
+        raise AssertionError("K3 tied blocks: no pixel covered, or a winner "
+                             "outside block 0")
     away = pose0.copy()
     away[0, 3] = 3.0  # far off the right edge of the frame
     c = full_frame_case(tracker.mesh, away)
@@ -1085,13 +1130,15 @@ def compare_eval_with_cpu(cpu_obj, gt, frames, result):
 
 
 def time_eval(obj, gt, poses, ff_cases, card):
-    """Phase 6, the evaluation path's timings: K3 (``report_kernel``), K1
-    and plain K3 on the full-frame inputs with each wrapper's device time
-    split by ``torch.profiler``, pass 2 fused on the production full frame,
-    one full-frame render through K3 and K1 (CUDA events, median of
-    TIMING_RUNS), the warm ``render_test_video`` and ``evaluate_tracking``
-    rates (host clock), and ``batch_errors``. Returns K3's kernels-line
-    numbers on the production mesh."""
+    """Phase 6, the evaluation path's timings: K3 (``report_kernel``)
+    beside K1 on the full-frame inputs, each wrapper's host time and device
+    operations per call (the latter from ``torch.profiler``; K3 held to
+    K3_MAX_OPS), pass 2 fused on the
+    production full frame, a full-frame render through K3 and through K1 in
+    turns (CUDA events, median of TIMING_RUNS each, RENDER_PAIRS pairs), the
+    warm ``render_test_video`` and ``evaluate_tracking`` rates (host clock),
+    and ``batch_errors``. Returns K3's kernels-line numbers on the
+    production mesh."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.eval import metrics as ME
@@ -1110,17 +1157,34 @@ def time_eval(obj, gt, poses, ff_cases, card):
             "raster_pass1_worklist", label,
             lambda: rk.pass1_worklist(coef, bbox, FRAME_HW, fb),
             lambda: rk.pass1_worklist_ref(coef, bbox, FRAME_HW, fb),
-            pass1_bound(c, FRAME_HW), card, runs=K3_RUNS)
-        k1 = run_ms(lambda: rk.pass1_winners(coef, bbox, FRAME_HW, fb))
+            pass1_bound(c, FRAME_HW), card, plain_runs=K3_PLAIN_RUNS)
+        k3_fn = functools.partial(rk.pass1_worklist, coef, bbox, FRAME_HW, fb)
+        k1_fn = functools.partial(rk.pass1_winners, coef, bbox, FRAME_HW, fb)
+        k1, k1_dev = run_ms(k1_fn), device_ms(k1_fn, "raster_pass1")
+        k3_dev = out[name]["device_ms"]
         print(f"timing kernel raster_pass1 {label}: {k1:.5f} ms per launch "
-              f"(CUDA events around {TIMING_RUNS} queued launches) {card}",
-              flush=True)
+              f"(CUDA events around {TIMING_RUNS} queued launches), device "
+              f"{'not measured' if k1_dev is None else f'{k1_dev:.5f} ms'} "
+              f"(profiler); K3's kernel on the same inputs "
+              f"{'not measured' if k3_dev is None else f'{k3_dev:.5f} ms'} "
+              f"{card}", flush=True)
+        print(f"timing host per call {label}: K3 {host_ms(k3_fn):.4f} ms, "
+              f"K1 {host_ms(k1_fn):.4f} ms (host clock over {TIMING_RUNS} "
+              f"calls enqueued back to back) {card}", flush=True)
         for label, fn in (("K3", rk.pass1_worklist), ("K1", rk.pass1_winners)):
-            prof = profile_share(lambda: [fn(coef, bbox, FRAME_HW, fb)
-                                          for _ in range(PROFILE_CALLS)],
-                                 top=3)
+            # The profiler now and then records nothing; K3's count is
+            # enforced, so it gets three tries.
+            for _ in range(3 if label == "K3" else 1):
+                prof = profile_share(lambda: [fn(coef, bbox, FRAME_HW, fb)
+                                              for _ in range(PROFILE_CALLS)],
+                                     top=4)
+                if prof is not None:
+                    break
             if prof is None:
                 print(f"profile: {label} {name}: no device time recorded")
+                if label == "K3":
+                    raise AssertionError("K3's device operations per call "
+                                         "not measured")
                 continue
             busy_us, wall_us, n_ops, rows = prof
             print(f"profile: {label} {name} x{PROFILE_CALLS}: device busy "
@@ -1130,6 +1194,10 @@ def time_eval(obj, gt, poses, ff_cases, card):
                   + "; ".join(f"{us / 1e3 / count:.4f} ms x{count} "
                               f"{key[:60]}" for key, us, count in rows)
                   + f" {card}", flush=True)
+            if label == "K3" and n_ops > K3_MAX_OPS * PROFILE_CALLS:
+                raise AssertionError(
+                    f"K3 makes {n_ops / PROFILE_CALLS} device operations per "
+                    f"call, more than {K3_MAX_OPS}")
     c = ff_cases["production"]
     report_kernel("pass2_shade", f"full frame {FRAME_HW[0]}x{FRAME_HW[1]} "
                   "production",
@@ -1141,12 +1209,18 @@ def time_eval(obj, gt, poses, ff_cases, card):
     pose = torch.as_tensor(gt[0]).to(dev)
     K = torch.as_tensor(K_PROD).to(dev)
     window = rz.full_frame_window(FRAME_HW[1], FRAME_HW[0])
-    for worklist in (True, False):
-        ms = cuda_ms(lambda: rz.render(obj.mesh, pose, K, window,
-                                       out_hw=FRAME_HW, worklist=worklist))
-        print(f"timing full-frame render through {'K3' if worklist else 'K1'}"
-              f": {ms:.4f} ms (production mesh, median of {TIMING_RUNS}) "
-              f"{card}")
+    ms = {"K3": [], "K1": []}
+    for i in range(RENDER_PAIRS):
+        for which in (("K3", "K1") if i % 2 == 0 else ("K1", "K3")):
+            ms[which].append(cuda_ms(lambda: rz.render(
+                obj.mesh, pose, K, window, out_hw=FRAME_HW,
+                worklist=which == "K3")))
+    faster = sum(a <= b for a, b in zip(ms["K3"], ms["K1"]))
+    print(f"timing full-frame render in turns (production mesh, median of "
+          f"{TIMING_RUNS} each, pairs in the order K3 K1, K1 K3, ...): "
+          f"through K3 {[round(m, 4) for m in ms['K3']]} ms, through K1 "
+          f"{[round(m, 4) for m in ms['K1']]} ms; K3 no slower in {faster} "
+          f"of {RENDER_PAIRS} pairs {card}", flush=True)
     torch.cuda.synchronize(dev)
     t0 = time.perf_counter()
     frames = SB._quantize(*SB.render_test_video(obj.mesh, gt, K_PROD,

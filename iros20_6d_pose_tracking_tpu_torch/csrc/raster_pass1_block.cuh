@@ -1,6 +1,7 @@
-// One face block of the pass-1 winner search, shared by the two pass-1
-// kernels: raster_pass1.cu (K1, pixel patches) and raster_pass1_worklist.cu
-// (K3, 128-pixel runs, the blocks a work list names).
+// The pass-1 winner search over staged chunks of faces, shared by the two
+// pass-1 kernels: raster_pass1.cu (K1, pixel patches walking their face
+// blocks) and raster_pass1_worklist.cu (K3, one chunk of one face block per
+// item of its work list).
 //
 // Per face, pass 1 holds twelve floats (a (12, F) matrix, row layout ROW_*
 // of render/raster_kernels.py): three sign-folded edge forms and the
@@ -9,6 +10,8 @@
 // > 0. The winner is the covered face of largest 1/z, found as the max of
 // one packed int key per (pixel, face):
 //     key = (bits(iz) & ~(face_block - 1)) | lane,  lane = face % face_block
+// (face blocks start at multiples of face_block, so the lane is the face's
+// index & (face_block - 1) whatever chunk of the block it is staged in)
 // (positive floats order like their bits, so the max is the depth test and
 // the argmax at once). Within a face block the max is over the covered faces
 // only, so leaving out a (pixel, face) pair that cannot cover the pixel
@@ -108,6 +111,55 @@ __device__ __forceinline__ void fetch_chunk(
   }
 }
 
+// The registers of fetch_chunk into smem, face-major: face f's twelve rows
+// at smem[f * 12 .. f * 12 + 11]. Every thread of the block must call it (it
+// synchronises the block before, so the previous chunk is no longer being
+// read, and after).
+template <int kThreads>
+__device__ __forceinline__ void stage_chunk(
+    float* smem, const float (&v)[kChunk * kRows / kThreads]) {
+  __syncthreads();
+#pragma unroll
+  for (int k = 0; k < kChunk * kRows / kThreads; ++k) {
+    const int i = threadIdx.x + k * kThreads;
+    smem[(i % kChunk) * kRows + i / kChunk] = v[k];
+  }
+  __syncthreads();
+}
+
+// Whether staged face f may cover a pixel of `rect`: the binning's test,
+// no edge form's maximum over the rectangle below 0 and the 1/z form's
+// above 0 (see above: a face it drops covers no pixel of the rectangle).
+__device__ __forceinline__ bool may_cover(const float* smem, int f,
+                                          const Rect& rect) {
+  const float4* c = reinterpret_cast<const float4*>(&smem[f * kRows]);
+  // rows: a0 b0 c0 | a1 b1 c1 | a2 b2 c2 | aw bw cw
+  const float4 r0 = c[0], r1 = c[1], r2 = c[2];
+  return !(rect_max(r0.x, r0.y, r0.z, rect) < 0.0f ||
+           rect_max(r0.w, r1.x, r1.y, rect) < 0.0f ||
+           rect_max(r1.z, r1.w, r2.x, rect) < 0.0f ||
+           rect_max(r2.y, r2.z, r2.w, rect) <= 0.0f);
+}
+
+// The packed key of staged face k (face s + k) at pixel (px, py), or -1
+// where the face does not cover the pixel. Every lane of a warp reading
+// the same k reads the same smem words (a broadcast).
+__device__ __forceinline__ int face_key(const float* smem, int k, int s,
+                                        int lane_mask, float px, float py) {
+  const float4* c = reinterpret_cast<const float4*>(&smem[k * kRows]);
+  const float4 r0 = c[0], r1 = c[1], r2 = c[2];
+  const float e0 = form(px, py, r0.x, r0.y, r0.z);
+  const float e1 = form(px, py, r0.w, r1.x, r1.y);
+  const float e2 = form(px, py, r1.z, r1.w, r2.x);
+  const float izp = form(px, py, r2.y, r2.z, r2.w);
+  // Comparisons, not fminf: a NaN form must not count as covered (fminf
+  // would drop it; jnp.minimum / torch.minimum propagate it).
+  const bool covered =
+      (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f) && (izp > 0.0f);
+  return covered ? (__float_as_int(izp) & ~lane_mask) | ((s + k) & lane_mask)
+                 : -1;
+}
+
 // Max packed key at pixel (px, py) of the faces [block_start, block_end)
 // that the calling warp searches, or -1 where none covers it: with kSplit
 // warps on each pixel, the warp of split index `split` searches the 32-face
@@ -132,13 +184,7 @@ __device__ __forceinline__ int block_best_key(const float* __restrict__ coef,
   int best = -1;
   for (int s = block_start; s < block_end; s += kChunk) {
     const int n = min(kChunk, block_end - s);
-    __syncthreads();  // the previous chunk is no longer being read
-#pragma unroll
-    for (int k = 0; k < kChunk * kRows / kThreads; ++k) {
-      const int i = threadIdx.x + k * kThreads;
-      smem[(i % kChunk) * kRows + i / kChunk] = next[k];
-    }
-    __syncthreads();
+    stage_chunk<kThreads>(smem, next);
     if (s + kChunk < block_end) {  // in flight while this chunk is searched
       fetch_chunk<kThreads>(coef, F, s + kChunk, block_end, next);
     }
@@ -158,19 +204,7 @@ __device__ __forceinline__ int block_best_key(const float* __restrict__ coef,
       while (live) {  // ascending face order, uniform across the warp
         const int k = g + __ffs(live) - 1;
         live &= live - 1;
-        const float4* c = reinterpret_cast<const float4*>(&smem[k * kRows]);
-        const float4 r0 = c[0], r1 = c[1], r2 = c[2];  // broadcast reads
-        const float e0 = form(px, py, r0.x, r0.y, r0.z);
-        const float e1 = form(px, py, r0.w, r1.x, r1.y);
-        const float e2 = form(px, py, r1.z, r1.w, r2.x);
-        const float izp = form(px, py, r2.y, r2.z, r2.w);
-        // Comparisons, not fminf: a NaN form must not count as covered
-        // (fminf would drop it; jnp.minimum / torch.minimum propagate it).
-        const bool covered =
-            (e0 >= 0.0f) && (e1 >= 0.0f) && (e2 >= 0.0f) && (izp > 0.0f);
-        const int key =
-            (__float_as_int(izp) & ~lane_mask) | (s + k - block_start);
-        best = covered ? max(best, key) : best;
+        best = max(best, face_key(smem, k, s, lane_mask, px, py));
       }
     }
   }

@@ -40,6 +40,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 
 # C signature of each kernel entry point: (argtypes, restype).
 SIGNATURES = {
@@ -59,10 +60,10 @@ SIGNATURES = {
         "pass2_shade": ([_P] * 9 + [_I] * 12 + [ctypes.c_float, _P], _I),
     },
     "raster_pass1_worklist": {
-        # coef, block_ids, tile_offsets, tile_counts, iz, winner, F,
+        # coef, block_bbox, scratch, scratch_bytes, iz, winner, F, n_blocks,
         # face_block, H, W, pix_tile, stream
         "raster_pass1_worklist": (
-            [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
+            [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
     },
 }
 

@@ -20,7 +20,9 @@ Counterpart of ``iros20_6d_pose_tracking_tpu/render/pallas_raster.py``:
     ``_wl_kernel`` / ``pallas_pass1_worklist``, with its list from
     :func:`build_worklist`), CUDA source ``csrc/raster_pass1_worklist.cu``.
     It gives K1's winners, computed only over the (pixel tile, face block)
-    pairs that intersect.
+    pairs that intersect, from an unordered list of (patch, chunk) items
+    (:func:`worklist_items`) built on the device and folded with a packed
+    max that makes the order of the items irrelevant.
 
 ``split_f32_to_bf16_terms`` is not ported: the TPU kernel gathers rows
 with one-hot bf16 matmuls and needs the 3-term split to stay exact, while
@@ -45,8 +47,8 @@ ROW_A2, ROW_B2, ROW_C2 = 6, 7, 8
 ROW_AW, ROW_BW, ROW_CW = 9, 10, 11
 
 # Pixels per tile of pass 1: the run of consecutive pixels whose row range
-# the block-bbox skip test takes (K1 and its plain version), and K3's
-# thread block. The TPU kernel's tile is 512 (DEF_PIX_TILE).
+# the block-bbox skip test takes (K1, K3 and their plain versions). The TPU
+# kernel's tile is 512 (DEF_PIX_TILE).
 PIX_TILE = 128
 
 _BIG = 3.0e8
@@ -612,6 +614,28 @@ gather_rows.launches = 0
 # K3: work-list pass 1.
 # ---------------------------------------------------------------------------
 
+# K3's patches (the pixels its thread block bins and searches at a time)
+# are K3_PATCH x K3_PATCH pixels; an item searches one chunk of at most
+# K3_CHUNK faces of one face block (the faces a thread block stages at a
+# time, csrc/raster_pass1_block.cuh kChunk).
+K3_PATCH = 16
+K3_CHUNK = 256
+
+
+def _run_hits(block_bbox, hw: tuple[int, int], pix_tile: int):
+    """(n_tiles, n_blocks) bool: block j's bbox meets the window's columns
+    and the rows of tile t, the run of ``pix_tile`` consecutive pixels
+    from t * pix_tile (K1's skip test, the TPU list's intersection test)."""
+    H, W = hw
+    n_tiles = -(-(H * W) // pix_tile)
+    tile_first = torch.arange(n_tiles, device=block_bbox.device) * pix_tile
+    y0 = (tile_first // W).to(torch.float32)
+    y1 = ((tile_first + pix_tile - 1) // W).to(torch.float32)
+    xmin, xmax, ymin, ymax = block_bbox.unbind(1)
+    return ((xmax[None, :] >= 0.0) & (xmin[None, :] <= W - 1.0)
+            & (ymax[None, :] >= y0[:, None]) & (ymin[None, :] <= y1[:, None]))
+
+
 def build_worklist(block_bbox, hw: tuple[int, int], pix_tile: int = PIX_TILE):
     """Tile-major compacted list of the (pixel tile, face block) pairs that
     intersect, as the JAX ``build_worklist`` makes it: (tile_ids, block_ids,
@@ -622,18 +646,14 @@ def build_worklist(block_bbox, hw: tuple[int, int], pix_tile: int = PIX_TILE):
     tile-major order with each tile's blocks ascending; the padding entries
     repeat the last real tile with block 0 and valid 0. ``init_flags`` marks
     each tile's first entry. The partition is a stable scatter, not a sort,
-    and the count of real entries stays on the device."""
-    H, W = hw
-    n_tiles = -(-(H * W) // pix_tile)
+    and the count of real entries stays on the device.
+
+    The counterpart of the TPU function, and the tests' yardstick for the
+    pairs K3 visits; :func:`pass1_worklist` and its plain version no longer
+    call it (they build :func:`worklist_items`)."""
     nb = block_bbox.shape[0]
     dev = block_bbox.device
-    tile_first = torch.arange(n_tiles, device=dev) * pix_tile
-    y0 = (tile_first // W).to(torch.float32)
-    y1 = ((tile_first + pix_tile - 1) // W).to(torch.float32)
-    xmin, xmax, ymin, ymax = block_bbox.unbind(1)
-    hit = ((xmax[None, :] >= 0.0) & (xmin[None, :] <= W - 1.0)
-           & (ymax[None, :] >= y0[:, None]) & (ymin[None, :] <= y1[:, None]))
-    flat = hit.reshape(-1)
+    flat = _run_hits(block_bbox, hw, pix_tile).reshape(-1)
     k = flat.to(torch.int64)
     n_real = k.sum()
     dest = torch.where(flat, torch.cumsum(k, 0) - 1,
@@ -656,34 +676,128 @@ def _one_view(coef):
                          f"got {tuple(coef.shape)}")
 
 
+def _k3_scratch_bytes(hw: tuple[int, int], n_blocks: int, face_block: int):
+    """Bytes of the scratch buffer K3's C entry takes, whole 8-byte words:
+    an item counter per chunk (int32), an accumulator per pixel (64-bit)
+    and each chunk's room for one item (int32, a patch) per patch."""
+    H, W = hw
+    n_patches = -(-H // K3_PATCH) * -(-W // K3_PATCH)
+    n_chunks = n_blocks * (face_block // min(K3_CHUNK, face_block))
+    return 8 * (-(-n_chunks // 2) + H * W + -(-n_chunks * n_patches // 2))
+
+
+def worklist_items(block_bbox, hw: tuple[int, int], n_faces: int,
+                   face_block: int, pix_tile: int = PIX_TILE,
+                   generator: torch.Generator | None = None):
+    """K3's work list as its phase A builds it: (n_items, 3) int64 rows
+    (patch, block, chunk). Patch p is the K3_PATCH x K3_PATCH pixels from
+    (p % gx, p // gx) * K3_PATCH, gx = ceil(W / K3_PATCH); chunk k of block j
+    the faces from j * face_block + k * min(K3_CHUNK, face_block), never past
+    the block's end nor past ``n_faces``.
+
+    A block is listed for a patch when the run test (:func:`_run_hits`)
+    passes for the run of some pixel of the patch inside the window; the
+    patch then gets one item per chunk of the block. The kernel appends
+    each chunk's items to that chunk's list, in no set order; here they come
+    patch-major, blocks and chunks ascending, or, with ``generator`` (a CPU
+    generator), in an order it draws."""
+    H, W = hw
+    dev = block_bbox.device
+    nb = block_bbox.shape[0]
+    gx = -(-W // K3_PATCH)
+    n_patches = -(-H // K3_PATCH) * gx
+    run_hit = _run_hits(block_bbox, hw, pix_tile)
+    q = torch.arange(H * W, device=dev)
+    patch = (q // W // K3_PATCH) * gx + q % W // K3_PATCH
+    # The (patch, run) pairs of the window's pixels; a block is needed by a
+    # patch when it passes the run test of one of them.
+    n_tiles = run_hit.shape[0]
+    pairs = torch.unique(patch * n_tiles + q // pix_tile)
+    need = torch.zeros((n_patches, nb), dtype=torch.int32, device=dev)
+    need.index_add_(0, pairs // n_tiles, run_hit[pairs % n_tiles].to(
+        torch.int32))
+    p_ids, j_ids = torch.nonzero(need).unbind(1)
+    cs = min(K3_CHUNK, face_block)
+    per_block = torch.clamp(
+        (n_faces - torch.arange(nb, device=dev) * face_block + cs - 1) // cs,
+        max=face_block // cs)[j_ids]
+    item_of = torch.repeat_interleave(torch.arange(p_ids.numel(), device=dev),
+                                      per_block)
+    first = torch.cumsum(per_block, 0) - per_block
+    chunk = torch.arange(item_of.numel(), device=dev) - first[item_of]
+    items = torch.stack([p_ids[item_of], j_ids[item_of], chunk], 1)
+    if generator is not None:
+        items = items[torch.randperm(items.shape[0], generator=generator)
+                      .to(dev)]
+    return items
+
+
 def pass1_worklist_ref(coef, block_bbox, hw: tuple[int, int],
-                       face_block: int, pix_tile: int = PIX_TILE):
+                       face_block: int, pix_tile: int = PIX_TILE,
+                       generator: torch.Generator | None = None):
     """Plain version of :func:`pass1_worklist`: the kernel's algorithm in
-    tensor ops. The work list (:func:`build_worklist`), not the bbox test,
-    names the pairs: for each face block in ascending order, the pixels of
-    the tiles whose valid entries list it are folded in by
-    :func:`_update_block`. Each tile's entries are in ascending block order,
-    so every pixel sees its blocks in the order the kernel walks them."""
+    tensor ops. The items (:func:`worklist_items`; in the order
+    ``generator`` draws, when given) are folded in, a batch at a time, into
+    an int64 accumulator per pixel: for each item, each pixel of its patch
+    inside the window whose run passes the test for the item's block takes
+    the max packed key ``(bits(iz) & ~(fb - 1)) | lane`` over the chunk's
+    covered faces (forms rounded after every op, as :func:`_update_block`)
+    and, where one covers it, ``((key + 1) << 32) | (n_blocks - 1 - j)`` is
+    max-ed into its accumulator. Decoding: where 0, iz -1 and winner 0;
+    else key and block j from the two halves. The packed max is the
+    lexicographic max of (key, -j), where the TPU's ascending, strict-``>``
+    walk over the blocks ends, so the order of the items does not matter."""
     n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, pix_tile)
     _one_view(coef)
     H, W = hw
     P = H * W
     dev = coef.device
+    F = coef.shape[1]
+    items = worklist_items(block_bbox, hw, F, face_block, pix_tile, generator)
     coef = _padded_coef(coef, n_blocks, face_block)
-    px, py, _ = _pixel_centres(P, W, dev)
-    tiles, blocks, _, valid = build_worklist(block_bbox, hw, pix_tile)
-    in_tile = torch.arange(pix_tile, device=dev)
-    acc_key = torch.full((P,), -1, dtype=torch.int32, device=dev)
-    acc_idx = torch.zeros((P,), dtype=torch.int32, device=dev)
-    for j in range(n_blocks):
-        t = tiles[(blocks == j) & (valid == 1)].to(torch.int64)
-        if t.numel() == 0:
-            continue
-        sel = (t[:, None] * pix_tile + in_tile).reshape(-1)
-        s = j * face_block
-        _update_block(acc_key, acc_idx, sel[sel < P], px, py,
-                      coef[:, s:s + face_block], s, face_block)
-    return _winners_from_key(acc_key, acc_idx, hw, face_block)
+    run_hit = _run_hits(block_bbox, hw, pix_tile)
+    gx = -(-W // K3_PATCH)
+    cs = min(K3_CHUNK, face_block)
+    lane_mask = face_block - 1
+    t = torch.arange(K3_PATCH * K3_PATCH, device=dev)
+    lanes = torch.arange(cs, device=dev)
+    # acc[P] takes the pixels an item does not search.
+    acc = torch.zeros(P + 1, dtype=torch.int64, device=dev)
+    per_batch = max(1, _PAIRS_PER_CHUNK // (t.numel() * cs))
+    for batch in torch.split(items, per_batch):
+        patch, j, k = batch.unbind(1)
+        x = (patch % gx * K3_PATCH)[:, None] + t % K3_PATCH
+        y = (patch // gx * K3_PATCH)[:, None] + t // K3_PATCH
+        q = y * W + x
+        hit = (x < W) & (y < H) & run_hit[
+            torch.clamp(q // pix_tile, max=run_hit.shape[0] - 1), j[:, None]]
+        faces = (j * face_block + k * cs)[:, None] + lanes
+        c = coef[:, faces][:, :, None, :]  # (12, items, 1, cs)
+        px = x.to(torch.float32)[:, :, None]
+        py = y.to(torch.float32)[:, :, None]
+
+        def form(row):
+            return (px * c[row] + py * c[row + 1]) + c[row + 2]
+
+        e0, e1, e2 = form(ROW_A0), form(ROW_A1), form(ROW_A2)
+        izp = form(ROW_AW)
+        covered = (torch.minimum(torch.minimum(e0, e1), e2) >= 0.0) \
+            & (izp > 0.0)
+        key = torch.where(covered, (izp.view(torch.int32) & ~lane_mask)
+                          | (faces & lane_mask).to(torch.int32)[:, None, :],
+                          -1)
+        best = key.amax(dim=2).to(torch.int64)
+        packed = torch.where(best >= 0, ((best + 1) << 32)
+                             | (n_blocks - 1 - j)[:, None], 0)
+        acc.scatter_reduce_(0, torch.where(hit, q, P).reshape(-1),
+                            packed.reshape(-1), "amax")
+    hi = acc[:P] >> 32
+    key = hi - 1
+    j = n_blocks - 1 - (acc[:P] & 0xFFFFFFFF)
+    iz = torch.where(hi == 0, -1.0,
+                     (key & ~lane_mask).to(torch.int32).view(torch.float32))
+    winner = torch.where(hi == 0, 0, (key & lane_mask) + j * face_block)
+    return iz.reshape(hw), winner.to(torch.int32).reshape(hw)
 
 
 def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
@@ -691,30 +805,32 @@ def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
     pairs: the same (iz, winner) as :func:`pass1_winners` on the same
     arguments.
 
-    CPU tensors run :func:`pass1_worklist_ref`; CUDA tensors build the list
-    on the device, view it per tile (entry counts and their exclusive scan)
-    and launch ``csrc/raster_pass1_worklist.cu`` on the current stream."""
+    CPU tensors run :func:`pass1_worklist_ref`; CUDA tensors launch
+    ``csrc/raster_pass1_worklist.cu`` on the current stream: one cooperative
+    kernel builds the list on the device (:func:`worklist_items`,
+    unordered), searches it on every SM and decodes, with nothing on the
+    host waiting for it. The only torch calls are the allocations of the
+    outputs and of one scratch buffer."""
     if coef.device.type == "cpu" and block_bbox.device.type == "cpu":
         return pass1_worklist_ref(coef, block_bbox, hw, face_block)
-    _check_pass1_args(coef, block_bbox, hw, face_block, PIX_TILE)
+    n_blocks = _check_pass1_args(coef, block_bbox, hw, face_block, PIX_TILE)
     _one_view(coef)
     _check_cuda(("coef", coef, torch.float32),
                 ("block_bbox", block_bbox, torch.float32))
+    if block_bbox.data_ptr() % 16:
+        raise ValueError("block_bbox rows must be 16-byte aligned")
     H, W = hw
     dev = coef.device
-    tiles, blocks, _, valid = build_worklist(block_bbox, hw, PIX_TILE)
-    n_tiles = -(-(H * W) // PIX_TILE)
-    counts = torch.zeros(n_tiles, dtype=torch.int32, device=dev).index_add_(
-        0, tiles, valid)
-    offsets = torch.cumsum(counts, 0, dtype=torch.int32) - counts
     iz = torch.empty((H, W), dtype=torch.float32, device=dev)
     winner = torch.empty((H, W), dtype=torch.int32, device=dev)
+    scratch_bytes = _k3_scratch_bytes(hw, n_blocks, face_block)
+    scratch = torch.empty(scratch_bytes // 8, dtype=torch.int64, device=dev)
     lib = kbuild.load("raster_pass1_worklist")
     with torch.cuda.device(dev):
         err = lib.raster_pass1_worklist(
-            coef.data_ptr(), blocks.data_ptr(), offsets.data_ptr(),
-            counts.data_ptr(), iz.data_ptr(), winner.data_ptr(),
-            coef.shape[1], face_block, H, W, PIX_TILE,
+            coef.data_ptr(), block_bbox.data_ptr(), scratch.data_ptr(),
+            scratch_bytes, iz.data_ptr(), winner.data_ptr(), coef.shape[1],
+            n_blocks, face_block, H, W, PIX_TILE,
             torch.cuda.current_stream(dev).cuda_stream)
     kbuild.check(lib, "raster_pass1_worklist", err)
     pass1_worklist.launches += 1
