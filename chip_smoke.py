@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
-closed-loop synthetic evaluation and synthetic training.
+closed-loop synthetic evaluation, synthetic training and the serving path.
 
     python3 chip_smoke.py
 
@@ -107,14 +107,50 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      whole-step ms (CUDA events, median of 10); train samples/s; the
      sampler render and the train step in turns with the earlier pass 2;
      batched K1 and ``pass2_shade`` against their plain versions and
-     bounds at 8 and at 400 views.
+     bounds at 8 and at 400 views;
+  8. drives the serving path (``apps/predict.py``, multi-hypothesis and
+     chunked tracking) at full width with the tracker of phase 4: the
+     multi-hypothesis runs on a 480x640 frame of the production mesh
+     rendered by the port at the object's pose (so the health score means
+     something), the chunked video on phase 4's frame. First K1 and
+     ``pass2_shade`` over the culled inputs of 4 and 8 hypotheses at 176^2
+     and at the 88^2 scoring resolution (one launch each): K1 against its
+     plain version and the one-view calls, pass 2 against its plain
+     version (depth bit-equal, rgb within 1e-3), and each view of the
+     batched culled ``render`` against the single-pose culled render, bit
+     for bit. Then ``on_track`` at samples 1, 4 and 8 over 20, 20 and 10
+     frames: exactly 2 K1 and 2 ``pass2_shade`` launches a frame at
+     samples > 1 (1 and 1 at samples 1), no K2, no K3, every winner's ROI
+     holding the object's centre; the batched step against N single steps
+     on the card (renders and crops bit for bit, poses within
+     BATCH_STEP_BAR) and ``track_step_multi`` against the port's plain CPU
+     path with the same perturbations (poses within 5e-4 m and 5e-3 rad,
+     scores within CPU_SCORE_BAR, the same winner unless a near tie).
+     ``track_video_chunked`` over 100 frames at chunk 64 from callables:
+     bit-equal to ``track_video``, 100 K1 and 100 ``pass2_shade``
+     launches. The predict CLI (``--mode ycbv``) on a YCB-style tree in a
+     temporary directory (30 frames of the production mesh rendered by the
+     port at 480x640, written as PNGs by ``write_png``, the
+     ``dataset_info.yml`` as JSON, mean/std and a zero-head Flax
+     checkpoint written with msgpack and numpy): scan at chunk 16 with
+     canvases, then ontrack; the pose files of both modes equal, every
+     pose within 1e-4 of the init gt, one canvas a frame, exact launch
+     counts. Timings: ``on_track`` Hz at samples 1, 4 and 8;
+     ``track_video_chunked`` and ``track_video`` in turns; predict scan
+     frames/s with the PNG decode; the multi-hypothesis step's split at 8
+     hypotheses and a profiler window of 5 frames at samples 8; K1 and
+     ``pass2_shade`` at the N-view shapes against their plain versions and
+     bounds.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
 kernel it replaces, its launches on the main path (the tracking slice; K3's
 from the evaluation path), its largest error against its plain version, and
 ``ms``, ``plain_ms``, ``bound_ms`` / ``bound_by`` and ``library_ms`` on the
-production inputs (K3: the full frame). The last is
+production inputs (K3: the full frame), and ``launches_by_path`` (each
+path's counts, zeroed just before it and read just after); K1 and
+``pass2_shade`` also carry ``serving_views``, their times at the culled
+N-view shapes of phase 8. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -125,8 +161,10 @@ import contextlib
 import copy
 import functools
 import json
+import pathlib
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -219,6 +257,22 @@ TRAIN_CHECKS = {
                 "grads": {"grad_rtol": 3e-2, "bias_floor": 1e-4},
                 "states": {"var_rtol": 2e-4, "mean_lr": 1.0}},
 }
+# Phase 8, the serving path: the hypothesis counts of the culled N-view
+# checks, the scoring resolution (tracking/hypotheses.scoring_resolution at
+# 176^2), the on_track frames per samples value, the chunked video, the
+# predict CLI's tree. BATCH_STEP_BAR: the batched step against N single
+# steps on the card (pose entries; the CNN at batch N runs other cuDNN
+# algorithms than at batch 1). CPU_SCORE_BAR: a score on the card against
+# the CPU path: a score sums a depth over thousands of pixels, and the
+# rendered depth's rounding moves with the pose (1.2e-8 of pose moved a
+# score by 1.9e-4 on the CPU, tests/test_torch_hypotheses.py).
+SERVE_VIEWS = (4, 8)
+SCORE_RES = 88
+MULTI_FRAMES = {1: 20, 4: 20, 8: 10}
+CHUNK_FRAMES, CHUNK_SIZE = 100, 64
+PREDICT_FRAMES, PREDICT_CHUNK = 30, 16
+BATCH_STEP_BAR = 1e-5
+CPU_SCORE_BAR = 1e-3
 
 
 def production_mesh():
@@ -811,8 +865,7 @@ def run_slice(tracker, pose0, rgb, depth, n_on, n_video):
     frames_depth = trk.upload_depth(np.stack([depth] * n_video), dev)
     for _ in range(3):  # warm-up: cuDNN algorithm choice, allocator
         tracker.on_track(pose0, rgb, depth)
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
+    sync(dev)
     zero_launches()
     pose, on_poses = pose0, []
     t0 = time.perf_counter()
@@ -1741,6 +1794,541 @@ def time_video_in_turns(tracker, pose0, rgb, depth, n, card):
           flush=True)
 
 
+# ---------------------------------------------------------------------------
+# Phase 8: the serving path (multi-hypothesis and chunked tracking, the
+# predict CLI).
+# ---------------------------------------------------------------------------
+
+
+def serve_poses(pose0, n, seed):
+    """``n`` hypotheses around ``pose0`` as ``track_step_multi`` makes them,
+    on the CPU: the pose itself, then ``pose0 @ perturb`` for n - 1 draws of
+    ``se3.draw_gaussian_magnitude`` (1 cm, 5 degrees) on a seeded CPU
+    generator. Returns (hypotheses (n, 4, 4), perturb (n - 1, 4, 4))."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+
+    prev = torch.as_tensor(pose0)
+    draws = se3.draw_gaussian_magnitude(torch.Generator().manual_seed(seed),
+                                        (n - 1,), "cpu")
+    perturb = se3.apply_gaussian_magnitude(draws, 0.01, 5.0)
+    return torch.cat([prev[None], prev[None] @ perturb]), perturb
+
+
+def culled_views_case(tracker, poses, res):
+    """The pass-1 and pass-2 inputs (``render_case``) of the culled render
+    of N views at ``res``^2, each in its own ROI, as ``render`` builds them
+    for the N hypotheses of a serving frame."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    poses = torch.as_tensor(poses).to(tracker.device)
+    window = rz.window_from_bbox(roi.compute_bbox(
+        poses, tracker.K, tracker.cfg.object_width_mm,
+        (1000.0, 1000.0, 1000.0)))
+    case = render_case(tracker.mesh, poses, tracker.K, window, (res, res),
+                       cull=True)
+    case.update(poses=poses, window=window)
+    return case
+
+
+def check_culled_views(tracker, pose0):
+    """Phase 8.1: K1 and ``pass2_shade`` over the culled N-view inputs of
+    the serving path (N = 4 and 8 at 176^2 and at the 88^2 scoring
+    resolution): K1 against its plain version and the one-view calls
+    (winners equal, iz bit-equal), ``pass2_shade`` against its plain
+    version (depth bit-equal, rgb within 1e-3), and the batched culled
+    ``render`` against the single-pose culled render of each pose, bit for
+    bit. Returns (K1 error, pass 2 error, {(N, res): case})."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    e1 = e3 = 0.0
+    cases = {}
+    for n in SERVE_VIEWS:
+        poses, _ = serve_poses(pose0, n, SEED + n)
+        for res in (RES, SCORE_RES):
+            name = f"serving {n} views culled at {res}^2"
+            c = culled_views_case(tracker, poses, res)
+            err, iz, win = check_batched_pass1(name, c["coef"], c["bbox"],
+                                               (res, res), c["fb"])
+            c.update(iz=iz, win=win)
+            e1 = max(e1, err)
+            e3 = max(e3, check_pass2(name, c, (res, res)))
+            rgb_b, depth_b = rz.render(tracker.mesh, c["poses"], tracker.K,
+                                       c["window"], out_hw=(res, res),
+                                       cull_backfaces=True)
+            bad = []
+            for b in range(n):
+                rgb1, depth1 = rz.render(tracker.mesh, c["poses"][b],
+                                         tracker.K, c["window"][b],
+                                         out_hw=(res, res),
+                                         cull_backfaces=True)
+                if not (torch.equal(rgb_b[b], rgb1)
+                        and torch.equal(depth_b[b], depth1)):
+                    bad.append(b)
+            print(f"render {name}: views different from the single-pose "
+                  f"culled render {bad}", flush=True)
+            if bad:
+                raise AssertionError(f"batched culled render differs ({name})")
+            cases[n, res] = c
+    return e1, e3, cases
+
+
+def sync(device):
+    """Wait for the card's queue when ``device`` is a CUDA device."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def rendered_frame(tracker, pose):
+    """A 480x640 observed frame of the tracker's mesh at ``pose``, rendered
+    by the port (culled) and quantized to uint8 RGB and uint16 mm depth:
+    the scene whose depth the health score should agree with."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    rgb, depth = rz.render(
+        tracker.mesh, torch.as_tensor(pose).to(tracker.device), tracker.K,
+        rz.full_frame_window(FRAME_HW[1], FRAME_HW[0]), out_hw=FRAME_HW,
+        cull_backfaces=True)
+    return (rgb.cpu().numpy().astype(np.uint8),
+            depth.cpu().numpy().astype(np.uint16))
+
+
+def serving_tracker(tracker):
+    """A fresh Tracker (frame_cnt 0) on the phase-4 tracker's parts."""
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    t = tracker
+    return trk.Tracker.from_parts(t.model, t.cfg, t.mesh, K_PROD,
+                                  t.mean.cpu().numpy(), t.std.cpu().numpy())
+
+
+def run_multi(tracker, pose0, rgb, depth):
+    """Phase 8.2, ``Tracker.on_track`` with ``samples`` 1, 4 and 8 over
+    MULTI_FRAMES frames each, from a fresh tracker, timed on the host clock
+    (pose fetched every frame) after 3 warm-up frames. Launch counts are
+    zeroed just before and read just after each run. Returns {samples:
+    (launches, poses, scores, seconds)}."""
+    import torch
+
+    runs = {}
+    for samples, n in MULTI_FRAMES.items():
+        t = serving_tracker(tracker)
+        for _ in range(3):
+            t.on_track(pose0, rgb, depth, samples=samples)
+        t.frame_cnt = 0
+        sync(t.device)
+        zero_launches()
+        pose, poses, scores = pose0, [], []
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pose = t.on_track(pose, rgb, depth, samples=samples)
+            poses.append(pose)
+            scores.append(getattr(t, "last_score", None))
+        runs[samples] = (read_launches(), np.stack(poses), scores,
+                         time.perf_counter() - t0)
+    return runs
+
+
+def check_multi(runs, tracker, pose0):
+    """Exact launch counts of the multi-hypothesis runs (2 K1 and 2
+    ``pass2_shade`` a frame at samples > 1, 1 and 1 at samples 1; no K2, no
+    K3), finite poses and scores in [0, 1], every winner's ROI holding the
+    object's centre."""
+    for samples, (launches, poses, scores, _) in runs.items():
+        n = len(poses)
+        per = 2 if samples > 1 else 1
+        want = {"raster_pass1": per * n, "gather_rows": 0,
+                "raster_pass1_worklist": 0, "pass2_shade": per * n}
+        print(f"serving on_track samples={samples}: {n} frames, launches "
+              f"{launches} (want {want}), scores "
+              f"{None if samples == 1 else np.round(scores, 4).tolist()}",
+              flush=True)
+        if launches != want:
+            raise AssertionError(f"samples={samples}: launch counts "
+                                 f"{launches} != {want}")
+        if samples > 1 and not all(0.0 <= x <= 1.0 for x in scores):
+            raise AssertionError(f"samples={samples}: scores out of [0, 1]")
+    check_on_object({f"on_track samples={k}": v[1] for k, v in runs.items()},
+                    pose0, tracker.cfg.object_width_mm)
+
+
+def compare_multi(net, tracker, pose0, rgb, depth):
+    """Phase 8.2 against references: the batched step over N hypotheses
+    against N single steps on the card (renders and crops bit for bit,
+    poses within BATCH_STEP_BAR: the CNN at batch N runs other cuDNN
+    algorithms than at batch 1), and ``track_step_multi`` on the card
+    against the port's plain CPU path with the same perturbations: poses
+    within 5e-4 m and 5e-3 rad, scores within CPU_SCORE_BAR, and the same
+    winner unless the CPU's scores of the two winners lie within that bar
+    (a near tie)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import hypotheses as hy
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    t, dev = tracker, tracker.device
+    rgb_t, depth_t = trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev)
+    cpu = make_tracker(net, torch.device("cpu"))
+    rgb_c, depth_c = trk.upload_rgb(rgb, "cpu"), trk.upload_depth(depth, "cpu")
+    for n in SERVE_VIEWS:
+        hypo, perturb = serve_poses(pose0, n, SEED + 10 + n)
+        batch, aux = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean,
+                                    t.std, hypo.to(dev), rgb_t, depth_t)
+        d_pose, bad = 0.0, []
+        for b in range(n):
+            one, aux1 = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean,
+                                       t.std, hypo[b].to(dev), rgb_t, depth_t)
+            d_pose = max(d_pose, float((batch[b] - one).abs().max()))
+            bad += [(b, k) for k in ("rgbA", "depthA", "rgbB", "depthB")
+                    if not torch.equal(aux[k][b], aux1[k])]
+        print(f"serving batched step, {n} hypotheses, against {n} single "
+              f"steps on the card: max |d pose| {d_pose:.3e} (bar "
+              f"{BATCH_STEP_BAR}), (view, image) different {bad}", flush=True)
+        if bad or d_pose > BATCH_STEP_BAR:
+            raise AssertionError(f"batched step differs from single steps "
+                                 f"({n} hypotheses)")
+        outs = {}
+        for name, tt, r, d in (("card", t, rgb_t, depth_t),
+                               ("cpu", cpu, rgb_c, depth_c)):
+            outs[name] = hy.track_step_multi(
+                tt.model, tt.cfg, tt.mesh, tt.K, tt.mean, tt.std,
+                hypo[0].to(tt.device), r, d, samples=n,
+                perturb=perturb.to(tt.device))
+        (pg, sg, ag), (pc, sc, ac) = outs["card"], outs["cpu"]
+        poses_g, poses_c = ag["poses"].cpu().numpy(), ac["poses"].numpy()
+        scores_g, scores_c = ag["scores"].cpu().numpy(), ac["scores"].numpy()
+        dt = float(np.abs(poses_g[:, :3, 3] - poses_c[:, :3, 3]).max())
+        dr = max(rot_angle(a[:3, :3], b[:3, :3])
+                 for a, b in zip(poses_g, poses_c))
+        ds = float(np.abs(scores_g - scores_c).max())
+        wg, wc = int(np.argmax(scores_g)), int(np.argmax(scores_c))
+        tie = abs(scores_c[wg] - scores_c[wc]) <= CPU_SCORE_BAR
+        print(f"serving track_step_multi, {n} hypotheses, card vs plain CPU "
+              f"path: max |dt| {dt:.3e} m, max rotation {dr:.3e} rad, max "
+              f"|d score| {ds:.3e} (bar {CPU_SCORE_BAR}), winner card {wg} "
+              f"cpu {wc}, scores card {np.round(scores_g, 5).tolist()}",
+              flush=True)
+        if dt > 5e-4 or dr > 5e-3 or ds > CPU_SCORE_BAR or (
+                wg != wc and not tie):
+            raise AssertionError(f"track_step_multi: card and CPU disagree "
+                                 f"({n} hypotheses)")
+
+
+def run_chunked(tracker, pose0, rgb, depth):
+    """Phase 8.3: ``track_video_chunked`` over CHUNK_FRAMES frames at
+    CHUNK_SIZE (a ragged last chunk) fed by callables, bit-equal to
+    ``track_video`` over the same frames, with exactly one K1 and one
+    ``pass2_shade`` launch a frame (counts zeroed just before, read just
+    after)."""
+    rgbs = np.stack([rgb] * CHUNK_FRAMES)
+    depths = np.stack([depth] * CHUNK_FRAMES)
+    whole = tracker.track_video(pose0, rgbs, depths)
+    sync(tracker.device)
+    zero_launches()
+    chunked = tracker.track_video_chunked(
+        pose0, lambda a, b: rgbs[a:b], lambda a, b: depths[a:b],
+        chunk_size=CHUNK_SIZE, n_frames=CHUNK_FRAMES)
+    launches = read_launches()
+    want = {"raster_pass1": CHUNK_FRAMES, "gather_rows": 0,
+            "raster_pass1_worklist": 0, "pass2_shade": CHUNK_FRAMES}
+    n_diff = int((chunked != whole).sum())
+    print(f"serving track_video_chunked: {CHUNK_FRAMES} frames in chunks of "
+          f"{CHUNK_SIZE} from callables, launches {launches} (want {want}), "
+          f"pose entries different from track_video: {n_diff}", flush=True)
+    if launches != want:
+        raise AssertionError(f"chunked launch counts {launches} != {want}")
+    if n_diff or chunked.shape != whole.shape:
+        raise AssertionError("track_video_chunked is not bit-equal to "
+                             "track_video")
+    check_on_object({"track_video_chunked": chunked}, pose0,
+                    tracker.cfg.object_width_mm)
+    return launches
+
+
+def write_png(path, img):
+    """Write an (H, W, 3) uint8 or an (H, W) uint16 image as a PNG with zlib
+    alone: filter 0 on every row, 16-bit samples big-endian as the format
+    stores them. The predict CLI reads it back with Pillow."""
+    import struct
+    import zlib
+
+    img = np.ascontiguousarray(img)
+    if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
+        bits, color = 8, 2
+    elif img.dtype == np.uint16 and img.ndim == 2:
+        bits, color = 16, 0
+        img = img.astype(">u2")
+    else:
+        raise ValueError(f"need (H, W, 3) uint8 or (H, W) uint16, got "
+                         f"{img.shape} {img.dtype}")
+    h, w = img.shape[:2]
+    rows = img.reshape(h, -1).view(np.uint8)
+    raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    with open(path, "wb") as f:
+        f.write(b"\x89PNG\r\n\x1a\n"
+                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, bits, color,
+                                             0, 0, 0))
+                + chunk(b"IDAT", zlib.compress(raw.tobytes(), 6))
+                + chunk(b"IEND", b""))
+
+
+def write_ycb_tree(root, tm, pose0, dev):
+    """A YCB-style tree under ``root`` for the predict CLI: sequence 0048
+    of class 4 (PREDICT_FRAMES frames of ``tm`` rendered by the port on the
+    card at 480x640 as uint8/uint16 PNGs, the object drifting 1 mm and 0.3
+    degrees a frame, and its gt poses), the mesh as OBJ,
+    ``dataset_info.yml`` (the production intrinsics, 176^2; JSON, which is
+    YAML), mean/std, and a zero-head Flax checkpoint of the seeded network,
+    written with msgpack and numpy. Frames render on ``dev``. Returns (gt poses, checkpoint
+    path)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.models import convert
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.train import checkpoint as ck
+
+    seq = root / "0048"
+    for d in ("color", "depth_filled", "pose_gt/4"):
+        (seq / d).mkdir(parents=True)
+    mesh = rz.upload(tm, dev)
+    K = torch.as_tensor(K_PROD).to(dev)
+    gts = []
+    for i in range(PREDICT_FRAMES):
+        pose = se3.make_pose(
+            se3.so3_exp(torch.tensor([0.0, 0.005 * i, 0.002 * i])),
+            torch.as_tensor(pose0[:3, 3]) + torch.tensor(
+                [0.001 * i, -0.0005 * i, 0.0005 * i]))
+        rgb, depth = rz.render(mesh, pose.to(dev), K,
+                               rz.full_frame_window(FRAME_HW[1], FRAME_HW[0]),
+                               out_hw=FRAME_HW, cull_backfaces=True)
+        write_png(seq / "color" / f"{i:06d}.png",
+                  rgb.cpu().numpy().astype(np.uint8))
+        write_png(seq / "depth_filled" / f"{i:06d}.png",
+                  depth.cpu().numpy().astype(np.uint16))
+        np.savetxt(seq / "pose_gt" / "4" / f"{i:06d}.txt", pose.numpy())
+        gts.append(pose.numpy().astype(np.float64))
+    M.save_obj(tm, str(root / "object.obj"))
+    (root / "train_data").mkdir()
+    info = {"camera": {"focalX": float(K_PROD[0, 0]),
+                       "focalY": float(K_PROD[1, 1]),
+                       "centerX": float(K_PROD[0, 2]),
+                       "centerY": float(K_PROD[1, 2]),
+                       "width": FRAME_HW[1], "height": FRAME_HW[0]},
+            "resolution": RES, "boundingbox": 10}
+    (root / "dataset_info.yml").write_text(json.dumps(info, indent=1))
+    np.save(root / "mean.npy", np.zeros(8, np.float32))
+    np.save(root / "std.npy", np.full(8, 100.0, np.float32))
+    net = build_model(SEED)
+    with torch.no_grad():
+        for head in (net.trans_out, net.rot_out):
+            head[0].weight.zero_()
+            head[0].bias.zero_()
+    ckpt = str(root / "zero_head.msgpack")
+    ck.save_flax_checkpoint(ckpt, convert.state_dict_to_variables(
+        net.state_dict()))
+    return gts, ckpt
+
+
+def run_predict(root, ckpt, gts, dev, card):
+    """Phase 8.4: the predict CLI on the card, ``--mode ycbv`` on the tree
+    of :func:`write_ycb_tree`: scan at chunk PREDICT_CHUNK with canvases,
+    then ontrack. Each run's launches are zeroed just before and read just
+    after (scan: 1 K1 + 1 ``pass2_shade`` a tracked frame, and one more of
+    each for its canvas; ontrack: 1 + 1). The two modes' pose files hold the
+    same poses, every pose within 1e-4 of the init gt (the heads are zero,
+    the realdata_dryrun bar), one canvas a tracked frame. Then the scan's
+    decode and tracking alone (``_track_files`` on a built tracker) timed
+    on the host clock: 1 K1 + 1 ``pass2_shade`` a frame, the CLI's poses.
+    Returns the runs' launches by name."""
+    from iros20_6d_pose_tracking_tpu_torch.apps import predict
+
+    base = ["--mode", "ycbv", "--seq_id", "48", "--class_id", "4",
+            "--ycb_dir", str(root), "--train_data_path",
+            str(root / "train_data"), "--mean_std_path", str(root),
+            "--model_path", str(root / "object.obj"), "--ckpt_dir", ckpt,
+            "--device", str(dev)]
+    n = PREDICT_FRAMES - 1  # the first frame holds the init
+    want1 = {"raster_pass1": n, "gather_rows": 0, "raster_pass1_worklist": 0,
+             "pass2_shade": n}
+    want2 = {k: 2 * v for k, v in want1.items()}
+    poses, launches = {}, {}
+    for mode, extra, want in (
+            ("scan", ["--chunk_size", str(PREDICT_CHUNK), "--canvas_dir",
+                      str(root / "canvas")], want2),
+            ("ontrack", [], want1)):
+        out = root / f"out_{mode}"
+        sync(dev)
+        zero_launches()
+        t0 = time.perf_counter()
+        predict.main(base + ["--outdir", str(out), "--track_mode", mode]
+                     + extra)
+        secs = time.perf_counter() - t0
+        launches[mode] = read_launches()
+        files = sorted(p.name for p in out.glob("*.txt")
+                       if not p.name.endswith("gt.txt"))
+        poses[mode] = np.stack([np.loadtxt(out / f) for f in files])
+        print(f"serving predict --track_mode {mode}: {len(files)} pose files "
+              f"in {secs:.3f} s (tracker construction, PNG decode, tracking,"
+              f" files{', canvases' if extra else ''}), launches "
+              f"{launches[mode]} (want {want})", flush=True)
+        if launches[mode] != want:
+            raise AssertionError(f"predict {mode}: launch counts "
+                                 f"{launches[mode]} != {want}")
+    n_canvas = len(list((root / "canvas").glob("*.png")))
+    held = float(np.abs(poses["scan"] - gts[0][None]).max())
+    same = np.array_equal(poses["scan"], poses["ontrack"])
+    print(f"serving predict: scan and ontrack poses equal: {same}; max |pose "
+          f"- init gt| {held:.3e} (bar 1e-4); {n_canvas} canvases", flush=True)
+    if not same or poses["scan"].shape != (PREDICT_FRAMES, 4, 4) or \
+            held > 1e-4 or n_canvas != n:
+        raise AssertionError("predict CLI output is wrong")
+    args = predict.build_parser().parse_args(
+        base + ["--outdir", str(root / "out_timed"), "--chunk_size",
+                str(PREDICT_CHUNK)])
+    info = json.loads((root / "dataset_info.yml").read_text())
+    tracker = predict._make_tracker(info, np.zeros(8), np.full(8, 100.0),
+                                    args)
+    rgb_files = sorted(str(p) for p in (root / "0048" / "color").glob("*"))
+    depth_files = sorted(str(p) for p in
+                         (root / "0048" / "depth_filled").glob("*"))
+    predict._track_files(tracker, rgb_files[:3], depth_files[:3], gts[0],
+                         args)  # warm
+    sync(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    timed = predict._track_files(tracker, rgb_files, depth_files, gts[0],
+                                 args)
+    secs = time.perf_counter() - t0
+    launches["scan, timed"] = read_launches()
+    print(f"timing predict scan: {n / secs:.2f} frames/s ({n} frames of "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]} PNGs, chunk {PREDICT_CHUNK}: PNG "
+          f"decode on the loader thread, upload, tracking, poses on the "
+          f"host), launches {launches['scan, timed']} (want {want1}) {card}",
+          flush=True)
+    if launches["scan, timed"] != want1 or \
+            not np.array_equal(timed.astype(np.float32),
+                               poses["scan"].astype(np.float32)):
+        raise AssertionError("the timed predict scan differs from the CLI's")
+    return launches
+
+
+def time_serving(tracker, pose0, frame, rendered, runs, cases, card):
+    """Phase 8.5: ``on_track`` Hz at samples 1, 4 and 8 (from ``runs``);
+    ``track_video_chunked`` and ``track_video`` over CHUNK_FRAMES frames in
+    turns (host clock, poses on the host at the end); the multi-hypothesis
+    step split at 8 hypotheses (CUDA events, median of 20): the batched
+    culled render at 176^2, the CNN at batch 8, the scoring (render at
+    88^2 and score) and the whole step; and K1 and ``pass2_shade`` on the
+    culled N-view cases against their plain versions and bounds. Returns
+    the kernels-line numbers of the N-view cases. ``frame`` is phase 4's
+    observed frame (the chunked video's), ``rendered`` the rendered frame of
+    the multi-hypothesis runs."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import hypotheses as hy
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    for samples, (_, poses, _, secs) in runs.items():
+        print(f"timing on_track samples={samples}: {len(poses) / secs:.2f} Hz "
+              f"({len(poses)} frames, pose fetched every frame) {card}",
+              flush=True)
+    rgbs = np.stack([frame[0]] * CHUNK_FRAMES)
+    depths = np.stack([frame[1]] * CHUNK_FRAMES)
+    hz = {}
+    for which in ("track_video", "chunked", "chunked", "track_video"):
+        sync(tracker.device)
+        t0 = time.perf_counter()
+        if which == "chunked":
+            tracker.track_video_chunked(
+                pose0, lambda a, b: rgbs[a:b], lambda a, b: depths[a:b],
+                chunk_size=CHUNK_SIZE, n_frames=CHUNK_FRAMES)
+        else:
+            tracker.track_video(pose0, rgbs, depths)
+        hz.setdefault(which, []).append(
+            CHUNK_FRAMES / (time.perf_counter() - t0))
+    print(f"timing in turns over {CHUNK_FRAMES} frames: track_video_chunked "
+          f"(chunk {CHUNK_SIZE}, callables) {[round(h, 2) for h in hz['chunked']]}"
+          f" Hz, track_video {[round(h, 2) for h in hz['track_video']]} Hz "
+          f"{card}", flush=True)
+
+    t, n = tracker, max(SERVE_VIEWS)
+    rgb_t, depth_t = trk.upload_rgb(rendered[0], t.device), trk.upload_depth(
+        rendered[1], t.device)
+    c = cases[n, RES]
+    hypo = c["poses"]
+    _, aux = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean, t.std, hypo,
+                            rgb_t, depth_t)
+    bufA, bufB = trk.normalize_pair(aux["rgbA"], aux["depthA"], aux["rgbB"],
+                                    aux["depthB"], hypo[:, None, None],
+                                    t.mean, t.std)
+    gen = torch.Generator(t.device).manual_seed(0)
+    parts = {
+        f"batched culled render ({n} views, {RES}^2)": lambda: rz.render(
+            t.mesh, hypo, t.K, c["window"], out_hw=(RES, RES),
+            cull_backfaces=True),
+        f"CNN at batch {n}": lambda: t.model(bufA, bufB),
+        f"scoring ({n} views: render at {SCORE_RES}^2, crop, score)":
+            lambda: hy.depth_agreement(t.mesh, hypo, t.K, depth_t, t.cfg,
+                                       score_res=SCORE_RES),
+        f"whole track_step_multi ({n} hypotheses)": lambda: (
+            hy.track_step_multi(t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+                                hypo[0], rgb_t, depth_t, gen, samples=n)),
+    }
+    with torch.no_grad():
+        for name, fn in parts.items():
+            print(f"timing serving step part {name}: "
+                  f"{cuda_ms(fn, runs=20):.4f} ms (median of 20) {card}",
+                  flush=True)
+    n_prof = 5
+    t8 = serving_tracker(tracker)
+    prof = profile_share(lambda: [t8.on_track(pose0, *rendered, samples=n)
+                                  for _ in range(n_prof)])
+    if prof is None:
+        print("profile: torch.profiler recorded no device time; the serving "
+              "frame's device share not measured")
+    else:
+        busy_us, wall_us, n_ops, _ = prof
+        print(f"profile: on_track samples={n} over {n_prof} frames: device "
+              f"busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}%), {n_ops / n_prof:.0f} device "
+              f"operations a frame {card}", flush=True)
+    nview = {"raster_pass1": [], "pass2_shade": []}
+    for (views, res), c in cases.items():
+        hw = (res, res)
+        label = f"culled, {views} serving views at {res}^2"
+        args1 = (c["coef"], c["bbox"], hw, c["fb"])
+        args2 = (c["attr"], c["iz"], c["win"], c["R"], c["t"], hw, FAR)
+        for name, fn, plain, bnd in (
+                ("raster_pass1", rk.pass1_winners, rk.pass1_winners_ref,
+                 pass1_bound(c, hw)),
+                ("pass2_shade", rk.pass2_shade, rk.pass2_shade_ref,
+                 pass2_bound(c))):
+            args = args1 if name == "raster_pass1" else args2
+            r = report_kernel(name, label, lambda: fn(*args),
+                              lambda: plain(*args), bnd, card, plain_runs=5)
+            nview[name].append({"views": views, "res": res, **r})
+    return nview
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -1821,6 +2409,7 @@ def main() -> int:
             "raster_pass1_worklist": 0, "pass2_shade": n_on + n_video}
     if launches != want:
         raise AssertionError(f"launch counts {launches} != {want}")
+    by_path = {"tracking (on_track + track_video)": dict(launches)}
     check_on_object({"on_track": on_poses, "track_video": video}, pose0,
                     tracker.cfg.object_width_mm)
     compare_with_cpu(net, tracker, pose0, rgb, depth, 20)
@@ -1838,6 +2427,7 @@ def main() -> int:
     print(f"evaluation path times (first call): render_test_video + "
           f"_quantize {render_s:.3f} s, evaluate_tracking {eval_s:.3f} s")
     check_eval(eval_launches, result, EVAL_FRAMES)
+    by_path["evaluation"] = eval_launches
     launches["raster_pass1_worklist"] = eval_launches["raster_pass1_worklist"]
     compare_eval_with_cpu(
         make_bench_object(make_tracker(net, torch.device("cpu")), tm), gt,
@@ -1933,6 +2523,7 @@ def main() -> int:
     if train_launches != want:
         raise AssertionError(f"training launch counts {train_launches} != "
                              f"{want}")
+    by_path["training"] = train_launches
     if not np.isfinite(losses).all():
         raise AssertionError("training losses are not finite")
     compare_train_with_cpu(dev)
@@ -1948,6 +2539,36 @@ def main() -> int:
                 f"{2 * cfg.batch_size} sampler views of the cube (one train "
                 "batch)": train_case}, card)
 
+    # 8. The serving path: the culled N-view kernels against their plain
+    # versions, multi-hypothesis and chunked tracking, the predict CLI, and
+    # their timings.
+    t8 = time.perf_counter()
+    print(f"serving: multi-hypothesis on_track (samples "
+          f"{sorted(MULTI_FRAMES)}), track_video_chunked, apps/predict.py on "
+          f"the card; {RES}^2 and {SCORE_RES}^2 scoring, the production mesh "
+          f"culled per view", flush=True)
+    e1, e3, serve_cases = check_culled_views(tracker, pose0)
+    errs["raster_pass1"] = max(errs["raster_pass1"], e1)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
+    rgb_r, depth_r = rendered_frame(tracker, pose0)
+    multi_runs = run_multi(tracker, pose0, rgb_r, depth_r)
+    check_multi(multi_runs, tracker, pose0)
+    for samples in SERVE_VIEWS:
+        by_path[f"serving on_track samples={samples}"] = multi_runs[samples][0]
+    compare_multi(net, tracker, pose0, rgb_r, depth_r)
+    by_path["serving track_video_chunked"] = run_chunked(tracker, pose0, rgb,
+                                                         depth)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ycb_") as tmp:
+        root = pathlib.Path(tmp)
+        gts, ckpt = write_ycb_tree(root, production_mesh()[0], pose0, dev)
+        predict_launches = run_predict(root, ckpt, gts, dev, card)
+    by_path["serving predict scan"] = predict_launches["scan, timed"]
+    by_path["serving predict scan with canvases"] = predict_launches["scan"]
+    by_path["serving predict ontrack"] = predict_launches["ontrack"]
+    nview = time_serving(tracker, pose0, (rgb, depth), (rgb_r, depth_r),
+                         multi_runs, serve_cases, card)
+    print(f"serving phase: {time.perf_counter() - t8:.1f} s", flush=True)
+
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -1955,7 +2576,11 @@ def main() -> int:
         {"name": name, "route": "cuda",
          "source": f"{PORT}/csrc/{name}.cu", "replaces": REPLACES[name],
          "launches": launches[name], "max_abs_err": errs[name],
-         **{k: report[name][k] for k in keys}}
+         **{k: report[name][k] for k in keys},
+         "launches_by_path": {p: c[name] for p, c in by_path.items()},
+         **({"serving_views": [
+             {k: v for k, v in r.items() if k != "library_ms"}
+             for r in nview[name]]} if name in nview else {})}
         for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,11 @@
 """Weights carried across from the JAX package.
 
 Counterpart of ``iros20_6d_pose_tracking_tpu/models/torch_import.py``: the
-port keeps its own copy of that module's ``variables_to_state_dict`` and key
-tables (numpy only), so it imports nothing of the JAX package. The layout
-work: HWIO -> OIHW kernels, (I, O) -> (O, I) dense weights, Flax BatchNorm
-scale/bias and batch stats -> the reference's BatchNorm keys.
+port keeps its own copy of that module's ``variables_to_state_dict``,
+``state_dict_to_variables`` and key tables (numpy only), so it imports
+nothing of the JAX package. The layout work: HWIO <-> OIHW kernels, (I, O)
+<-> (O, I) dense weights, Flax BatchNorm scale/bias and batch stats <-> the
+reference's BatchNorm keys.
 """
 from __future__ import annotations
 
@@ -55,6 +56,48 @@ def variables_to_state_dict(variables: Mapping[str, Any]) -> dict:
         out[f"{head}.0.weight"] = np.asarray(params[head]["kernel"]).T
         out[f"{head}.0.bias"] = np.asarray(params[head]["bias"])
     return out
+
+
+def state_dict_to_variables(state_dict: Mapping[str, Any]) -> dict:
+    """Reference-format state_dict (tensors or ndarrays) -> Flax
+    ``{"params", "batch_stats"}`` of numpy float32 arrays (the JAX
+    package's conversion, key for key): the weights a Flax checkpoint of
+    this network holds (``train.checkpoint.save_flax_checkpoint``)."""
+
+    def arr(key):
+        v = state_dict[key]
+        if hasattr(v, "detach"):
+            v = v.detach().cpu().numpy()
+        return np.asarray(v, dtype=np.float32)
+
+    def hwio(w):
+        return np.transpose(w, (2, 3, 1, 0))
+
+    params: dict = {}
+    stats: dict = {}
+    for blk in _CONV_BN_BLOCKS:
+        params[blk] = {
+            "conv": {"kernel": hwio(arr(f"{blk}.0.weight")),
+                     "bias": arr(f"{blk}.0.bias")},
+            "bn": {"scale": arr(f"{blk}.1.weight"),
+                   "bias": arr(f"{blk}.1.bias")}}
+        stats[blk] = {"bn": {"mean": arr(f"{blk}.1.running_mean"),
+                             "var": arr(f"{blk}.1.running_var")}}
+    for blk in _RES_BLOCKS:
+        p, s = {}, {}
+        for i in (1, 2):
+            p[f"conv{i}"] = {"kernel": hwio(arr(f"{blk}.conv{i}.weight"))}
+            if f"{blk}.conv{i}.bias" in state_dict:
+                p[f"conv{i}"]["bias"] = arr(f"{blk}.conv{i}.bias")
+            p[f"bn{i}"] = {"scale": arr(f"{blk}.bn{i}.weight"),
+                           "bias": arr(f"{blk}.bn{i}.bias")}
+            s[f"bn{i}"] = {"mean": arr(f"{blk}.bn{i}.running_mean"),
+                           "var": arr(f"{blk}.bn{i}.running_var")}
+        params[blk], stats[blk] = p, s
+    for head in _DENSE_HEADS:
+        params[head] = {"kernel": arr(f"{head}.0.weight").T,
+                        "bias": arr(f"{head}.0.bias")}
+    return {"params": params, "batch_stats": stats}
 
 
 def state_dict_from_jax(variables: Mapping[str, Any]) -> dict:

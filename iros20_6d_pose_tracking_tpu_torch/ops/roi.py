@@ -9,6 +9,10 @@ Depth frames arrive as uint16 millimetres. PyTorch implements few ops on
 uint16 (indexing and ``where`` among the missing ones on CUDA), so the
 tracker widens depth to int32 at upload; every op here then runs on
 int32, uint8 or float32, and the crop stays bit-exact.
+
+The crop also takes N bboxes (N, 4, 2) at once (the N hypotheses of one
+frame, JAX's ``vmap`` of ``crop_bbox``): one gather gives (N, r, r[, C]),
+and view n is the same bits as the call on bbox n alone.
 """
 from __future__ import annotations
 
@@ -40,9 +44,10 @@ def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
 
 
 def bbox_window(bbox: torch.Tensor):
-    """(left, right, top, bottom) int scalars from a (4, 2) (v, u) bbox."""
-    return (bbox[:, 1].min(), bbox[:, 1].max(),
-            bbox[:, 0].min(), bbox[:, 0].max())
+    """(left, right, top, bottom) int scalars from a (4, 2) (v, u) bbox, or
+    (N,) each from N bboxes (N, 4, 2)."""
+    return (bbox[..., 1].amin(-1), bbox[..., 1].amax(-1),
+            bbox[..., 0].amin(-1), bbox[..., 0].amax(-1))
 
 
 def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
@@ -51,20 +56,26 @@ def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
                         ) -> torch.Tensor:
     """Nearest resample of ``img[top:top+crop_h, left:left+crop_w]`` to
     ``out_hw``; out-of-image source pixels read as 0. ``img`` is (H, W) or
-    (H, W, C); the bbox arguments are int tensors on ``img``'s device."""
+    (H, W, C); the bbox arguments are int tensors on ``img``'s device, 0-d
+    for one crop or (N,) for N crops, which give (N, H_out, W_out[, C])."""
     H_out, W_out = out_hw
     h, w = img.shape[0], img.shape[1]
     dev = img.device
     oi = torch.arange(H_out, dtype=torch.int32, device=dev)
     oj = torch.arange(W_out, dtype=torch.int32, device=dev)
-    src_r = top.to(torch.int32) + (oi * crop_h.to(torch.int32)) // H_out
-    src_c = left.to(torch.int32) + (oj * crop_w.to(torch.int32)) // W_out
+
+    def src(start, size, o, n):  # (..., n) source indices
+        return start.to(torch.int32)[..., None] + (
+            o * size.to(torch.int32)[..., None]) // n
+
+    src_r = src(top, crop_h, oi, H_out)
+    src_c = src(left, crop_w, oj, W_out)
     valid_r = (src_r >= 0) & (src_r < h)
     valid_c = (src_c >= 0) & (src_c < w)
     rr = src_r.clamp(0, h - 1)
     cc = src_c.clamp(0, w - 1)
-    out = img.index_select(0, rr).index_select(1, cc)
-    mask = valid_r[:, None] & valid_c[None, :]
+    out = img[rr[..., :, None], cc[..., None, :]]  # one gather for N crops
+    mask = valid_r[..., :, None] & valid_c[..., None, :]
     if img.ndim == 3:
         mask = mask[..., None]
     return torch.where(mask, out, torch.zeros((), dtype=img.dtype, device=dev))
@@ -72,8 +83,9 @@ def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
 
 def crop_bbox(color: torch.Tensor, depth: torch.Tensor, bbox: torch.Tensor,
               output_size: tuple[int, int]):
-    """Crop + nearest-resize color and depth to the bbox window.
-    ``output_size`` is (W, H), the cv2 convention of the reference."""
+    """Crop + nearest-resize color and depth to the bbox window, or to
+    each of N bboxes (N, 4, 2). ``output_size`` is (W, H), the cv2
+    convention of the reference."""
     W_out, H_out = output_size
     left, right, top, bottom = bbox_window(bbox)
     crop_h = bottom - top

@@ -25,11 +25,12 @@ The port follows the JAX package's Pallas path (``impl='pallas'``):
     gather fused with :func:`~.raster_kernels.shade_rows`; plain indexing
     is not ported).
 
-:func:`render` also takes B poses (B, 4, 4) with B windows, unculled and
-through K1: the B views of one mesh (the JAX ``jax.vmap`` over ``render``,
-as the training sampler uses it) in one K1 launch and one pass-2 launch.
-Every step is batched, not looped, and view b is the same bits as
-``render`` of pose b alone.
+:func:`render` also takes B poses (B, 4, 4) with B windows, through K1,
+with or without the cull: the B views of one mesh (the JAX ``jax.vmap`` over
+``render``, as the training sampler and the multi-hypothesis step use it) in
+one K1 launch and one pass-2 launch. Every step is batched, not looped: the
+culled views are compacted each along its own face axis, and view b is the
+same bits as ``render`` of pose b alone.
 
 Depth is metric millimetres, 0 where no surface or beyond ``far``. Lighting
 is the reference's: diffuse 0.4 x max(n . l, 0) + ambient 0.65, clamped, with
@@ -175,15 +176,18 @@ def _face_attr_coefficients(fx, fy, fiz, fvalid, mesh: MeshArrays):
 
 def _compact_front(keep, *tables):
     """Stable-partition the rows with ``keep`` True to the front of every
-    table at once (one row scatter over their concatenation). Returns the
-    permuted tables, each contiguous."""
+    table at once (one row scatter over their concatenation). ``keep`` is
+    (F,) with tables (F, C_i), or (B, F) with tables (B, F, C_i), each view
+    partitioned along its own face axis. Returns the permuted tables, each
+    contiguous."""
     k = keep.to(torch.int64)
-    nkeep = k.sum()
-    dest = torch.where(keep, torch.cumsum(k, 0) - 1,
-                       nkeep + torch.cumsum(1 - k, 0) - 1)
-    cat = torch.cat([t.to(torch.float32) for t in tables], dim=1)
-    out = torch.empty_like(cat).index_copy_(0, dest, cat)
-    parts = torch.split(out, [t.shape[1] for t in tables], dim=1)
+    nkeep = k.sum(-1, keepdim=True)
+    dest = torch.where(keep, torch.cumsum(k, -1) - 1,
+                       nkeep + torch.cumsum(1 - k, -1) - 1)
+    cat = torch.cat([t.to(torch.float32) for t in tables], dim=-1)
+    out = torch.empty_like(cat).scatter_(
+        -2, dest[..., None].expand(cat.shape), cat)
+    parts = torch.split(out, [t.shape[-1] for t in tables], dim=-1)
     return [p.contiguous() for p in parts]
 
 
@@ -191,13 +195,15 @@ def _backface_mask(mesh: MeshArrays, R, t) -> torch.Tensor:
     """(F,) True for faces whose geometric normal (oriented by the stored
     outward shading normals) points away from the camera: they cannot be the
     closest visible surface of a closed mesh seen from outside. Degenerate
-    faces and zero shading normals give sign 0 and are kept."""
-    v_cam = _rotate(mesh.fverts, R) + t
-    gn = torch.linalg.cross(v_cam[:, 1] - v_cam[:, 0],
-                            v_cam[:, 2] - v_cam[:, 0], dim=-1)
-    n_avg = _rotate(mesh.fnormals.mean(dim=1), R)
+    faces and zero shading normals give sign 0 and are kept. B poses, R (B,
+    3, 3) and t (B, 3), give (B, F), view b the same bits as pose b alone
+    (the rotations go through :func:`_rotate_views`, as in the projection)."""
+    v_cam = _rotate_views(mesh.fverts, R) + t[..., None, None, :]
+    gn = torch.linalg.cross(v_cam[..., 1, :] - v_cam[..., 0, :],
+                            v_cam[..., 2, :] - v_cam[..., 0, :], dim=-1)
+    n_avg = _rotate_views(mesh.fnormals.mean(dim=1), R)
     gn = gn * torch.sign(torch.sum(gn * n_avg, dim=-1, keepdim=True))
-    centroid = v_cam.mean(dim=1)
+    centroid = v_cam.mean(dim=-2)
     return torch.sum(gn * centroid, dim=-1) > 0.0
 
 
@@ -235,18 +241,21 @@ def culled_pass1_inputs(mesh: MeshArrays, fx, fy, fiz, fvalid, R, t,
     face_block, attr_coef), the front faces stable-partitioned to the front
     of coef, of the per-face bboxes and of the attribute forms together, so
     whole trailing face blocks get empty bboxes and are skipped, and winner
-    ids index ``attr_coef`` directly."""
+    ids index ``attr_coef`` directly. B views ((B, F, 3) projections, R (B,
+    3, 3), t (B, 3), attr_coef (B, F, C)) give coef (B, 12, F), block_bbox
+    (B, n_blocks, 4) and attr_coef (B, F, C), each view compacted along its
+    own face axis: view b the same bits as its inputs alone."""
     coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = pick_face_block(fx.shape[0])
+    fb = pick_face_block(fx.shape[-2])
     keep = fvalid & ~_backface_mask(mesh, R, t)
     poison = torch.zeros((12, 1), dtype=coef.dtype, device=coef.device)
     poison[rk.ROW_C0:rk.ROW_C2 + 1:rk.ROW_C1 - rk.ROW_C0] = -1.0  # c0 c1 c2
-    coef = torch.where(keep[None, :], coef, poison)
+    coef = torch.where(keep[..., None, :], coef, poison)
     face_bbox = rk.build_face_bboxes(fx, fy, keep)
     coef_t, face_bbox, attr_coef = _compact_front(
-        keep, coef.T, face_bbox, attr_coef)
-    return (coef_t.T.contiguous(), rk.reduce_block_bboxes(face_bbox, fb), fb,
-            attr_coef)
+        keep, coef.transpose(-1, -2), face_bbox, attr_coef)
+    return (coef_t.transpose(-1, -2).contiguous(),
+            rk.reduce_block_bboxes(face_bbox, fb), fb, attr_coef)
 
 
 def render(
@@ -266,8 +275,9 @@ def render(
 
     Args:
       pose: (4, 4) object-in-camera, on the mesh's device, like ``K``; or
-        B poses (B, 4, 4), rendered unculled through K1 in one K1 and one
-        pass-2 launch, view b the same bits as ``render`` of pose b alone.
+        B poses (B, 4, 4), rendered through K1 (culled or not) in one K1 and
+        one pass-2 launch, view b the same bits as ``render`` of pose b
+        alone.
       window: (left, right, top, bottom) in full-image pixel coordinates,
         four numbers or a (4,) tensor, or (B, 4) for B poses
         (:func:`window_from_bbox`); the output grid resamples this
@@ -290,9 +300,9 @@ def render(
     if not fuse_pass2:
         raise ValueError("fuse_pass2=False (plain row indexing) is not part "
                          "of the port: pass 2 always gathers in its kernel")
-    if pose.dim() == 3 and (cull_backfaces or worklist):
-        raise ValueError("a batch of poses renders unculled through K1: "
-                         "cull_backfaces and worklist take one pose")
+    if pose.dim() == 3 and worklist:
+        raise ValueError("a batch of poses renders through K1: worklist "
+                         "takes one pose")
     fx, fy, fiz, fvalid, R, t = _project(mesh, pose, K, window, out_hw, near)
     # On the culled path the attribute forms are compacted together with
     # the pass-1 tables, so winner ids index the permuted space throughout.

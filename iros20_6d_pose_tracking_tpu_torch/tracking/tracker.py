@@ -16,13 +16,21 @@ Every step stays on the device of its tensors: the pose is fetched to the
 host only where a caller asks for it (``Tracker.on_track`` returns numpy).
 ``track_video`` is a Python loop over frames that carries the pose on the
 device; the JAX package's nested ``lax.scan`` has no counterpart.
+``Tracker.track_video_chunked`` feeds it a long video in chunks, decoded on
+a background thread, with the pose carried on the device across chunks.
+
+:func:`track_step` also takes N prior poses (N, 4, 4): one batched step over
+them (the JAX ``vmap`` of ``track_step`` over hypotheses), whose crop, culled
+render, CNN and decode each run once for the N views. The multi-hypothesis
+step (``tracking/hypotheses.py``, ``Tracker.on_track(samples > 1)``) is
+built on it. :func:`roi_views` gives the rendered and cropped ROI pair at a
+pose, for the canvases of ``apps/predict.py``.
 
 Depth frames arrive as uint16 millimetres. PyTorch implements few ops on
 uint16, so :func:`upload_depth` widens them to int32 on the device.
 
-Not ported yet (ROADMAP.md): ``samples > 1`` (multi-hypothesis),
-``track_video_adaptive``, ``track_video_chunked``, ``roi_views`` and the
-streaming window offset; bf16 (``TrackerConfig.dtype``) raises.
+Not ported yet (ROADMAP.md): ``track_video_adaptive`` (P12); bf16
+(``TrackerConfig.dtype``) raises (item 8).
 """
 from __future__ import annotations
 
@@ -97,39 +105,70 @@ def normalize_pair(rgbA, depthA, rgbB, depthB, poseA, mean, std):
 
 
 @torch.no_grad()
+def roi_views(cfg: TrackerConfig, mesh: rz.MeshArrays, K, pose, frame_rgb,
+              frame_depth_mm, object_width_mm=None, frame_offset_vu=None):
+    """The rendered (A) and cropped (B) ROI pair at ``pose`` (or at each of
+    N poses), all float32: the step's input before normalization, and the
+    side-by-side canvas the reference shows every frame (reference
+    predict.py:284-291). ``object_width_mm`` and ``frame_offset_vu`` as in
+    :func:`track_step`."""
+    res = (cfg.resolution, cfg.resolution)
+    width = cfg.object_width_mm if object_width_mm is None else object_width_mm
+    bbox = roi_ops.compute_bbox(pose, K, width, (1000.0, 1000.0, 1000.0))
+    bbox_local = bbox if frame_offset_vu is None else (
+        bbox - frame_offset_vu.to(torch.int32))
+    # B branch: the crop runs in the transfer dtype; only the ROI is cast.
+    rgbB, depthB = roi_ops.crop_bbox(frame_rgb, frame_depth_mm, bbox_local,
+                                     res)
+    rgbA, depthA = rz.render(
+        mesh, pose, K, rz.window_from_bbox(bbox), out_hw=res, near=cfg.near,
+        far=cfg.far, cull_backfaces=cfg.cull_backfaces)
+    return rgbA, depthA, rgbB.to(torch.float32), depthB.to(torch.float32)
+
+
+@torch.no_grad()
 def track_step(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
                mesh: rz.MeshArrays, K, mean, std, prev_pose, frame_rgb,
-               frame_depth_mm, object_width_mm=None):
+               frame_depth_mm, object_width_mm=None, frame_offset_vu=None):
     """One tracking update on the device of its tensors.
 
     Args:
-      prev_pose: (4, 4) float32 previous object-in-camera estimate.
+      prev_pose: (4, 4) float32 previous object-in-camera estimate; or N
+        prior poses (N, 4, 4), refined in one batched step: the N crops in
+        one gather, the N culled views in one K1 and one ``pass2_shade``
+        launch, the CNN at batch N and the decode over N.
       frame_rgb: (H, W, 3) uint8 (or float32 in [0, 255]) current frame.
       frame_depth_mm: (H, W) depth in mm, int32 (see :func:`upload_depth`)
         or float32.
       object_width_mm: optional override of ``cfg.object_width_mm``.
+      frame_offset_vu: optional (2,) int (row, col) of the frame's origin in
+        the full camera image, where only a window of it was uploaded: the
+        bbox is computed in full-image coordinates, and shifted into the
+        window for the B-branch crop only.
 
-    Returns the new (4, 4) pose and a dict of intermediates.
+    Returns the new (4, 4) pose, or (N, 4, 4) poses, and a dict of
+    intermediates.
     """
     if cfg.dtype != torch.float32:
-        raise NotImplementedError(f"dtype {cfg.dtype}: {_NOT_PORTED}")
-    res = (cfg.resolution, cfg.resolution)
-    width = cfg.object_width_mm if object_width_mm is None else object_width_mm
-    bbox = roi_ops.compute_bbox(prev_pose, K, width, (1000.0, 1000.0, 1000.0))
-    # B branch: the crop runs in the transfer dtype; only the ROI is cast.
-    rgbB, depthB = roi_ops.crop_bbox(frame_rgb, frame_depth_mm, bbox, res)
-    rgbB = rgbB.to(torch.float32)
-    depthB = depthB.to(torch.float32)
-    rgbA, depthA = rz.render(
-        mesh, prev_pose, K, rz.window_from_bbox(bbox), out_hw=res,
-        near=cfg.near, far=cfg.far, cull_backfaces=cfg.cull_backfaces)
-    bufA, bufB = normalize_pair(rgbA, depthA, rgbB, depthB, prev_pose, mean,
-                                std)
-    out = model(bufA[None], bufB[None])
-    new_pose = se3.decode_delta(prev_pose, out["trans"][0], out["rot"][0],
-                                cfg.trans_normalizer, cfg.rot_normalizer)
+        raise NotImplementedError(f"dtype {cfg.dtype}: {_NOT_PORTED} "
+                                  "(item 8)")
+    rgbA, depthA, rgbB, depthB = roi_views(
+        cfg, mesh, K, prev_pose, frame_rgb, frame_depth_mm, object_width_mm,
+        frame_offset_vu)
+    batched = prev_pose.dim() == 3
+    bufA, bufB = normalize_pair(
+        rgbA, depthA, rgbB, depthB,
+        prev_pose[:, None, None] if batched else prev_pose, mean, std)
+    if batched:
+        out = model(bufA, bufB)
+        trans, rot = out["trans"], out["rot"]
+    else:
+        out = model(bufA[None], bufB[None])
+        trans, rot = out["trans"][0], out["rot"][0]
+    new_pose = se3.decode_delta(prev_pose, trans, rot, cfg.trans_normalizer,
+                                cfg.rot_normalizer)
     aux = {"rgbA": rgbA, "depthA": depthA, "rgbB": rgbB, "depthB": depthB,
-           "trans": out["trans"][0], "rot": out["rot"][0]}
+           "trans": trans, "rot": rot}
     return new_pose, aux
 
 
@@ -151,29 +190,36 @@ def track_video(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
 
 
 def _load_checkpoint(path: str) -> dict:
-    """Network state_dict of a reference ``.pth``/``.pth.tar`` checkpoint
-    or of the port's own training checkpoint (``.pt``, ``train/``)."""
-    if not (path.endswith((".pth", ".tar", ".pt")) or ".pth." in path):
-        raise NotImplementedError(
-            f"{path}: Flax checkpoints are {_NOT_PORTED} (convert with "
-            "models.convert.state_dict_from_jax)")
-    ckpt = torch.load(path, map_location="cpu", weights_only=True)
-    if "model" in ckpt:  # train.checkpoint: model, optimizer, step, ...
-        return ckpt["model"]
-    return ckpt.get("state_dict", ckpt)
+    """Network state_dict of a reference ``.pth``/``.pth.tar`` checkpoint,
+    of the port's own training checkpoint (``.pt``, ``train/``), or of a
+    Flax msgpack checkpoint the JAX trainer wrote (any other name, as the
+    JAX ``_load_any_checkpoint`` reads it), whose ``params`` and
+    ``batch_stats`` are carried across by ``state_dict_from_jax``."""
+    if path.endswith((".pth", ".tar", ".pt")) or ".pth." in path:
+        ckpt = torch.load(path, map_location="cpu", weights_only=True)
+        if "model" in ckpt:  # train.checkpoint: model, optimizer, step, ...
+            return ckpt["model"]
+        return ckpt.get("state_dict", ckpt)
+    from ..train.checkpoint import load_flax_checkpoint
+
+    state = load_flax_checkpoint(path)
+    return state_dict_from_jax({"params": state["params"],
+                                "batch_stats": state["batch_stats"]})
 
 
 class Tracker:
     """Host-facing tracker with the reference's API shape (reference
     predict.py:127-296): construct from ``dataset_info``, then
     ``on_track(prev_pose, rgb, depth) -> 4x4 pose`` per frame, or
-    ``track_video`` over preloaded frames.
+    ``track_video`` over preloaded frames, or ``track_video_chunked`` over
+    a long video.
 
     ``device`` is where the model, the mesh and every step live; there is
     no fallback to another device. Weights come from ``variables`` (Flax,
     carried across by :func:`~..models.convert.state_dict_from_jax`), a
-    checkpoint at ``ckpt_dir`` (a reference ``.pth.tar``, or a ``.pt`` the
-    port's trainer wrote), or else a seeded random init."""
+    checkpoint at ``ckpt_dir`` (a reference ``.pth.tar``, a ``.pt`` the
+    port's trainer wrote, or a Flax ``.msgpack`` the JAX trainer wrote), or
+    else a seeded random init."""
 
     def __init__(
         self,
@@ -291,19 +337,33 @@ class Tracker:
                  samples: int = 1) -> np.ndarray:
         """One tracking update; depth in metres (float) or millimetres
         (uint16), auto-detected like the reference's mm convention.
-        Returns the new (4, 4) pose as float32 numpy."""
-        if samples > 1:
-            raise NotImplementedError(f"samples > 1: {_NOT_PORTED} (P10)")
+        Returns the new (4, 4) pose as float32 numpy.
+
+        ``samples > 1`` runs the multi-hypothesis step
+        (:func:`~.hypotheses.track_step_multi`): the prior and ``samples -
+        1`` perturbations of it, drawn from a ``torch.Generator`` on the
+        tracker's device seeded with ``frame_cnt`` (the JAX
+        ``PRNGKey(frame_cnt)``), refined in one batched step; the
+        depth-agreement winner is kept and its score lands in
+        ``self.last_score``."""
         depth = np.asarray(current_depth)
         if np.issubdtype(depth.dtype, np.floating) and depth.size and \
                 float(depth.max()) < 100.0:
             depth = (depth * 1000.0).astype(np.float32)  # metres -> mm
-        new_pose, aux = track_step(
-            self.model, self.cfg, self.mesh, self.K, self.mean, self.std,
-            torch.as_tensor(np.asarray(prev_pose), dtype=torch.float32).to(
-                self.device),
-            upload_rgb(current_rgb, self.device),
-            upload_depth(depth, self.device))
+        args = (self.model, self.cfg, self.mesh, self.K, self.mean, self.std,
+                torch.as_tensor(np.asarray(prev_pose), dtype=torch.float32).to(
+                    self.device),
+                upload_rgb(current_rgb, self.device),
+                upload_depth(depth, self.device))
+        if samples > 1:
+            from . import hypotheses as hy
+
+            gen = torch.Generator(self.device).manual_seed(self.frame_cnt)
+            new_pose, score, aux = hy.track_step_multi(*args, gen,
+                                                       samples=samples)
+            self.last_score = float(score)
+        else:
+            new_pose, aux = track_step(*args)
         self.prev_rgb = current_rgb
         self.prev_depth = depth
         self.frame_cnt += 1
@@ -326,5 +386,65 @@ class Tracker:
     def track_video_adaptive(self, *args, **kwargs):
         raise NotImplementedError(f"track_video_adaptive: {_NOT_PORTED} (P12)")
 
-    def track_video_chunked(self, *args, **kwargs):
-        raise NotImplementedError(f"track_video_chunked: {_NOT_PORTED} (P6)")
+    def track_video_chunked(self, init_pose, rgb_source, depth_source,
+                            chunk_size: int = 64,
+                            n_frames: int | None = None) -> np.ndarray:
+        """Bounded-memory whole-video tracking: the video goes to the device
+        in chunks of ``chunk_size`` frames (uint8 RGB, and depth through
+        :func:`upload_depth`), each uploaded once and tracked by
+        :func:`track_video`, with the pose carried on the device from chunk
+        to chunk. A background thread loads chunk k + 1 while chunk k
+        tracks, and each chunk's poses come to the host in one fetch, made
+        after the next chunk is queued.
+
+        Args:
+          rgb_source / depth_source: (T, H, W[, 3]) arrays, or callables
+            ``f(start, stop) -> np.ndarray`` (lazy PNG decoders, say).
+          n_frames: required when the sources are callables.
+
+        Returns (T, 4, 4) float32 poses, bit-equal to :meth:`track_video`
+        over the whole video: the step of every frame is the same. The last
+        chunk is not padded and tracks only its own frames (the JAX package
+        pads it with copies of its last frame so that one program compiles
+        once; eager PyTorch compiles nothing).
+        """
+        import concurrent.futures as cf
+
+        if n_frames is None:
+            if callable(rgb_source) or callable(depth_source):
+                raise ValueError("n_frames is required with callable sources")
+            n_frames = len(rgb_source)
+        if n_frames == 0:
+            return np.zeros((0, 4, 4), np.float32)
+        if chunk_size <= 0:
+            raise ValueError(f"chunk_size must be positive, got {chunk_size}")
+
+        def source(src):
+            return src if callable(src) else (lambda a, b: src[a:b])
+
+        get_rgb, get_depth = source(rgb_source), source(depth_source)
+
+        def load(a, b):
+            return (np.ascontiguousarray(get_rgb(a, b)),
+                    np.ascontiguousarray(get_depth(a, b)))
+
+        pose = torch.as_tensor(np.asarray(init_pose), dtype=torch.float32).to(
+            self.device)
+        out, pending = [], None
+        with cf.ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(load, 0, min(chunk_size, n_frames))
+            for a in range(0, n_frames, chunk_size):
+                b = min(a + chunk_size, n_frames)
+                rgb_np, depth_np = fut.result()
+                if b < n_frames:
+                    fut = ex.submit(load, b, min(b + chunk_size, n_frames))
+                poses = track_video(
+                    self.model, self.cfg, self.mesh, self.K, self.mean,
+                    self.std, pose, upload_rgb(rgb_np, self.device),
+                    upload_depth(depth_np, self.device))
+                pose = poses[-1]
+                if pending is not None:
+                    out.append(pending.cpu().numpy())
+                pending = poses
+        out.append(pending.cpu().numpy())
+        return np.concatenate(out, axis=0)

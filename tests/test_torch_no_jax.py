@@ -4,11 +4,12 @@ one.
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
-one tracking step, a two-frame hard test video with its scores and one
-synthetic train step on the CPU, and look at ``sys.modules``. Every source
+one tracking step and one multi-hypothesis step, a two-frame hard test
+video with its scores and one synthetic train step on the CPU, and look at
+``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
-port loads neither PyYAML nor Pillow (the training CLI and the file-backed
-dataset import them when they read a file). ``chip_smoke.py`` imports only
+port loads neither PyYAML nor Pillow (the CLIs and the file-backed dataset
+import them when they read a file). ``chip_smoke.py`` imports only
 the port, never the JAX package, and refuses to run without a CUDA card.
 """
 import ast
@@ -47,6 +48,10 @@ rgb = np.full((192, 256, 3), 128, np.uint8)
 depth = np.full((192, 256), 500, np.uint16)
 out = t.on_track(pose, rgb, depth)
 assert out.shape == (4, 4) and np.isfinite(out).all()
+out = t.on_track(pose, rgb, depth, samples=3)
+assert out.shape == (4, 4) and 0.0 <= t.last_score <= 1.0
+from iros20_6d_pose_tracking_tpu_torch.apps import predict
+predict.build_parser()
 from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
 gt = SB.make_gt_trajectory(2)
 mesh = rz.upload(M.make_cube(0.08), "cpu")
@@ -92,7 +97,9 @@ def test_port_imports_and_runs_without_jax():
                       "datagen.pair_producer", "tracking.tracker",
                       "core.camera", "ops.image", "data.augment",
                       "data.dataset", "train.trainer", "train.checkpoint",
-                      "utils.config", "apps.train"}, walked
+                      "utils.config", "apps.train", "apps.predict",
+                      "tracking.hypotheses", "ops.pointcloud",
+                      "utils.viz"}, walked
 
 
 def _imported_modules(path):

@@ -1,7 +1,8 @@
 """The port's own copies of the JAX package's numpy-only helpers equal the
 originals: the mesh module (procedural shapes, decimation, OBJ files and
-the geometry utilities), the Flax -> state_dict conversion and the config
-helpers. The port imports none of these from the JAX package."""
+the geometry utilities), the Flax <-> state_dict conversions, the config
+helpers, the visualization helpers and the YCB sequence discovery. The port
+imports none of these from the JAX package."""
 import dataclasses
 import os
 
@@ -10,11 +11,15 @@ import pytest
 import torch
 
 from iros20_6d_pose_tracking_tpu.models import torch_import as jti
+from iros20_6d_pose_tracking_tpu.ops import pointcloud as jpc
 from iros20_6d_pose_tracking_tpu.render import mesh as JM
 from iros20_6d_pose_tracking_tpu.utils import config as jcfg
+from iros20_6d_pose_tracking_tpu.utils import viz as jviz
 from iros20_6d_pose_tracking_tpu_torch.models import convert, tracknet
+from iros20_6d_pose_tracking_tpu_torch.ops import pointcloud as pc
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
 from iros20_6d_pose_tracking_tpu_torch.utils import config as cfg
+from iros20_6d_pose_tracking_tpu_torch.utils import viz
 
 
 def _assert_trimesh_equal(a, b):
@@ -66,8 +71,10 @@ def _write_config_tree(root):
 
 @pytest.mark.parametrize("case", [
     "icosphere4_decimated_2048", "cube", "textured_box", "obj_round_trip",
-    "state_dict_from_jax", "load_yaml", "find_dataset_info", "load_mean_std",
-    "normalizers_from_info"])
+    "state_dict_from_jax", "state_dict_to_variables", "load_yaml",
+    "find_dataset_info", "load_mean_std", "normalizers_from_info",
+    "viz_make_canvas", "viz_projected_points", "viz_video_writer",
+    "find_class_contained_videos_ycb"])
 def test_port_copy_equals_jax(case, tmp_path):
     if case == "icosphere4_decimated_2048":
         (tm, extra), (tm_j, extra_j) = (_icosphere_decimated(M),
@@ -113,6 +120,33 @@ def test_port_copy_equals_jax(case, tmp_path):
                    if k.endswith("num_batches_tracked"))
         assert all(v.dtype == torch.float32 for k, v in sd.items()
                    if not k.endswith("num_batches_tracked"))
+    elif case == "state_dict_to_variables":
+        rng = np.random.RandomState(1)
+        sd = {k: torch.as_tensor(rng.randn(*v.shape), dtype=torch.float32)
+              for k, v in tracknet.Se3TrackNet().state_dict().items()
+              if not k.endswith("num_batches_tracked")}
+        ours, ref = (convert.state_dict_to_variables(sd),
+                     jti.state_dict_to_variables(sd))
+        flat = convert.variables_to_state_dict  # a key per leaf
+        assert flat(ours).keys() == flat(ref).keys()
+        for k, v in flat(ref).items():
+            np.testing.assert_array_equal(flat(ours)[k], v, err_msg=k)
+        for k, v in sd.items():
+            np.testing.assert_array_equal(flat(ours)[k], v.numpy(), err_msg=k)
+    elif case.startswith("viz"):
+        _check_viz(case, tmp_path)
+    elif case == "find_class_contained_videos_ycb":
+        for seq, classes in ((47, [4]), (48, [4, 7]), (50, [7]), (59, [4]),
+                             (60, [4])):
+            for c in classes:
+                (tmp_path / f"{seq:04d}" / "pose_gt" / str(c)).mkdir(
+                    parents=True)
+        (tmp_path / "0051").mkdir()
+        (tmp_path / "notes").mkdir()
+        for c, testset in ((4, True), (7, True), (4, False), (9, True)):
+            assert pc.find_class_contained_videos_ycb(
+                str(tmp_path), c, testset) == \
+                jpc.find_class_contained_videos_ycb(str(tmp_path), c, testset)
     else:
         data = _write_config_tree(tmp_path)
         if case == "load_yaml":
@@ -134,3 +168,33 @@ def test_port_copy_equals_jax(case, tmp_path):
             info = jcfg.load_yaml(str(tmp_path / "dataset_info.yml"))
             assert cfg.normalizers_from_info(info) == \
                 jcfg.normalizers_from_info(info)
+
+
+def _check_viz(case, tmp_path):
+    rng = np.random.RandomState(6)
+    if case == "viz_make_canvas":
+        imgs = [rng.rand(20, 30, 3) * 255, rng.randint(0, 255, (20, 30)),
+                rng.rand(20, 30, 4) * 255]
+        for kw in ({}, {"flip_br": False}, {"gap": 3}):
+            np.testing.assert_array_equal(viz.make_canvas(imgs, **kw),
+                                          jviz.make_canvas(imgs, **kw))
+    elif case == "viz_projected_points":
+        rgb = rng.randint(0, 255, (60, 80, 3)).astype(np.uint8)
+        pose = np.eye(4)
+        pose[:3, 3] = [0.01, -0.02, 0.5]
+        K = np.array([[100.0, 0, 40], [0, 100.0, 30], [0, 0, 1]])
+        pts = rng.randn(300, 3) * 0.1
+        np.testing.assert_array_equal(
+            viz.draw_projected_points(rgb, pose, K, pts),
+            jviz.draw_projected_points(rgb, pose, K, pts))
+    else:
+        frames = [rng.randint(0, 255, (48, 64, 3)).astype(np.uint8)
+                  for _ in range(3)]
+        for mod, name in ((viz, "port.mp4"), (jviz, "jax.mp4")):
+            w = mod.VideoWriter(str(tmp_path / name), fps=10.0)
+            for f in frames:
+                w.write(f)
+            w.close()
+            w.close()  # a second close is a no-op
+        assert (tmp_path / "port.mp4").read_bytes() == \
+            (tmp_path / "jax.mp4").read_bytes()

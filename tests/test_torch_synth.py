@@ -178,8 +178,9 @@ def test_pass1_batched_equals_views():
 
 def test_batched_render_equals_render_per_view():
     """View b of render over B poses is render of pose b alone, bit for
-    bit, with one call of each kernel wrapper for the batch; the cull and
-    the work list take one pose."""
+    bit, with one call of each kernel wrapper for the batch, unculled and
+    culled (each view compacted along its own face axis); the work list
+    takes one pose."""
     mesh = TRz.upload(M.make_cube(0.08), "cpu")
     Kt = torch.from_numpy(K)
     w = torch.as_tensor(np.random.RandomState(1).randn(5, 3),
@@ -188,24 +189,26 @@ def test_batched_render_equals_render_per_view():
     poses = se3.make_pose(se3.so3_exp(w), t)
     windows = TRz.window_from_bbox(roi.compute_bbox(poses, Kt, WIDTH,
                                                     (1000.0,) * 3))
-    calls = []
-    with pytest.MonkeyPatch.context() as mp:
-        for name in ("pass1_winners", "pass2_shade", "gather_rows"):
-            fn = getattr(rk, name)
-            mp.setattr(rk, name, lambda *a, _f=fn, _n=name, **k: (
-                calls.append(_n), _f(*a, **k))[1])
-        rgb, depth = TRz.render(mesh, poses, Kt, windows, (RES, RES))
-    assert sorted(calls) == ["pass1_winners", "pass2_shade"]
-    assert rgb.shape == (5, RES, RES, 3) and depth.shape == (5, RES, RES)
-    for b in range(5):
-        bbox = roi.compute_bbox(poses[b], Kt, WIDTH, (1000.0,) * 3)
-        r1, d1 = TRz.render(mesh, poses[b], Kt, TRz.window_from_bbox(bbox),
-                            (RES, RES))
-        assert torch.equal(r1, rgb[b]) and torch.equal(d1, depth[b]), b
-        assert (d1 > 0).sum() > 100
-    for kw in ({"cull_backfaces": True}, {"worklist": True}):
-        with pytest.raises(ValueError):
-            TRz.render(mesh, poses, Kt, windows, (RES, RES), **kw)
+    for cull in (False, True):
+        calls = []
+        with pytest.MonkeyPatch.context() as mp:
+            for name in ("pass1_winners", "pass2_shade", "gather_rows"):
+                fn = getattr(rk, name)
+                mp.setattr(rk, name, lambda *a, _f=fn, _n=name, **k: (
+                    calls.append(_n), _f(*a, **k))[1])
+            rgb, depth = TRz.render(mesh, poses, Kt, windows, (RES, RES),
+                                    cull_backfaces=cull)
+        assert sorted(calls) == ["pass1_winners", "pass2_shade"]
+        assert rgb.shape == (5, RES, RES, 3) and depth.shape == (5, RES, RES)
+        for b in range(5):
+            bbox = roi.compute_bbox(poses[b], Kt, WIDTH, (1000.0,) * 3)
+            r1, d1 = TRz.render(mesh, poses[b], Kt,
+                                TRz.window_from_bbox(bbox), (RES, RES),
+                                cull_backfaces=cull)
+            assert torch.equal(r1, rgb[b]) and torch.equal(d1, depth[b]), b
+            assert (d1 > 0).sum() > 100
+    with pytest.raises(ValueError):
+        TRz.render(mesh, poses, Kt, windows, (RES, RES), worklist=True)
 
 
 def test_synth_batch_matches_jax(jax_batches):

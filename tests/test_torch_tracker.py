@@ -139,7 +139,8 @@ def test_on_track_equals_track_video_and_detects_metres(scene):
 
 def test_tracker_from_dataset_info(scene):
     """__init__ decimates past max_faces, auto-culls the closed mesh, and
-    carries Flax variables across; the slice's missing modes raise."""
+    carries Flax variables across; ``samples > 1`` and the chunked video run,
+    the modes still missing raise."""
     s = scene
     tm = M.make_icosphere(subdiv=2, radius=0.04)
     info = {"resolution": RES, "object_width": WIDTH_MM,
@@ -152,12 +153,17 @@ def test_tracker_from_dataset_info(scene):
     assert int(t.mesh.fmask.sum()) <= 200 < tm.num_faces
     pose = t.on_track(s["init"], s["rgb"], s["depth"])
     assert pose.shape == (4, 4) and np.isfinite(pose).all()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.on_track(s["init"], s["rgb"], s["depth"], samples=4)
+    multi = t.on_track(s["init"], s["rgb"], s["depth"], samples=4)
+    assert multi.shape == (4, 4) and np.isfinite(multi).all()
+    assert 0.0 <= t.last_score <= 1.0
+    frames_rgb, frames_depth = np.stack([s["rgb"]] * 3), np.stack(
+        [s["depth"]] * 3)
+    np.testing.assert_array_equal(
+        t.track_video_chunked(s["init"], frames_rgb, frames_depth,
+                              chunk_size=2),
+        t.track_video(s["init"], frames_rgb, frames_depth))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         t.track_video_adaptive(s["init"], None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.track_video_chunked(s["init"], None, None)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trk.Tracker(info, s["mean"], s["std"], mesh=tm, device="cpu",
                     dtype=torch.bfloat16).on_track(s["init"], s["rgb"],
@@ -165,8 +171,10 @@ def test_tracker_from_dataset_info(scene):
 
 
 def test_tracker_loads_reference_checkpoint(scene, tmp_path):
-    """A reference ``{"state_dict": ...}`` .pth.tar loads strictly; a Flax
-    checkpoint path raises, naming ROADMAP.md."""
+    """A reference ``{"state_dict": ...}`` .pth.tar loads strictly, and so
+    does a Flax msgpack checkpoint the JAX package wrote."""
+    from iros20_6d_pose_tracking_tpu.train import checkpoint as jck
+
     s = scene
     sd = state_dict_from_jax(s["variables"])
     path = str(tmp_path / "model_best_val.pth.tar")
@@ -178,6 +186,9 @@ def test_tracker_loads_reference_checkpoint(scene, tmp_path):
                     device="cpu")
     for k, v in t.model.state_dict().items():
         assert torch.equal(v, sd[k]), k
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trk.Tracker(info, s["mean"], s["std"], mesh=s["tm"], device="cpu",
-                    ckpt_dir=str(tmp_path / "checkpoint_last.msgpack"))
+    flax_path = str(tmp_path / "checkpoint_last.msgpack")
+    jck.save_checkpoint(flax_path, {**s["variables"], "step": np.int32(3)})
+    t = trk.Tracker(info, s["mean"], s["std"], mesh=s["tm"], device="cpu",
+                    ckpt_dir=flax_path)
+    for k, v in t.model.state_dict().items():
+        assert torch.equal(v, sd[k]), k
