@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
-closed-loop synthetic evaluation, synthetic training and the serving path.
+closed-loop synthetic evaluation, synthetic training, the serving path and
+the live path.
 
     python3 chip_smoke.py
 
@@ -140,7 +141,30 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      frames/s with the PNG decode; the multi-hypothesis step's split at 8
      hypotheses and a profiler window of 5 frames at samples 8; K1 and
      ``pass2_shade`` at the N-view shapes against their plain versions and
-     bounds.
+     bounds;
+  9. drives the live path (``tracking/stream.py``, ``apps/predict_ros.py``,
+     ``apps/predict.py --track_mode stream``) with the tracker of phase 4:
+     the windowed ``StreamTracker`` and the full-frame one over 100 pushes
+     of phase 4's frame, each bit-equal to ``track_video`` (no containment
+     violation, the window below the frame, exactly 1 K1 + 1
+     ``pass2_shade`` a push); 100 windowed pushes under
+     ``torch.cuda.set_sync_debug_mode`` "warn" (every synchronizing call
+     recorded with its stack; none allowed) and 100 under "error"; 10
+     pushes queued behind a 100 ms device sleep (those that fit in the
+     card's measured launch queue must return within half the sleep); a
+     samples-4 stream over 20 pushes of phase 8's rendered frame bit-equal
+     to ``on_track(samples=4)`` (2 + 2 launches a push); a teleported pose
+     caught by the containment check; a ReinitPolicy firing on black frames
+     and its callback's pose applied; ``fill_depth`` of a 480x640 depth with
+     holes on the card within 1e-6 m of the CPU path; the ROS core, stream
+     against blocking, over 10 frames with filling on; predict in stream
+     mode, windowed and ``--no_window``, on phase 8's tree (pose files
+     equal to scan's); the native PNG loader against Pillow where it builds
+     (else it says so). Timings: host_loop and host_loop_moving (the JAX
+     ``bench.py`` rows) in turns with ``track_video`` and ``on_track``, the
+     window, host ms a push and the device's busy share over 20 pushes; the
+     samples-4 stream, the ROS core with filling on and off, ``fill_depth``,
+     predict stream frames/s and both PNG decoders' frames/s.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -148,7 +172,8 @@ kernel it replaces, its launches on the main path (the tracking slice; K3's
 from the evaluation path), its largest error against its plain version, and
 ``ms``, ``plain_ms``, ``bound_ms`` / ``bound_by`` and ``library_ms`` on the
 production inputs (K3: the full frame), and ``launches_by_path`` (each
-path's counts, zeroed just before it and read just after); K1 and
+path's counts, zeroed just before it and read just after; "live" is the
+windowed stream's); K1 and
 ``pass2_shade`` also carry ``serving_views``, their times at the culled
 N-view shapes of phase 8. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
@@ -273,6 +298,25 @@ CHUNK_FRAMES, CHUNK_SIZE = 100, 64
 PREDICT_FRAMES, PREDICT_CHUNK = 30, 16
 BATCH_STEP_BAR = 1e-5
 CPU_SCORE_BAR = 1e-3
+# Phase 9, the live path: the stream's frames (bit-equal runs, the
+# multi-hypothesis run), the pushes under the sync check, the pushes queued
+# behind a device sleep of SLEEP_MS and the bar on when they must all have
+# returned (a share of the sleep), the host loops of the JAX bench.py
+# (bench_host_loop, bench_host_loop_moving: frames, repeats, drift), the ROS
+# core's frames, and the bars of fill_depth on the card against the CPU
+# (metres; the exp of the bilateral weights rounds differently, 4.8e-7 on
+# the CPU against JAX) and of the ROS stream core against the blocking core
+# (whose depth is not cut to whole millimetres).
+LIVE_FRAMES = 100
+LIVE_MULTI_FRAMES = 20
+SYNC_PUSHES = 100
+SLEEP_MS, SLEEP_PUSHES, SLEEP_BAR = 100.0, 10, 0.5
+HOST_LOOP_FRAMES, HOST_LOOP_REPEATS = 150, 3
+MOVING_DRIFT_MM = 0.45
+LIVE_PROFILE_PUSHES = 20
+ROS_FRAMES = 10
+FILL_BAR_M = 1e-6
+ROS_BAR_M, ROS_BAR_RAD = 5e-4, 5e-3
 
 
 def production_mesh():
@@ -2329,6 +2373,571 @@ def time_serving(tracker, pose0, frame, rendered, runs, cases, card):
     return nview
 
 
+# ---------------------------------------------------------------------------
+# Phase 9: the live path (StreamTracker, the ROS core with fill_depth, predict
+# in stream mode, the native PNG loader).
+# ---------------------------------------------------------------------------
+
+
+def live_stream(tracker, **kw):
+    """A StreamTracker on a fresh tracker of the phase-4 parts."""
+    from iros20_6d_pose_tracking_tpu_torch.tracking.stream import (
+        StreamTracker)
+
+    return StreamTracker(serving_tracker(tracker), **kw)
+
+
+def drain(s):
+    """Wait for a stream's background pose fetch, if one is running."""
+    if s._fetch_future is not None:
+        s._fetch_future.result(timeout=60)
+
+
+def run_live(tracker, pose0, rgb, depth):
+    """Phase 9.1: the windowed and the full-frame stream over LIVE_FRAMES
+    pushes of phase 4's frame, each bit-equal to ``track_video`` on the
+    same frames, no containment violation, the window below the frame;
+    exactly one K1 and one ``pass2_shade`` launch a push (counts zeroed
+    just before the pushes, read after the poses). Returns the launches of
+    each run."""
+    n = LIVE_FRAMES
+    want = serving_tracker(tracker).track_video(
+        pose0, np.stack([rgb] * n), np.stack([depth] * n))
+    per = {"raster_pass1": n, "gather_rows": 0, "raster_pass1_worklist": 0,
+           "pass2_shade": n}
+    launches = {}
+    for window in (True, False):
+        s = live_stream(tracker, window=window)
+        s.begin(pose0)
+        sync(tracker.device)
+        zero_launches()
+        for _ in range(n):
+            s.push(rgb, depth)
+        got = s.poses()
+        launches[window] = read_launches()
+        s.close()
+        stats = s.stats()
+        n_diff = int((got != want).sum())
+        print(f"live stream window={window}: {n} pushes, pose entries "
+              f"different from track_video {n_diff}, stats {stats}, launches "
+              f"{launches[window]} (want {per})", flush=True)
+        if n_diff or got.shape != want.shape:
+            raise AssertionError(f"stream window={window} is not bit-equal "
+                                 "to track_video")
+        if launches[window] != per:
+            raise AssertionError(f"stream launch counts {launches[window]}")
+        if stats["containment_violations"] or (
+                window and not stats["bucket"] < min(FRAME_HW)):
+            raise AssertionError(f"stream window: {stats}")
+    check_on_object({"live stream": want}, pose0,
+                    tracker.cfg.object_width_mm)
+    return launches
+
+
+def check_push_syncs(tracker, pose0, rgb, depth):
+    """Phase 9.2: SYNC_PUSHES windowed pushes (refetches every 8) under
+    ``torch.cuda.set_sync_debug_mode``: first "warn", every warning
+    recorded with its thread and Python stack (all are printed, and any
+    fails the run), then "error" (a synchronizing call raises)."""
+    import threading
+    import traceback
+    import warnings
+
+    import torch
+
+    s = live_stream(tracker)
+    s.begin(pose0)
+    s.push(rgb, depth)
+    drain(s)
+    hits = []
+
+    def record(message, category, filename, lineno, file=None, line=None):
+        hits.append((threading.current_thread().name, str(message)[:200],
+                     "".join(traceback.format_stack(limit=14)[:-1])))
+
+    torch.cuda.set_sync_debug_mode("warn")  # warns once that it is new
+    try:
+        with warnings.catch_warnings():
+            warnings.simplefilter("always")
+            warnings.showwarning = record
+            for _ in range(SYNC_PUSHES):
+                s.push(rgb, depth)
+            drain(s)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    for thread, msg, stack in hits[:5]:
+        print(f"live sync (thread {thread}): {msg}\n{stack}", flush=True)
+    print(f"live sync check: {SYNC_PUSHES} pushes under sync debug mode "
+          f"'warn': {len(hits)} synchronizing calls", flush=True)
+    if hits:
+        raise AssertionError("a push synchronized with the card")
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(SYNC_PUSHES):
+            s.push(rgb, depth)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    s.close()
+    print(f"live sync check: {SYNC_PUSHES} pushes under sync debug mode "
+          f"'error': none raised; refetches {s.refetches}", flush=True)
+
+
+def launch_queue_depth():
+    """Launches the card's queue holds before the host waits: one-element
+    adds enqueued one by one behind a device sleep of SLEEP_MS, counted
+    until the host clock passes SLEEP_BAR of the sleep (the host enqueues
+    a thousand of them in a few ms; a launch into a full queue returns only
+    when the sleep ends)."""
+    import torch
+
+    x = torch.zeros(1, device="cuda")
+    cycles = int(SLEEP_MS * sleep_cycles_per_ms())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    n = 0
+    while n < 100_000 and (time.perf_counter() - t0) * 1e3 < \
+            SLEEP_BAR * SLEEP_MS:
+        x.add_(1.0)
+        n += 1
+    torch.cuda.synchronize()
+    return n
+
+
+def check_push_behind_sleep(tracker, pose0, rgb, depth, card):
+    """Phase 9.2: SLEEP_PUSHES windowed pushes enqueued behind a device
+    sleep of SLEEP_MS, each push's return on the host clock from just after
+    the sleep was queued. A push that does not wait for the card returns at
+    once while the card's launch queue has room for its device operations
+    (``launch_queue_depth``; a push's operations from the profiler): every
+    push that fits, and at least the first, must return within SLEEP_BAR of
+    the sleep; the queue must take the sleep's length to drain."""
+    import torch
+
+    s = live_stream(tracker)
+    s.begin(pose0)
+    for _ in range(3):
+        s.push(rgb, depth)
+    s.current_pose()
+    prof = profile_share(lambda: ([s.push(rgb, depth) for _ in range(5)],
+                                  s.current_pose()))
+    ops = None if prof is None else prof[2] / 5
+    depth_q = launch_queue_depth()
+    fits = max(1, int(depth_q // ops)) if ops else 1
+    cycles = int(SLEEP_MS * sleep_cycles_per_ms())
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda._sleep(cycles)
+    back = []
+    for _ in range(SLEEP_PUSHES):
+        s.push(rgb, depth)
+        back.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    total = (time.perf_counter() - t0) * 1e3
+    s.close()
+    early = sum(b < SLEEP_BAR * SLEEP_MS for b in back)
+    print(f"live pushes behind a {SLEEP_MS:.0f} ms device sleep: returned "
+          f"at {np.round(back, 3).tolist()} ms, queue drained at "
+          f"{total:.3f} ms; {early} of {SLEEP_PUSHES} back before "
+          f"{SLEEP_BAR * SLEEP_MS:.0f} ms (bar: the first {fits}, which fit "
+          f"in the launch queue: {depth_q} launches, "
+          f"{'not measured' if ops is None else f'{ops:.0f}'} device "
+          f"operations a push) {card}", flush=True)
+    if max(back[:fits]) > SLEEP_BAR * SLEEP_MS or total < 0.9 * SLEEP_MS:
+        raise AssertionError("a push waited for the card")
+
+
+def run_live_multi(tracker, pose0, rgb_r, depth_r):
+    """Phase 9.4: a samples-4 windowed stream over LIVE_MULTI_FRAMES pushes
+    of the rendered frame, bit-equal (poses and scores) to
+    ``Tracker.on_track(samples=4)`` over the same frames from a fresh
+    tracker; finite scores in [0, 1]; exactly 2 K1 and 2 ``pass2_shade``
+    launches a push. Returns (launches, seconds of the pushes and the
+    fetch)."""
+    n, samples = LIVE_MULTI_FRAMES, 4
+    t = serving_tracker(tracker)
+    pose, want, want_scores = pose0, [], []
+    for _ in range(n):
+        pose = t.on_track(pose, rgb_r, depth_r, samples=samples)
+        want.append(pose)
+        want_scores.append(t.last_score)
+    s = live_stream(tracker, samples=samples)
+    s.begin(pose0)
+    s.push(rgb_r, depth_r)  # warm: the stream's first multi step
+    s.begin(pose0)
+    sync(tracker.device)
+    zero_launches()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        s.push(rgb_r, depth_r)
+    got, scores = s.poses(), s.scores()
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    s.close()
+    per = {"raster_pass1": 2 * n, "gather_rows": 0,
+           "raster_pass1_worklist": 0, "pass2_shade": 2 * n}
+    n_diff = int((got != np.stack(want)).sum()) + int(
+        (scores != np.asarray(want_scores, np.float32)).sum())
+    print(f"live stream samples={samples}: {n} pushes, entries different "
+          f"from on_track(samples={samples}) {n_diff}, scores "
+          f"{np.round(scores, 4).tolist()}, launches {launches} (want {per})",
+          flush=True)
+    if n_diff or launches != per:
+        raise AssertionError("samples-4 stream differs from on_track")
+    if not (np.isfinite(scores).all() and ((scores >= 0) & (scores <= 1))
+            .all()):
+        raise AssertionError("stream scores not finite or out of [0, 1]")
+    return launches, secs
+
+
+def check_live_failure_paths(tracker, pose0, rgb_r, depth_r):
+    """Phase 9.5-9.6: a teleported device pose must be caught by the
+    containment check (a violation, the pad widened by 16 px); a
+    ReinitPolicy whose callback returns a pose must fire on black frames
+    and the next push must apply that pose (a new generation, its step one
+    bounded update from it)."""
+    import torch
+
+    s = live_stream(tracker, refetch_every=1)
+    s.begin(pose0)
+    s.push(rgb_r, depth_r)
+    tele = pose0.copy()
+    tele[:3, 3] += [0.2, 0.15, 0.0]
+    s._pose_dev = torch.as_tensor(tele).to(tracker.device)
+    for _ in range(4):
+        s.push(rgb_r, depth_r)
+        drain(s)
+    s.close()
+    stats = s.stats()
+    print(f"live containment: teleported pose, stats {stats}", flush=True)
+    if stats["containment_violations"] < 1 or stats["pad_boost_px"] < 16:
+        raise AssertionError("the containment check missed a teleport")
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking.hypotheses import (
+        ReinitPolicy)
+
+    calls = []
+
+    def on_lost(idx, score):
+        calls.append((idx, score))
+        return pose0
+
+    s = live_stream(tracker, samples=2, refetch_every=1,
+                    reinit_policy=ReinitPolicy(patience=2),
+                    on_track_lost=on_lost)
+    s.begin(pose0)
+    for _ in range(3):
+        s.push(rgb_r, depth_r)
+        drain(s)
+    healthy = s.track_lost_events
+    black = (np.zeros_like(rgb_r), np.zeros_like(depth_r))
+    gen = s._gen
+    for _ in range(10):
+        s.push(*black)
+        drain(s)
+        if s._gen > gen:
+            break
+    step = s.current_pose()
+    s.close()
+    moved = float(np.linalg.norm(step[:3, 3] - pose0[:3, 3]))
+    print(f"live re-init: events {s.track_lost_events} (0 on the healthy "
+          f"frames: {healthy == 0}), callback calls {calls}, generation "
+          f"{gen} -> {s._gen}, first step from the returned pose moved "
+          f"{moved * 1000:.3f} mm", flush=True)
+    if healthy or not calls or s._gen <= gen or \
+            moved > np.sqrt(3) * tracker.cfg.trans_normalizer + 1e-6:
+        raise AssertionError("the closed-loop re-init did not fire or apply")
+
+
+def holey_depth_m(depth_r, seed):
+    """The rendered frame's depth in metres with 5% of its pixels and a
+    band of rows dropped to 0 (holes for fill_depth)."""
+    d = depth_r.astype(np.float32) / 1000.0
+    rng = np.random.RandomState(seed)
+    d[rng.rand(*d.shape) < 0.05] = 0.0
+    d[200:206] = 0.0
+    return d
+
+
+def check_fill_and_ros(tracker, pose0, rgb_r, depth_r, card):
+    """Phase 9.7: ``fill_depth`` of a 480x640 depth with holes on the card
+    against the port's CPU path (within FILL_BAR_M), its time (CUDA events,
+    median of 20); the ROS core, stream against blocking, over ROS_FRAMES
+    frames with filling on (within ROS_BAR_M and ROS_BAR_RAD a frame); the
+    stream core's rate with filling on and off (host clock, the pose fetched
+    every frame as the TF broadcast needs it)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.apps.predict_ros import (
+        TrackerRosCore)
+    from iros20_6d_pose_tracking_tpu_torch.ops import depthproc
+
+    holey = holey_depth_m(depth_r, SEED + 9)
+    card_fill = depthproc.fill_depth(
+        torch.as_tensor(holey).to(tracker.device)).cpu().numpy()
+    cpu_fill = depthproc.fill_depth(torch.as_tensor(holey)).numpy()
+    err = float(np.abs(card_fill - cpu_fill).max())
+    ms = cuda_ms(lambda: depthproc.fill_depth(
+        torch.as_tensor(holey).to(tracker.device)), runs=20)
+    holes = (holey == 0) & (depth_r > 0)  # dropped inside the object
+    filled = float((holes & (card_fill > 0)).sum()) / max(1, int(holes.sum()))
+    print(f"live fill_depth {FRAME_HW[0]}x{FRAME_HW[1]}: card vs CPU max "
+          f"|d| {err:.3e} m (bar {FILL_BAR_M}), holes in the object filled "
+          f"{100 * filled:.1f}%, {ms:.4f} ms a call with the upload (CUDA "
+          f"events, median of 20) {card}", flush=True)
+    if err > FILL_BAR_M:
+        raise AssertionError("fill_depth on the card differs from the CPU")
+
+    frames = [holey_depth_m(depth_r, SEED + 20 + i) for i in range(ROS_FRAMES)]
+    out = {}
+    for use_stream in (True, False):
+        core = TrackerRosCore(serving_tracker(tracker), use_stream=use_stream)
+        core.set_init_pose(pose0)
+        poses = []
+        for d in frames:
+            core.grab_color(rgb_r)
+            core.grab_depth(d)
+            poses.append(core.on_track())
+        core.close()
+        out[use_stream] = np.stack(poses)
+    dt = float(np.abs(out[True][:, :3, 3] - out[False][:, :3, 3]).max())
+    dr = max(rot_angle(a[:3, :3], b[:3, :3])
+             for a, b in zip(out[True], out[False]))
+    print(f"live ROS core, stream vs blocking, {ROS_FRAMES} frames with "
+          f"filling: max |dt| {dt:.3e} m, max rotation {dr:.3e} rad",
+          flush=True)
+    if dt > ROS_BAR_M or dr > ROS_BAR_RAD or not np.isfinite(out[True]).all():
+        raise AssertionError("ROS stream core and blocking core disagree")
+    hz = {}
+    for fill in (True, False):
+        core = TrackerRosCore(serving_tracker(tracker), fill_depth_holes=fill)
+        core.set_init_pose(pose0)
+        core.grab_color(rgb_r)
+        core.grab_depth(frames[0])
+        core.on_track()
+        t0 = time.perf_counter()
+        for d in frames:
+            core.grab_color(rgb_r)
+            core.grab_depth(d)
+            core.on_track()
+        hz[fill] = ROS_FRAMES / (time.perf_counter() - t0)
+        core.close()
+    print(f"timing ROS core (stream, pose fetched every frame): "
+          f"{hz[True]:.2f} Hz with filling, {hz[False]:.2f} Hz without "
+          f"({ROS_FRAMES} frames) {card}", flush=True)
+    return {"fill_ms": ms, "ros_hz": hz}
+
+
+def run_predict_stream(root, ckpt, dev, card):
+    """Phase 9.8: ``apps/predict.main`` in stream mode, windowed and with
+    ``--no_window``, on phase 8's tree: pose files equal to the scan run's
+    of phase 8, exactly 1 K1 + 1 ``pass2_shade`` a tracked frame; the
+    stream's decode and tracking alone timed on the host clock; and, where
+    the native loader builds, its frames against Pillow's (equal) and both
+    decoders' frames/s. Returns the CLI runs' launches."""
+    from iros20_6d_pose_tracking_tpu_torch.apps import predict
+
+    base = ["--mode", "ycbv", "--seq_id", "48", "--class_id", "4",
+            "--ycb_dir", str(root), "--train_data_path",
+            str(root / "train_data"), "--mean_std_path", str(root),
+            "--model_path", str(root / "object.obj"), "--ckpt_dir", ckpt,
+            "--device", str(dev), "--track_mode", "stream"]
+    n = PREDICT_FRAMES - 1
+    want = {"raster_pass1": n, "gather_rows": 0, "raster_pass1_worklist": 0,
+            "pass2_shade": n}
+    scan_files = sorted(p.name for p in (root / "out_scan").glob("*.txt"))
+    launches = {}
+    for name, extra in (("stream", []), ("stream --no_window",
+                                         ["--no_window"])):
+        out = root / f"out_{name.replace(' --', '_')}"
+        sync(dev)
+        zero_launches()
+        predict.main(base + ["--outdir", str(out)] + extra)
+        launches[name] = read_launches()
+        files = sorted(p.name for p in out.glob("*.txt"))
+        same = files == scan_files and all(
+            (out / f).read_bytes() == (root / "out_scan" / f).read_bytes()
+            for f in files)
+        print(f"live predict --track_mode {name}: {len(files)} files, equal "
+              f"to the scan run's: {same}, launches {launches[name]} (want "
+              f"{want})", flush=True)
+        if not same or launches[name] != want:
+            raise AssertionError(f"predict {name} differs from scan")
+    args = predict.build_parser().parse_args(
+        base + ["--outdir", str(root / "out_stream_timed")])
+    info = json.loads((root / "dataset_info.yml").read_text())
+    tracker = predict._make_tracker(info, np.zeros(8), np.full(8, 100.0),
+                                    args)
+    rgb_files = sorted(str(p) for p in (root / "0048" / "color").glob("*"))
+    depth_files = sorted(str(p) for p in
+                         (root / "0048" / "depth_filled").glob("*"))
+    gt0 = np.loadtxt(root / "0048" / "pose_gt" / "4" / "000000.txt")
+    predict._track_files(tracker, rgb_files[:3], depth_files[:3], gt0, args)
+    sync(dev)
+    t0 = time.perf_counter()
+    predict._track_files(tracker, rgb_files, depth_files, gt0, args)
+    secs = time.perf_counter() - t0
+    print(f"timing predict stream: {n / secs:.2f} frames/s ({n} frames of "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]} PNGs: decode in chunks of 16 on the "
+          f"loader thread, windowed pushes, poses on the host at the end) "
+          f"{card}", flush=True)
+    nl = predict._png_decoder()
+    if nl is None:
+        print("live PNG decode: the native loader does not build on this "
+              "machine (no g++ or libpng); frames decode with Pillow",
+              flush=True)
+        return launches
+    t0 = time.perf_counter()
+    nat = (nl.read_png_batch(rgb_files, np.uint8)[..., :3],
+           nl.read_png_batch(depth_files, np.uint16))
+    nat_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    pil = (np.stack([predict._load_rgb(f) for f in rgb_files]),
+           np.stack([predict._load_depth(f) for f in depth_files]))
+    pil_s = time.perf_counter() - t0
+    same = all(a.dtype == b.dtype and np.array_equal(a, b)
+               for a, b in zip(nat, pil))
+    print(f"live PNG decode: native and Pillow frames equal: {same}; "
+          f"timing decode of {len(rgb_files)} RGB + {len(depth_files)} depth "
+          f"PNGs: native {len(rgb_files) / nat_s:.2f} frames/s, Pillow "
+          f"{len(rgb_files) / pil_s:.2f} frames/s {card}", flush=True)
+    if not same:
+        raise AssertionError("the native PNG loader and Pillow disagree")
+    return launches
+
+
+def moving_stream(tracker):
+    """The JAX bench's host_loop_moving stream: a copy of the phase-4
+    network whose translation-head bias is arctanh(MOVING_DRIFT_MM / 30 mm)
+    on x, so the pose drifts MOVING_DRIFT_MM a frame through the full CNN
+    path and the window machinery must chase it."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+    from iros20_6d_pose_tracking_tpu_torch.tracking.stream import (
+        StreamTracker)
+
+    t = tracker
+    net = copy.deepcopy(t.model)
+    with torch.no_grad():
+        net.trans_out[0].bias.zero_()
+        net.trans_out[0].bias[0] = float(np.arctanh(
+            MOVING_DRIFT_MM * 1e-3 / t.cfg.trans_normalizer))
+    return StreamTracker(trk.Tracker.from_parts(
+        net, t.cfg, t.mesh, K_PROD, t.mean.cpu().numpy(),
+        t.std.cpu().numpy()))
+
+
+def time_live(tracker, pose0, rgb, depth, multi_s, card):
+    """Phase 9 timings: host_loop (bench.py:328-385: HOST_LOOP_FRAMES
+    windowed pushes, the pose fetched at the end, best of
+    HOST_LOOP_REPEATS; the window, the host's ms a push, the device's busy
+    share over a profiler window of LIVE_PROFILE_PUSHES pushes) and
+    host_loop_moving (bench.py:388-433), each in turns with ``track_video``
+    and ``on_track`` over the same frames (track_video, on_track, host_loop,
+    moving, then the other way round, where host_loop is one run); the
+    samples-4 stream's rate."""
+    n = HOST_LOOP_FRAMES
+    s = live_stream(tracker)
+    mv = moving_stream(tracker)
+    t_on = serving_tracker(tracker)
+    rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
+    for st in (s, mv):  # warm (eager PyTorch compiles no window size)
+        st.begin(pose0)
+        for _ in range(10):
+            st.push(rgb, depth)
+        st.current_pose()
+
+    def host_loop(repeats):
+        best, push_ms = 0.0, []
+        for _ in range(repeats):
+            s.begin(pose0)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                s.push(rgb, depth)
+            push_ms.append((time.perf_counter() - t0) * 1e3 / n)
+            s.current_pose()
+            best = max(best, n / (time.perf_counter() - t0))
+        return best, min(push_ms)
+
+    def moving():
+        mv.begin(pose0)
+        buckets = set()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            mv.push(rgb, depth)
+            buckets.add(mv._cur_bucket)
+        end = mv.current_pose()
+        hz = n / (time.perf_counter() - t0)
+        return hz, buckets, abs(end[0, 3] - pose0[0, 3]) * 1e3
+
+    def on_track():
+        pose = pose0
+        t0 = time.perf_counter()
+        for _ in range(n):
+            pose = t_on.on_track(pose, rgb, depth)
+        return n / (time.perf_counter() - t0)
+
+    def video():
+        t0 = time.perf_counter()
+        t_on.track_video(pose0, rgbs, depths)
+        return n / (time.perf_counter() - t0)
+
+    hz = {k: [] for k in ("track_video", "on_track", "host_loop", "moving")}
+    push_ms, buckets, moved = [], set(), 0.0
+    order = list(hz)
+    for turn, name in enumerate(order + order[::-1]):
+        sync(tracker.device)
+        if name == "host_loop":  # the bench's best of 3 in the first round
+            h, ms = host_loop(HOST_LOOP_REPEATS if turn < len(order) else 1)
+            push_ms.append(ms)
+        elif name == "moving":
+            h, b, moved = moving()
+            buckets |= b
+        else:
+            h = on_track() if name == "on_track" else video()
+        hz[name].append(h)
+    side = s._cur_bucket
+    print(f"timing host_loop: {[round(h, 2) for h in hz['host_loop']]} Hz "
+          f"(the best of {HOST_LOOP_REPEATS} runs, then one run, of {n} "
+          f"windowed pushes, the pose fetched at the end; host ms per push "
+          f"from the run's pushes alone), window_px {side}, window_kb "
+          f"{side * side * 5 / 1024:.1f}, host ms per push "
+          f"{[round(m, 4) for m in push_ms]} {card}", flush=True)
+    print(f"timing host_loop_moving: {[round(h, 2) for h in hz['moving']]} "
+          f"Hz ({n} frames, drift {MOVING_DRIFT_MM} mm/frame scripted, "
+          f"{moved:.1f} mm moved), buckets visited {sorted(buckets)}, "
+          f"refetches {mv.refetches}, containment violations "
+          f"{mv.containment_violations}, stats {mv.stats()} {card}",
+          flush=True)
+    print(f"timing in turns over {n} frames (track_video, on_track, "
+          f"host_loop, host_loop_moving, then reversed): track_video "
+          f"{[round(h, 2) for h in hz['track_video']]} Hz, on_track "
+          f"{[round(h, 2) for h in hz['on_track']]} Hz {card}", flush=True)
+    print(f"timing stream samples=4: {LIVE_MULTI_FRAMES / multi_s:.2f} Hz "
+          f"({LIVE_MULTI_FRAMES} windowed pushes of the rendered frame, the "
+          f"poses and scores fetched at the end) {card}", flush=True)
+    if moved < 0.5 * MOVING_DRIFT_MM * n:
+        raise AssertionError("the moving stream never chased the drift")
+    s.begin(pose0)
+    prof = profile_share(lambda: ([s.push(rgb, depth)
+                                   for _ in range(LIVE_PROFILE_PUSHES)],
+                                  s.current_pose()))
+    s.close()
+    mv.close()
+    if prof is None:
+        print("profile: torch.profiler recorded no device time; the live "
+              "loop's device share not measured")
+    else:
+        busy_us, wall_us, n_ops, _ = prof
+        print(f"profile: host_loop over {LIVE_PROFILE_PUSHES} pushes: device "
+              f"busy {busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}%), "
+              f"{n_ops / LIVE_PROFILE_PUSHES:.0f} device operations a push "
+              f"{card}", flush=True)
+    return hz
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -2558,16 +3167,42 @@ def main() -> int:
     compare_multi(net, tracker, pose0, rgb_r, depth_r)
     by_path["serving track_video_chunked"] = run_chunked(tracker, pose0, rgb,
                                                          depth)
-    with tempfile.TemporaryDirectory(prefix="chip_smoke_ycb_") as tmp:
-        root = pathlib.Path(tmp)
-        gts, ckpt = write_ycb_tree(root, production_mesh()[0], pose0, dev)
-        predict_launches = run_predict(root, ckpt, gts, dev, card)
+    # the tree stays for phase 9's predict runs; removed after them, or at
+    # exit when a phase fails
+    ycb_tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_ycb_")
+    root = pathlib.Path(ycb_tmp.name)
+    gts, ckpt = write_ycb_tree(root, production_mesh()[0], pose0, dev)
+    predict_launches = run_predict(root, ckpt, gts, dev, card)
     by_path["serving predict scan"] = predict_launches["scan, timed"]
     by_path["serving predict scan with canvases"] = predict_launches["scan"]
     by_path["serving predict ontrack"] = predict_launches["ontrack"]
     nview = time_serving(tracker, pose0, (rgb, depth), (rgb_r, depth_r),
                          multi_runs, serve_cases, card)
     print(f"serving phase: {time.perf_counter() - t8:.1f} s", flush=True)
+
+    # 9. The live path: the stream bit-equal to track_video, pushes that
+    # never wait, its launches, the multi-hypothesis stream, containment and
+    # re-init, fill_depth and the ROS core, predict in stream mode, the PNG
+    # decoders, and the live timings.
+    t9 = time.perf_counter()
+    print(f"live: StreamTracker (windowed packed uploads, the pose on the "
+          f"device, background fetches), the ROS core with fill_depth, "
+          f"predict --track_mode stream; {RES}^2, {FRAME_HW[0]}x"
+          f"{FRAME_HW[1]} frames", flush=True)
+    live_launches = run_live(tracker, pose0, rgb, depth)
+    by_path["live"] = live_launches[True]
+    by_path["live full frames"] = live_launches[False]
+    check_push_syncs(tracker, pose0, rgb, depth)
+    check_push_behind_sleep(tracker, pose0, rgb, depth, card)
+    by_path["live samples=4"], multi_s = run_live_multi(tracker, pose0,
+                                                        rgb_r, depth_r)
+    check_live_failure_paths(tracker, pose0, rgb_r, depth_r)
+    check_fill_and_ros(tracker, pose0, rgb_r, depth_r, card)
+    stream_launches = run_predict_stream(root, ckpt, dev, card)
+    by_path["live predict stream"] = stream_launches["stream"]
+    ycb_tmp.cleanup()
+    time_live(tracker, pose0, rgb, depth, multi_s, card)
+    print(f"live phase: {time.perf_counter() - t9:.1f} s", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)

@@ -18,15 +18,22 @@ Execution paths:
                         uploaded once each, the pose carried on the device;
                         --reinit_frames segments the video at the re-init
                         points.
+  --track_mode stream   the live path, ``tracking/stream.StreamTracker``:
+                        windowed packed uint8 uploads (``--no_window``: full
+                        frames), the pose kept on the device, chunks of 16
+                        frames decoded on a background thread while the
+                        previous chunk pushes; ``--auto_reinit`` (ycbv) lets
+                        the depth-agreement health policy decide when to
+                        re-initialize from the PoseCNN results.
   --track_mode ontrack  per-frame ``Tracker.on_track`` with the pose fetched
                         every frame (the reference's frame loop, reference
                         predict.py:529-564); ``--samples N`` > 1 runs the
-                        multi-hypothesis step.
+                        multi-hypothesis step (stream mode too).
 
 Not ported yet, each raising NotImplementedError (ROADMAP.md): ``--track_mode
-stream`` and ``--auto_reinit`` (P11), ``--track_mode adaptive`` (P12),
-``--bf16`` (item 8). Frames decode with Pillow (the JAX CLI's fallback when
-its C++ PNG loader is missing; the loader is ROADMAP item 6).
+adaptive`` (P12), ``--bf16`` (item 8). Frame chunks (scan, stream) decode with
+the native libpng loader (``native/dataload.py``) where it builds, else with
+Pillow; the first decode prints which.
 
 Outputs per-frame 4x4 pose txts in the layouts the scoring CLIs read;
 optional mp4 + projected-point overlays + render|crop canvases (reference
@@ -36,6 +43,8 @@ a file is read or written, never when the module is imported.
 from __future__ import annotations
 
 import argparse
+import concurrent.futures as cf
+import functools
 import glob
 import os
 
@@ -58,11 +67,40 @@ def _load_depth(path):
     return np.array(Image.open(path))
 
 
+@functools.cache
+def _png_decoder():
+    """The native libpng batch decoder, or None for Pillow; built and
+    announced once per process."""
+    from ..native.dataload import NativeLoader
+
+    try:
+        loader = NativeLoader()
+    except (OSError, RuntimeError) as e:
+        lines = str(e).splitlines() or [repr(e)]
+        why = next((x for x in lines if "error" in x), lines[0])
+        print(f"predict: PNG frames decode with Pillow (the native loader "
+              f"does not build: {why.strip()})", flush=True)
+        return None
+    print("predict: PNG frames decode with the native libpng loader "
+          "(native/dataload.cc)", flush=True)
+    return loader
+
+
 def _batch_src(files, kind):
-    """callable(a, b) -> the frames files[a:b], stacked."""
+    """callable(a, b) -> the frames files[a:b], stacked: one native batch
+    decode on its thread pool where the loader builds, else (or where the
+    native decode fails) Pillow, frame by frame."""
     load = _load_rgb if kind == "rgb" else _load_depth
 
     def batch(a, b):
+        nl = _png_decoder()
+        if nl is not None:
+            try:
+                out = nl.read_png_batch(
+                    files[a:b], np.uint8 if kind == "rgb" else np.uint16)
+                return out[..., :3] if kind == "rgb" else out
+            except (OSError, ValueError):
+                pass
         return np.stack([load(f) for f in files[a:b]])
 
     return batch
@@ -79,12 +117,15 @@ def _make_tracker(dataset_info, mean, std, args, trans_normalizer=0.03,
 
 
 def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
-                 reinit=None):
+                 reinit=None, redetect=None):
     """Track a file sequence; returns (N, 4, 4) poses including the init.
 
     scan: chunked tracking, segmented at re-init frames (each segment
     restarts the device-carried pose from the PoseCNN result, reference
-    predict.py:539-541). ontrack: the reference's blocking frame loop.
+    predict.py:539-541). stream: the live ``StreamTracker``, re-initialized
+    at those frames, and with ``--auto_reinit`` wherever its health policy
+    fires (``redetect(file_index)`` gives the pose). ontrack: the
+    reference's blocking frame loop.
     """
     n = len(rgb_files)
     reinit = {i: p for i, p in (reinit or {}).items()
@@ -110,6 +151,10 @@ def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
             cur = seg[-1]
         return np.stack(poses)
 
+    if args.track_mode == "stream":
+        return _track_stream(tracker, rgb_files, depth_files, init_pose,
+                             args, start, reinit, redetect)
+
     poses = [init_pose]
     prev = init_pose.copy()
     for i in range(start + 1, n):
@@ -123,6 +168,74 @@ def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
                                 samples=args.samples)
         poses.append(prev.copy())
     return np.stack(poses)
+
+
+def _track_stream(tracker, rgb_files, depth_files, init_pose, args, start,
+                  reinit, redetect):
+    """``_track_files`` in stream mode: frames pushed one by one, chunks of
+    16 decoded on a background thread while the previous chunk pushes, the
+    poses fetched once at the end."""
+    from ..tracking.stream import StreamTracker
+
+    n = len(rgb_files)
+    samples = args.samples
+    policy = on_lost = None
+    if args.auto_reinit and redetect is not None:
+        # The reference re-initializes at fixed frames (--reinit_frames,
+        # predict.py:539-541); here the health policy decides when, and
+        # the PoseCNN results give the pose.
+        from ..tracking.hypotheses import ReinitPolicy
+
+        if samples < 2:
+            print("auto_reinit: raising --samples to 2 "
+                  "(health score needs the multi-hypothesis step)")
+            samples = 2
+        policy = ReinitPolicy(patience=2)
+        a0_box = start + 1
+
+        def on_lost(idx, score):
+            file_idx = a0_box + idx
+            try:
+                p = redetect(file_idx)
+            except Exception as e:  # a failed re-detection: keep tracking
+                print(f"auto_reinit: no re-detection near frame "
+                      f"{file_idx} ({e})")
+                return None
+            print(f"auto_reinit fired at frame {file_idx} "
+                  f"(health {score:.3f})")
+            return p
+
+    s = StreamTracker(tracker, window=not args.no_window, samples=samples,
+                      reinit_policy=policy, on_track_lost=on_lost)
+    s.begin(init_pose)
+    chunk = 16
+    get_rgb = _batch_src(rgb_files, "rgb")
+    get_depth = _batch_src(depth_files, "depth")
+
+    def load(a, b):
+        return get_rgb(a, b), get_depth(a, b).astype(np.uint16)
+
+    a0 = start + 1
+    try:
+        with cf.ThreadPoolExecutor(1) as ex:
+            fut = ex.submit(load, a0, min(a0 + chunk, n))
+            for a in range(a0, n, chunk):
+                b = min(a + chunk, n)
+                rgb_c, dep_c = fut.result()
+                if b < n:
+                    fut = ex.submit(load, b, min(b + chunk, n))
+                for j in range(b - a):
+                    i = a + j
+                    if i % 100 == 0:
+                        print(">>>>", i, flush=True)
+                    if i in reinit:
+                        s.set_pose(reinit[i])
+                        print("Reinitialized at", i)
+                    s.push(rgb_c[j], dep_c[j])
+        poses = s.poses()
+    finally:
+        s.close()
+    return np.concatenate([init_pose[None], poses], axis=0)
 
 
 def _write_visuals(tracker, rgb_files, depth_files, poses, args, start=0,
@@ -213,8 +326,9 @@ def predict_sequence_ycb(args, dataset_info, mean, std):
             seq, frame = sf.split("/")
             reinit[int(frame) - 1] = _posecnn_pose(args, int(seq), int(frame))
 
-    pred_poses = _track_files(tracker, rgb_files, depth_files, init_pose,
-                              args, reinit=reinit)
+    pred_poses = _track_files(
+        tracker, rgb_files, depth_files, init_pose, args, reinit=reinit,
+        redetect=lambda i: _posecnn_pose(args, args.seq_id, i + 1))
     _write_visuals(tracker, rgb_files, depth_files, pred_poses, args)
 
     os.makedirs(args.outdir, exist_ok=True)
@@ -368,23 +482,30 @@ def build_parser():
                         help="initial-pose source (reference predict.py:477-515)")
     parser.add_argument("--track_mode", default="scan",
                         choices=["scan", "stream", "ontrack", "adaptive"],
-                        help="scan: chunked tracking; ontrack: per-frame; "
-                             "stream and adaptive are not ported yet")
+                        help="scan: chunked tracking; stream: the live "
+                             "pipelined StreamTracker; ontrack: per-frame; "
+                             "adaptive is not ported yet")
     parser.add_argument("--chunk_size", default=64, type=int,
                         help="frames per device chunk in scan mode "
                              "(bounds device memory for long videos)")
     parser.add_argument("--no_window", action="store_true",
-                        help="stream mode (not ported yet)")
+                        help="stream mode: upload full frames instead of "
+                             "the object window")
     parser.add_argument("--samples", default=1, type=int,
-                        help="pose hypotheses per frame (ontrack mode): N "
+                        help="pose hypotheses per frame (stream, ontrack "
+                             "modes): N "
                              "perturbed priors refine in one batched step; "
                              "the depth-agreement winner is kept (the "
                              "reference scaffolds this arg but evaluates "
                              "only hypothesis 0, reference "
                              "predict.py:229-231)")
     parser.add_argument("--auto_reinit", action="store_true",
-                        help="stream mode health-driven re-init (not ported "
-                             "yet)")
+                        help="stream mode, ycbv only: let the depth-"
+                             "agreement health policy decide when to "
+                             "re-init and take the pose from the PoseCNN "
+                             "results (the reference's --reinit_frames "
+                             "picks the frames by hand); implies "
+                             "--samples >= 2")
     parser.add_argument("--viz_dir", type=str, default=None,
                         help="save projected-point overlays here")
     parser.add_argument("--save_video", action="store_true",
@@ -404,10 +525,6 @@ def build_parser():
 def _refuse_unported(args):
     """The JAX CLI's options the port does not have yet raise, naming the
     ROADMAP.md item that holds them."""
-    if args.track_mode == "stream":
-        raise NotImplementedError(f"--track_mode stream: {_NOT_PORTED} (P11)")
-    if args.auto_reinit:
-        raise NotImplementedError(f"--auto_reinit: {_NOT_PORTED} (P11)")
     if args.track_mode == "adaptive":
         raise NotImplementedError(f"--track_mode adaptive: {_NOT_PORTED} "
                                   "(P12)")

@@ -6,8 +6,9 @@ feed the trainer:
   1. :class:`PairDataset` reads the reference's on-disk pair layout
      ``%07d{rgbA,rgbB,depthA,depthB,segB}.png + %07dmeta.npz`` (keys
      ``A_in_cam``/``B_in_cam``; reference datasets.py:70-93) on the host,
-     decoding with PIL (imported when a file is read). The JAX package's
-     native C++ loader is not ported (ROADMAP.md).
+     decoding with the native libpng loader (``native/dataload.py``, a
+     whole batch's PNGs of each kind in one call on its thread pool) where
+     it builds, else with Pillow (imported when a file is read).
 
   2. :class:`SyntheticPairs` samples poses and renders both branches on the
      device of its mesh: B uniform in the configured view ranges, the prior
@@ -49,14 +50,29 @@ class PairRecord:
     B_in_cam: np.ndarray
 
 
-def _imread(path: str, gray: bool = False) -> np.ndarray:
-    from PIL import Image
+def _imread(path: str, gray: bool = False, native=None) -> np.ndarray:
+    """Decode a PNG with ``native`` (a ``NativeLoader``) where given and it
+    succeeds, else with Pillow; ``gray`` keeps the first channel."""
+    img = native.read_png(path) if native is not None else None
+    if img is None:
+        from PIL import Image
 
-    with Image.open(path) as im:
-        img = np.array(im)
+        with Image.open(path) as im:
+            img = np.array(im)
     if gray and img.ndim == 3:
         img = img[..., 0]
     return img
+
+
+def _native_loader():
+    """The native PNG loader, or None where it does not build (no g++ or
+    no libpng)."""
+    from ..native.dataload import NativeLoader
+
+    try:
+        return NativeLoader()
+    except (OSError, RuntimeError):
+        return None
 
 
 class PairDataset:
@@ -71,6 +87,7 @@ class PairDataset:
         self.root = root
         self.resolution = resolution
         self.rgbA_files = sorted(glob.glob(os.path.join(root, "*rgbA.png")))
+        self._native = _native_loader()
 
     def __len__(self):
         return len(self.rgbA_files)
@@ -86,13 +103,14 @@ class PairDataset:
 
     def __getitem__(self, i: int) -> PairRecord:
         fA = self.rgbA_files[i]
-        rgbA = _imread(fA)[..., :3]
-        rgbB = _imread(fA.replace("rgbA", "rgbB"))[..., :3]
-        depthA = _imread(fA.replace("rgbA", "depthA"), gray=True)
-        depthB = _imread(fA.replace("rgbA", "depthB"), gray=True)
+        nl = self._native
+        rgbA = _imread(fA, native=nl)[..., :3]
+        rgbB = _imread(fA.replace("rgbA", "rgbB"), native=nl)[..., :3]
+        depthA = _imread(fA.replace("rgbA", "depthA"), gray=True, native=nl)
+        depthB = _imread(fA.replace("rgbA", "depthB"), gray=True, native=nl)
         seg_path = fA.replace("rgbA", "segB")
         if os.path.exists(seg_path):
-            maskB = _imread(seg_path, gray=True)
+            maskB = _imread(seg_path, gray=True, native=nl)
         else:
             maskB = (depthB > 100).astype(np.uint8)  # reference datasets.py:104
         meta = np.load(fA.replace("rgbA.png", "meta.npz"))
@@ -129,13 +147,61 @@ class PairDataset:
             if pad_to_batch and n_valid < batch_size:
                 extra = order[np.arange(batch_size - n_valid) % len(order)]
                 idx = np.concatenate([idx, extra])
-            recs = [self[int(i)] for i in idx]
-            batch = {k: np.stack([getattr(r, k) for r in recs])
-                     for k in ("rgbA", "depthA", "rgbB", "depthB", "maskB",
-                               "A_in_cam", "B_in_cam")}
+            batch = self._native_batch(idx)
+            if batch is None:
+                recs = [self[int(i)] for i in idx]
+                batch = {k: np.stack([getattr(r, k) for r in recs])
+                         for k in ("rgbA", "depthA", "rgbB", "depthB",
+                                   "maskB", "A_in_cam", "B_in_cam")}
             if pad_to_batch:
                 batch["n_valid"] = n_valid
             yield batch
+
+
+    def _native_batch(self, idx):
+        """The batch decoded by the native loader, each kind's PNGs in one
+        call on its thread pool: the arrays of the record path. None where
+        the loader is missing, the files need a resize, or a file fails
+        (the record path then decodes, with Pillow where it must)."""
+        if self._native is None:
+            return None
+        nl = self._native
+        fAs = [self.rgbA_files[int(i)] for i in idx]
+
+        def files(kind):
+            return [f.replace("rgbA", kind) for f in fAs]
+
+        try:
+            meta = nl.info(fAs[0])
+            if meta is None or meta[:2] != (self.resolution,
+                                            self.resolution):
+                return None
+            rgbA = nl.read_png_batch(fAs, np.uint8)
+            rgbB = nl.read_png_batch(files("rgbB"), np.uint8)
+            depthA = nl.read_png_batch(files("depthA"), np.uint16)
+            depthB = nl.read_png_batch(files("depthB"), np.uint16)
+            if all(os.path.exists(f) for f in files("segB")):
+                maskB = nl.read_png_batch(files("segB"), np.uint8)
+                if maskB.ndim == 4:
+                    maskB = maskB[..., 0]
+            else:
+                maskB = (depthB > 100).astype(np.uint8)
+        except (OSError, ValueError):
+            return None
+        if (maskB.reshape(len(idx), -1).sum(1) == 0).any():
+            return None  # the record path names the empty mask
+        metas = [np.load(f.replace("rgbA.png", "meta.npz")) for f in fAs]
+        return {
+            "rgbA": rgbA[..., :3].astype(np.float32),
+            "depthA": depthA.astype(np.float32),
+            "rgbB": rgbB[..., :3].astype(np.float32),
+            "depthB": depthB.astype(np.float32),
+            "maskB": maskB.astype(np.uint8),
+            "A_in_cam": np.stack([m["A_in_cam"] for m in metas]).astype(
+                np.float32),
+            "B_in_cam": np.stack([m["B_in_cam"] for m in metas]).astype(
+                np.float32),
+        }
 
 
 @dataclass(frozen=True)

@@ -1,21 +1,31 @@
-"""cv2-compatible Gaussian blur and HSV conversion, in PyTorch.
+"""cv2-compatible image ops in PyTorch: Gaussian blur, HSV conversion, and
+the grayscale morphology, median and bilateral filters of depth hole
+filling.
 
-Counterpart of ``iros20_6d_pose_tracking_tpu/ops/image.py`` for the ops the
-training augmentation runs (reference data_augmentation.py):
+Counterpart of ``iros20_6d_pose_tracking_tpu/ops/image.py``:
 
   - ``gaussian_blur``: the cv2.getGaussianKernel taps, BORDER_REFLECT_101
     padding, a horizontal then a vertical pass of shifted adds in the JAX
     module's order;
   - ``rgb_to_hsv`` / ``hsv_to_rgb``: cv2's uint8 scaling, H in [0, 180),
-    S and V in [0, 255].
+    S and V in [0, 255] (the training augmentation, reference
+    data_augmentation.py);
+  - ``dilate`` / ``erode`` / ``morph_close`` / ``median_blur`` /
+    ``bilateral_filter``: single-channel (H, W) filters over shifted
+    slices, in the JAX module's tap order (``ops/depthproc.fill_depth``).
+    Max, min and sort are exact, so the first four give JAX's values; the
+    bilateral filter's ``exp`` may round differently.
 
 Images are ``(..., H, W)``, or ``(..., H, W, C)`` with ``channels_last``;
-leading axes are a batch. The morphology, median and bilateral filters are not on the
-training path and are not ported yet (ROADMAP.md, P13).
+leading axes are a batch (the blur and HSV ops).
 """
 from __future__ import annotations
 
+import math
+
+import numpy as np
 import torch
+from torch.nn import functional as F
 
 
 def gaussian_kernel_1d(ksize: int, sigma: float,
@@ -124,3 +134,80 @@ def hsv_to_rgb(hsv: torch.Tensor) -> torch.Tensor:
             c = torch.where(i == j, ch[j], c)
         out.append(c)
     return torch.stack(out, dim=-1)
+
+
+# --- grayscale morphology (building blocks of depth hole filling) ----------
+
+def _edge_pad(img: torch.Tensor, p: int) -> torch.Tensor:
+    """(H, W) padded by ``p`` on every side with its edge values
+    (BORDER_REPLICATE), any dtype."""
+    H, W = img.shape
+    rows = torch.arange(-p, H + p, device=img.device).clamp(0, H - 1)
+    cols = torch.arange(-p, W + p, device=img.device).clamp(0, W - 1)
+    return img.index_select(0, rows).index_select(1, cols)
+
+
+def dilate(img: torch.Tensor, kernel) -> torch.Tensor:
+    """Grayscale dilation of an (H, W) image with a binary structuring
+    element (cv2.dilate), float32, BORDER_CONSTANT with the float32 minimum
+    as the border. ``kernel``: 2-D array of {0, 1}."""
+    kernel = np.asarray(kernel)
+    kh, kw = kernel.shape
+    ph, pw = kh // 2, kw // 2
+    neg = torch.finfo(torch.float32).min
+    x = F.pad(img.to(torch.float32), (pw, pw, ph, ph), value=neg)
+    H, W = img.shape
+    out = torch.full(img.shape, neg, dtype=torch.float32, device=img.device)
+    for i in range(kh):
+        for j in range(kw):
+            if kernel[i, j]:
+                out = torch.maximum(out, x[i:i + H, j:j + W])
+    return out
+
+
+def erode(img: torch.Tensor, kernel) -> torch.Tensor:
+    """Grayscale erosion: ``-dilate(-img)``."""
+    return -dilate(-img, kernel)
+
+
+def morph_close(img: torch.Tensor, kernel) -> torch.Tensor:
+    """Closing: dilation, then erosion, with the same element."""
+    return erode(dilate(img, kernel), kernel)
+
+
+def median_blur(img: torch.Tensor, ksize: int = 5) -> torch.Tensor:
+    """cv2.medianBlur of an (H, W) image (BORDER_REPLICATE): the middle of
+    the sorted ``ksize``^2 taps."""
+    p = ksize // 2
+    x = _edge_pad(img, p)
+    H, W = img.shape
+    taps = torch.stack([x[i:i + H, j:j + W] for i in range(ksize)
+                        for j in range(ksize)], dim=-1)
+    return torch.sort(taps, dim=-1).values[..., (ksize * ksize) // 2]
+
+
+def bilateral_filter(img: torch.Tensor, d: int, sigma_color: float,
+                     sigma_space: float) -> torch.Tensor:
+    """cv2.bilateralFilter of a single-channel (H, W) float image
+    (BORDER_REPLICATE) over the circular neighbourhood of radius d // 2:
+    the taps in the JAX module's order, each spatial weight a host
+    ``math.exp``."""
+    radius = d // 2
+    x = _edge_pad(img, radius)
+    H, W = img.shape
+    num = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    den = torch.zeros(img.shape, dtype=torch.float32, device=img.device)
+    inv2sc = -0.5 / (sigma_color * sigma_color)
+    inv2ss = -0.5 / (sigma_space * sigma_space)
+    for i in range(d):
+        for j in range(d):
+            dy, dx = i - radius, j - radius
+            if dy * dy + dx * dx > radius * radius + 1e-9 and d > 1:
+                continue
+            tap = x[i:i + H, j:j + W]
+            ws = math.exp((dy * dy + dx * dx) * inv2ss)
+            diff = tap - img
+            w = ws * torch.exp(diff * diff * inv2sc)
+            num = num + w * tap
+            den = den + w
+    return num / torch.clamp(den, min=1e-12)

@@ -120,9 +120,12 @@ def track_step_multi(model, cfg: trk.TrackerConfig, mesh: rz.MeshArrays, K,
     scores = depth_agreement(mesh, new_poses, K, frame_depth_mm, cfg,
                              frame_offset_vu=frame_offset_vu,
                              score_res=scoring_resolution(cfg))
-    best = torch.argmax(scores)
-    return new_poses[best], scores[best], {"scores": scores,
-                                           "poses": new_poses}
+    # index_select keeps the pick on the device: indexing with a 0-d
+    # tensor would read it to the host (an .item()) and wait for the step.
+    best = torch.argmax(scores).reshape(1)
+    return (new_poses.index_select(0, best)[0],
+            scores.index_select(0, best)[0],
+            {"scores": scores, "poses": new_poses})
 
 
 @torch.no_grad()

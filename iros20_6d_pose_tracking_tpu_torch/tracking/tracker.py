@@ -28,6 +28,8 @@ pose, for the canvases of ``apps/predict.py``.
 
 Depth frames arrive as uint16 millimetres. PyTorch implements few ops on
 uint16, so :func:`upload_depth` widens them to int32 on the device.
+:func:`upload_async` is the upload of the live stream
+(``tracking/stream.py``), which must never make the host wait.
 
 Not ported yet (ROADMAP.md): ``track_video_adaptive`` (P12); bf16
 (``TrackerConfig.dtype``) raises (item 8).
@@ -86,6 +88,32 @@ def upload_depth(depth, device) -> torch.Tensor:
     if np.issubdtype(depth.dtype, np.floating):
         depth = depth.astype(np.float32, copy=False)
     return torch.from_numpy(np.ascontiguousarray(depth)).to(device)
+
+
+def upload_async(host, device) -> torch.Tensor:
+    """Host array or tensor -> ``device`` without making the host wait: on a
+    CUDA device it is copied from pinned memory with ``non_blocking=True``
+    (a pageable copy would wait for the stream). A host tensor already in
+    pinned memory (``staging_buffer``) is copied as it is, anything else is
+    first staged in a fresh pinned block. The caching host allocator hands a
+    pinned block out again only after the copy that read it has run, so the
+    caller may drop or reuse its buffer at once. On the CPU the tensor
+    itself is returned (a numpy array is wrapped, not copied)."""
+    device = torch.device(device)
+    if isinstance(host, np.ndarray):
+        host = torch.from_numpy(np.ascontiguousarray(host))
+    if device.type == "cpu":
+        return host
+    if not host.is_pinned():
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def staging_buffer(shape, dtype, device) -> torch.Tensor:
+    """An empty host tensor to fill and pass to :func:`upload_async`:
+    pinned when ``device`` is a CUDA device."""
+    return torch.empty(shape, dtype=dtype,
+                       pin_memory=torch.device(device).type == "cuda")
 
 
 def pack_channels(rgb, depth):

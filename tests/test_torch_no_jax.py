@@ -4,7 +4,8 @@ one.
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
-one tracking step and one multi-hypothesis step, a two-frame hard test
+one tracking step, one multi-hypothesis step, two windowed stream pushes, a
+depth fill, a two-frame hard test
 video with its scores and one synthetic train step on the CPU, and look at
 ``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
@@ -50,6 +51,15 @@ out = t.on_track(pose, rgb, depth)
 assert out.shape == (4, 4) and np.isfinite(out).all()
 out = t.on_track(pose, rgb, depth, samples=3)
 assert out.shape == (4, 4) and 0.0 <= t.last_score <= 1.0
+from iros20_6d_pose_tracking_tpu_torch.tracking.stream import StreamTracker
+s = StreamTracker(t, refetch_every=1).begin(pose)
+for _ in range(2):
+    s.push(rgb, depth)
+assert s.poses().shape == (2, 4, 4) and s.stats()["bucket"] < 192
+s.close()
+from iros20_6d_pose_tracking_tpu_torch.ops import depthproc
+filled = depthproc.fill_depth(torch.full((24, 32), 0.5))
+assert torch.isfinite(filled).all()
 from iros20_6d_pose_tracking_tpu_torch.apps import predict
 predict.build_parser()
 from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
@@ -99,7 +109,8 @@ def test_port_imports_and_runs_without_jax():
                       "data.dataset", "train.trainer", "train.checkpoint",
                       "utils.config", "apps.train", "apps.predict",
                       "tracking.hypotheses", "ops.pointcloud",
-                      "utils.viz"}, walked
+                      "utils.viz", "tracking.stream", "apps.predict_ros",
+                      "native.dataload"}, walked
 
 
 def _imported_modules(path):

@@ -1,8 +1,10 @@
 """The port's own copies of the JAX package's numpy-only helpers equal the
 originals: the mesh module (procedural shapes, decimation, OBJ files and
 the geometry utilities), the Flax <-> state_dict conversions, the config
-helpers, the visualization helpers and the YCB sequence discovery. The port
-imports none of these from the JAX package."""
+helpers, the visualization helpers, the YCB sequence discovery, the native
+PNG decoder's C++ source and the live stream's numpy helpers (the packed
+window, the host ROI geometry). The port imports none of these from the JAX
+package."""
 import dataclasses
 import os
 
@@ -74,7 +76,7 @@ def _write_config_tree(root):
     "state_dict_from_jax", "state_dict_to_variables", "load_yaml",
     "find_dataset_info", "load_mean_std", "normalizers_from_info",
     "viz_make_canvas", "viz_projected_points", "viz_video_writer",
-    "find_class_contained_videos_ycb"])
+    "find_class_contained_videos_ycb", "dataload_cc", "stream_numpy_helpers"])
 def test_port_copy_equals_jax(case, tmp_path):
     if case == "icosphere4_decimated_2048":
         (tm, extra), (tm_j, extra_j) = (_icosphere_decimated(M),
@@ -135,6 +137,16 @@ def test_port_copy_equals_jax(case, tmp_path):
             np.testing.assert_array_equal(flat(ours)[k], v.numpy(), err_msg=k)
     elif case.startswith("viz"):
         _check_viz(case, tmp_path)
+    elif case == "dataload_cc":
+        from iros20_6d_pose_tracking_tpu.native import dataload as jdl
+        from iros20_6d_pose_tracking_tpu_torch.native import dataload as dl
+
+        with open(dl.SOURCE, "rb") as f, \
+                open(os.path.join(os.path.dirname(jdl.__file__),
+                                  "dataload.cc"), "rb") as g:
+            assert f.read() == g.read()
+    elif case == "stream_numpy_helpers":
+        _check_stream_helpers()
     elif case == "find_class_contained_videos_ycb":
         for seq, classes in ((47, [4]), (48, [4, 7]), (50, [7]), (59, [4]),
                              (60, [4])):
@@ -198,3 +210,39 @@ def _check_viz(case, tmp_path):
             w.close()  # a second close is a no-op
         assert (tmp_path / "port.mp4").read_bytes() == \
             (tmp_path / "jax.mp4").read_bytes()
+
+
+def _check_stream_helpers():
+    """pack_window's bytes and a run of the host geometry (bbox, bucket
+    with its hysteresis, predicted centre, containment) equal JAX's."""
+    import types
+
+    from iros20_6d_pose_tracking_tpu.tracking import stream as jst
+    from iros20_6d_pose_tracking_tpu_torch.tracking import stream as st
+
+    rng = np.random.RandomState(7)
+    rgb = rng.randint(0, 256, (40, 40, 3)).astype(np.uint8)
+    depth = rng.randint(0, 65536, (40, 40)).astype(np.uint16)
+    assert st.pack_window(rgb, depth).tobytes() == \
+        jst.pack_window(rgb, depth).tobytes()
+    K = np.array([[600.0, 0, 320.0], [0, 610.0, 240.0], [0, 0, 1]],
+                 np.float32)
+    cfg = types.SimpleNamespace(object_width_mm=150.0)
+    port = st.StreamTracker(types.SimpleNamespace(
+        K=torch.as_tensor(K), cfg=cfg, device=torch.device("cpu")))
+    ref = jst.StreamTracker(types.SimpleNamespace(K=K, cfg=cfg))
+    for i in range(60):
+        pose = np.eye(4)
+        pose[:3, 3] = [0.002 * i, -0.001 * i, 0.6 + 0.003 * i]
+        got, want = port._host_bbox(pose), ref._host_bbox(pose)
+        assert got == want
+        for s in (port, ref):
+            s._hw = (480, 640)
+            s._frame_idx = i
+            if i % 8 == 0:
+                s._center_hist.append((i, np.asarray(want[0])))
+        assert port._bucket(want[1]) == ref._bucket(want[1])
+        assert port._predicted_center() == ref._predicted_center()
+        rect = (100 + i, 120, 256)
+        assert port._roi_escaped(want[0], want[1], rect) == \
+            ref._roi_escaped(want[0], want[1], rect)

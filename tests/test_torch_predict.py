@@ -186,6 +186,108 @@ def test_ontrack_samples_and_reinit(tree, tmp_path):
     assert dt <= np.sqrt(3) * 0.03 + 1e-6
 
 
+def test_stream_modes_equal_scan(tree, tmp_path, capsys):
+    """--track_mode stream, windowed and with --no_window, writes scan's
+    pose files bit for bit (the window holds every ROI of the fixture), and
+    says which PNG decoder it used; --samples 2 with --reinit_frames runs
+    too and restarts at the PoseCNN pose."""
+    import scipy.io
+
+    root, _ = tree
+    predict._png_decoder.cache_clear()
+    runs = {}
+    for name, extra in (("scan", ["--track_mode", "scan", "--chunk_size",
+                                  "2"]),
+                        ("stream", ["--track_mode", "stream"]),
+                        ("full", ["--track_mode", "stream", "--no_window"])):
+        out = tmp_path / name
+        predict.main(_args(root, out, "--device", "cpu", *extra))
+        runs[name] = _poses(out)
+        assert sorted(os.listdir(out)) == sorted(os.listdir(tmp_path / "scan"))
+    said = capsys.readouterr().out
+    assert said.count("predict: PNG frames decode with") == 1
+    np.testing.assert_array_equal(runs["stream"], runs["scan"])
+    np.testing.assert_array_equal(runs["full"], runs["scan"])
+    (root / "image_sets").mkdir(exist_ok=True)
+    (root / "image_sets" / "keyframe.txt").write_text(
+        "0048/000001\n0048/000002\n")
+    predict._KEYFRAME_INDEX.clear()
+    resdir = root / "YCB_Video_toolbox" / "results_PoseCNN_RSS2018"
+    resdir.mkdir(parents=True, exist_ok=True)
+    for idx in (0, 1):
+        scipy.io.savemat(resdir / f"{idx:06d}.mat", {
+            "rois": np.array([[0, 4.0, 0, 0, 0, 0, 0]]),
+            "poses_icp": np.array([[1.0, 0, 0, 0, 0.0, 0.0, 0.52]])})
+    out = tmp_path / "multi"
+    predict.main(_args(root, out, "--device", "cpu", "--track_mode",
+                       "stream", "--samples", "2", "--reinit_frames", "48/3"))
+    multi = _poses(out)
+    assert multi.shape == (FRAMES, 4, 4) and np.isfinite(multi).all()
+    assert np.linalg.norm(multi[2][:3, 3] - [0.0, 0.0, 0.52]) <= \
+        np.sqrt(3) * 0.03 + 1e-6
+
+
+def test_track_files_auto_reinit_wiring(tree, monkeypatch):
+    """--auto_reinit wires a ReinitPolicy and a redetect-backed
+    on_track_lost into the stream (raising samples to 2), as JAX's
+    tests/test_apps.py checks: the callback resolves poses through redetect
+    with 1-based file numbering, and a failing redetect gives None."""
+    from iros20_6d_pose_tracking_tpu_torch.tracking import stream as st_mod
+
+    root, _ = tree
+    captured = {}
+
+    class FakeStream:
+        def __init__(self, tracker, **kw):
+            captured.update(kw)
+
+        def begin(self, pose, image_hw=None):
+            return self
+
+        def push(self, rgb, depth):
+            pass
+
+        def poses(self):
+            return np.zeros((3, 4, 4), np.float32)
+
+        def close(self):
+            captured["closed"] = True
+
+    monkeypatch.setattr(st_mod, "StreamTracker", FakeStream)
+    seq = root / "0048"
+    files = [str(seq / "color" / f"{i:06d}.png") for i in range(4)]
+    dfiles = [str(seq / "depth_filled" / f"{i:06d}.png") for i in range(4)]
+    seen = []
+
+    def redetect(file_idx):
+        seen.append(file_idx)
+        if file_idx >= 3:
+            raise RuntimeError("no keyframe near")
+        p = np.eye(4, dtype=np.float32)
+        p[2, 3] = 0.6
+        return p
+
+    args = argparse.Namespace(track_mode="stream", samples=1,
+                              auto_reinit=True, no_window=False)
+    out = predict._track_files(None, files, dfiles,
+                               np.eye(4, dtype=np.float32), args,
+                               redetect=redetect)
+    assert out.shape == (4, 4, 4) and captured["closed"]
+    assert captured["samples"] == 2 and captured["window"]
+    assert captured["reinit_policy"] is not None
+    cb = captured["on_track_lost"]
+    pose = cb(1, 0.05)                       # stream index 1 -> file 2
+    assert seen == [2] and pose[2, 3] == 0.6
+    assert cb(2, 0.05) is None               # redetect raised -> None
+    captured.clear()
+    args = argparse.Namespace(track_mode="stream", samples=1,
+                              auto_reinit=False, no_window=True)
+    predict._track_files(None, files, dfiles, np.eye(4, dtype=np.float32),
+                         args, redetect=redetect)
+    assert captured["reinit_policy"] is None and captured["samples"] == 1
+    assert not captured["window"]
+
+
 def test_visual_outputs(tree, tmp_path):
     """--viz_dir, --save_video and --canvas_dir write one overlay and one
     render|crop canvas per tracked frame, and the video."""
@@ -316,8 +418,8 @@ def test_init_poses_match_jax(tree):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--track_mode", "stream"], "P11"), (["--auto_reinit"], "P11"),
-    (["--track_mode", "adaptive"], "P12"), (["--bf16"], "item 8")])
+    pytest.param(["--track_mode", "adaptive"], "P12", id="flags2-P12"),
+    pytest.param(["--bf16"], "item 8", id="flags3-item 8")])
 def test_unported_options_raise(tree, tmp_path, flags, item):
     root, _ = tree
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
