@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
-closed-loop synthetic evaluation, synthetic training, the serving path and
-the live path.
+closed-loop synthetic evaluation, synthetic training, the serving path, the
+live path, the adaptive dispatcher and the synthetic pair factory.
 
     python3 chip_smoke.py
 
@@ -164,7 +164,33 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      ``bench.py`` rows) in turns with ``track_video`` and ``on_track``, the
      window, host ms a push and the device's busy share over 20 pushes; the
      samples-4 stream, the ROS core with filling on and off, ``fill_depth``,
-     predict stream frames/s and both PNG decoders' frames/s.
+     predict stream frames/s and both PNG decoders' frames/s;
+ 10. drives the adaptive dispatcher (``tracking/dispatch.py``) with the
+     tracker of phase 4: ``AdaptiveVideoTracker`` with candidates (50, 10,
+     1, 0) over phase 4's 100 frames and then the same frames in reverse,
+     in chunks of 100 from callables, bit-equal to ``track_video`` with
+     exactly 1 K1 + 1 ``pass2_shade`` a frame (and 1 + 1 a candidate in
+     ``warmup``, counted apart), its telemetry printed; samples 4 with
+     candidates (10, 1, 0) on 40 copies of phase 8's rendered frame, every
+     mode run, poses and scores bit-equal to ``track_video_multi``; predict
+     ``--track_mode adaptive`` on phase 8's tree (kept until now), pose
+     files equal to scan's. Then the pair factory
+     (``datagen/pair_producer.py``) on the card with
+     ``configs/dataset_info.yml``'s camera, normalisers and pose ranges:
+     ``produce_dataset`` of 40 train + 10 val pairs of the production mesh
+     at 480x640 and 176^2 (DR scenes with up to 2 distractors and an
+     occluder at 0.5), exactly 1 K3 + 1 ``pass2_shade`` a scene layer and 1
+     K1 + 1 ``pass2_shade`` a pair, the pairs read back by ``PairDataset``
+     and one batch-4 ``train_step`` on them with finite losses;
+     ``complete_blender`` on 3 renders written in the Blender layout; two
+     DR scenes card against the CPU path with the same layouts and draws
+     (coverage, seg, depth within 0.01 mm and rgb within 1 level on all
+     but 0.1% of the pixels, phase 5's share). Timings: ``track_video``,
+     the dispatcher and each candidate forced alone in turns over 100
+     frames; pairs/s end to end, scene render and pair render + crop ms
+     (CUDA events), PNG write ms (host clock); K3 and ``pass2_shade`` on a
+     cube primitive layer (256 faces) and the target layer (3072) at full
+     frame against their plain versions and bounds.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -175,7 +201,8 @@ production inputs (K3: the full frame), and ``launches_by_path`` (each
 path's counts, zeroed just before it and read just after; "live" is the
 windowed stream's); K1 and
 ``pass2_shade`` also carry ``serving_views``, their times at the culled
-N-view shapes of phase 8. The last is
+N-view shapes of phase 8, and K3 and ``pass2_shade`` ``datagen_shapes``,
+their times at phase 10's layers. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -317,6 +344,29 @@ LIVE_PROFILE_PUSHES = 20
 ROS_FRAMES = 10
 FILL_BAR_M = 1e-6
 ROS_BAR_M, ROS_BAR_RAD = 5e-4, 5e-3
+# Phase 10: the adaptive dispatcher (phase 4's frames and then the same
+# frames in reverse, in chunks of ADAPTIVE_CHUNK; each candidate forced
+# alone, in turns with track_video over ADAPTIVE_TURN_FRAMES; samples 4 on
+# ADAPTIVE_MULTI_FRAMES frames of the rendered frame in chunks of
+# ADAPTIVE_MULTI_CHUNK) and the pair factory (produce_dataset's train and val
+# pairs with configs/dataset_info.yml's camera, normalisers and ranges; the
+# scenes checked card against CPU; the Blender-layout renders; the scenes and
+# pairs of the timing split). A DR scene on the card against the CPU path:
+# the per-face forms come from eager float32 ops whose rounding differs
+# between the two devices, so coverage, seg, depth (beyond DR_DEPTH_BAR_MM,
+# the frame bar of tests/test_torch_synthetic_eval.py) and rgb (more than 1
+# level apart) may differ on fewer than DR_PIXEL_SHARE of the pixels, the
+# share phase 5 allows its card-vs-CPU frames.
+ADAPTIVE_CHUNK, ADAPTIVE_PROBE = 100, 20
+ADAPTIVE_CANDIDATES = (50, 10, 1, 0)
+ADAPTIVE_TURN_FRAMES = 100
+ADAPTIVE_MULTI_FRAMES, ADAPTIVE_MULTI_CHUNK = 40, 20
+ADAPTIVE_MULTI_CANDIDATES = (10, 1, 0)
+DATAGEN_TRAIN, DATAGEN_VAL = 40, 10
+DATAGEN_CPU_SCENES = 2
+DATAGEN_BLENDER_IMAGES = 3
+DATAGEN_TIMED = 10
+DR_DEPTH_BAR_MM, DR_PIXEL_SHARE = 0.01, 1e-3
 
 
 def production_mesh():
@@ -678,17 +728,22 @@ def host_ms(fn, runs=TIMING_RUNS):
 
 
 def device_ms(fn, kernel):
-    """Device time per call of ``fn`` in the __global__ functions whose
-    names hold ``DEVICE_FN[kernel]`` (summed over them), over PROFILE_CALLS
-    calls under torch.profiler, or None when the profiler saw none."""
+    """Device time per launch of ``fn``'s kernel (the __global__ function
+    whose name holds ``DEVICE_FN[kernel]``; one a call) over PROFILE_CALLS
+    calls under torch.profiler, averaged over the launches the profiler
+    recorded (it has recorded fewer), or None when it recorded none."""
     prof = profile_share(lambda: [fn() for _ in range(PROFILE_CALLS)],
                          top=100)
     if prof is None:
         return None
-    rows = [us for key, us, _ in prof[3] if DEVICE_FN[kernel] in key]
-    if not rows:
+    rows = [(us, n) for key, us, n in prof[3] if DEVICE_FN[kernel] in key]
+    n = sum(r[1] for r in rows)
+    if not n:
         return None
-    return sum(rows) / 1e3 / PROFILE_CALLS
+    if n != PROFILE_CALLS:
+        print(f"profile: {kernel}: {n} of {PROFILE_CALLS} launches recorded",
+              flush=True)
+    return sum(r[0] for r in rows) / 1e3 / n
 
 
 def report_kernel(name, label, fn, plain_fn, bnd, card, plain_runs=None,
@@ -2100,21 +2155,24 @@ def run_chunked(tracker, pose0, rgb, depth):
 
 
 def write_png(path, img):
-    """Write an (H, W, 3) uint8 or an (H, W) uint16 image as a PNG with zlib
-    alone: filter 0 on every row, 16-bit samples big-endian as the format
-    stores them. The predict CLI reads it back with Pillow."""
+    """Write an (H, W, 3) uint8, an (H, W) uint8 or an (H, W) uint16 image
+    as a PNG with zlib alone: filter 0 on every row, 16-bit samples
+    big-endian as the format stores them. The port reads it back with
+    Pillow."""
     import struct
     import zlib
 
     img = np.ascontiguousarray(img)
     if img.dtype == np.uint8 and img.ndim == 3 and img.shape[2] == 3:
         bits, color = 8, 2
+    elif img.dtype == np.uint8 and img.ndim == 2:
+        bits, color = 8, 0
     elif img.dtype == np.uint16 and img.ndim == 2:
         bits, color = 16, 0
         img = img.astype(">u2")
     else:
-        raise ValueError(f"need (H, W, 3) uint8 or (H, W) uint16, got "
-                         f"{img.shape} {img.dtype}")
+        raise ValueError(f"need (H, W, 3) uint8, (H, W) uint8 or (H, W) "
+                         f"uint16, got {img.shape} {img.dtype}")
     h, w = img.shape[:2]
     rows = img.reshape(h, -1).view(np.uint8)
     raw = np.concatenate([np.zeros((h, 1), np.uint8), rows], axis=1)
@@ -2938,6 +2996,483 @@ def time_live(tracker, pose0, rgb, depth, multi_s, card):
     return hz
 
 
+# ---------------------------------------------------------------------------
+# Phase 10: the adaptive dispatcher (tracking/dispatch.py) and the synthetic
+# pair factory (datagen/pair_producer.py).
+# ---------------------------------------------------------------------------
+
+
+def k_launches(k1=0, k3=0, p2=0):
+    """A launch-count dict: K1, K3 and pass2_shade as given, K2 none."""
+    return {"raster_pass1": k1, "gather_rows": 0,
+            "raster_pass1_worklist": k3, "pass2_shade": p2}
+
+
+def adaptive_video(rgb, depth):
+    """Phase 4's ADAPTIVE_CHUNK frames followed by the same frames in
+    reverse."""
+    rgbs = np.stack([rgb] * ADAPTIVE_CHUNK)
+    depths = np.stack([depth] * ADAPTIVE_CHUNK)
+    return (np.concatenate([rgbs, rgbs[::-1]]),
+            np.concatenate([depths, depths[::-1]]))
+
+
+def run_adaptive(tracker, pose0, rgb, depth, card):
+    """Phase 10.1: ``AdaptiveVideoTracker`` (ADAPTIVE_CANDIDATES,
+    ADAPTIVE_PROBE) over ``adaptive_video``'s frames in chunks of
+    ADAPTIVE_CHUNK from callables: bit-equal to ``track_video`` over the
+    same frames; exactly one K1 and one ``pass2_shade`` a tracked frame, and
+    one of each a candidate in ``warmup`` (counted apart). Returns the
+    tracked run's launches."""
+    from iros20_6d_pose_tracking_tpu_torch.tracking.dispatch import (
+        AdaptiveVideoTracker)
+
+    rgbs, depths = adaptive_video(rgb, depth)
+    n = len(rgbs)
+    whole = tracker.track_video(pose0, rgbs, depths)
+    d = AdaptiveVideoTracker(tracker, candidates=ADAPTIVE_CANDIDATES,
+                             probe_frames=ADAPTIVE_PROBE)
+    sync(tracker.device)
+    zero_launches()
+    d.warmup(rgb, depth, pose0, chunk_size=ADAPTIVE_CHUNK)
+    warm = read_launches()
+    zero_launches()
+    poses, scores = d.track(pose0, lambda a, b: rgbs[a:b],
+                            lambda a, b: depths[a:b], n_frames=n,
+                            chunk_size=ADAPTIVE_CHUNK)
+    launches = read_launches()
+    nc = len(ADAPTIVE_CANDIDATES)
+    want, want_warm = k_launches(n, 0, n), k_launches(nc, 0, nc)
+    n_diff = int((poses != whole).sum())
+    print(f"adaptive: {n} frames (phase 4's {ADAPTIVE_CHUNK}, then reversed) "
+          f"in chunks of {ADAPTIVE_CHUNK}, candidates {ADAPTIVE_CANDIDATES}, "
+          f"probe_frames {ADAPTIVE_PROBE}: launches {launches} (want {want}), "
+          f"warm-up launches {warm} (want {want_warm}), pose entries "
+          f"different from track_video: {n_diff}", flush=True)
+    print(f"adaptive telemetry: {d.telemetry()}, steady ms/frame "
+          f"{d.steady_ms_per_frame()}, segments (mode, frames, ms/frame, "
+          f"phase) {d.segments} {card}", flush=True)
+    if launches != want or warm != want_warm:
+        raise AssertionError("adaptive launch counts are wrong")
+    if n_diff or poses.shape != whole.shape or scores is not None:
+        raise AssertionError("adaptive poses are not track_video's bits")
+    # The random heads drift off the object within 200 frames; the first
+    # ADAPTIVE_CHUNK are phase 4's video, held on the object there.
+    check_on_object({"adaptive": poses[:ADAPTIVE_CHUNK]}, pose0,
+                    tracker.cfg.object_width_mm)
+    return launches
+
+
+def run_adaptive_multi(tracker, pose0, rgb_r, depth_r):
+    """Phase 10.2: samples 4 through the dispatcher (candidates
+    ADAPTIVE_MULTI_CANDIDATES, probe_frames 4, chunks of
+    ADAPTIVE_MULTI_CHUNK) on ADAPTIVE_MULTI_FRAMES copies of phase 8's
+    rendered frame: every mode runs, and the poses and health scores are the
+    bits of ``track_video_multi(first_frame=0)``; 2 K1 and 2
+    ``pass2_shade`` a frame. Returns the launches."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import hypotheses as hy
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+    from iros20_6d_pose_tracking_tpu_torch.tracking.dispatch import (
+        AdaptiveVideoTracker)
+
+    t, dev, n = tracker, tracker.device, ADAPTIVE_MULTI_FRAMES
+    rgbs, depths = np.stack([rgb_r] * n), np.stack([depth_r] * n)
+    want_p, want_s = hy.track_video_multi(
+        t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+        torch.as_tensor(pose0).to(dev), trk.upload_rgb(rgbs, dev),
+        trk.upload_depth(depths, dev), samples=4)
+    d = AdaptiveVideoTracker(t, candidates=ADAPTIVE_MULTI_CANDIDATES,
+                             probe_frames=4, samples=4)
+    d.warmup(rgb_r, depth_r, pose0, chunk_size=ADAPTIVE_MULTI_CHUNK)
+    sync(dev)
+    zero_launches()
+    poses, scores = d.track(pose0, rgbs, depths,
+                            chunk_size=ADAPTIVE_MULTI_CHUNK)
+    launches = read_launches()
+    want = k_launches(2 * n, 0, 2 * n)
+    modes = sorted({m for m, *_ in d.segments})
+    same = (np.array_equal(poses, want_p.cpu().numpy())
+            and np.array_equal(scores, want_s.cpu().numpy()))
+    print(f"adaptive samples=4: {n} frames, modes run {modes}, segments "
+          f"{[(m, k, ph) for m, k, _, ph in d.segments]}, poses and scores "
+          f"bit-equal to track_video_multi(first_frame=0): {same}, scores "
+          f"{float(scores.min()):.4f}..{float(scores.max()):.4f}, launches "
+          f"{launches} (want {want})", flush=True)
+    if not same or launches != want or \
+            modes != sorted(ADAPTIVE_MULTI_CANDIDATES):
+        raise AssertionError("the samples-4 dispatcher differs from "
+                             "track_video_multi")
+    return launches
+
+
+def run_predict_adaptive(root, ckpt, dev):
+    """Phase 10.3: ``apps/predict.main --track_mode adaptive`` at chunk
+    PREDICT_CHUNK on phase 8's tree: pose files equal to the scan run's of
+    phase 8, 1 K1 + 1 ``pass2_shade`` a tracked frame plus one of each a
+    candidate's warm-up. Returns the launches."""
+    from iros20_6d_pose_tracking_tpu_torch.apps import predict
+
+    n = PREDICT_FRAMES - 1
+    cands = 1 + len([c for c in (PREDICT_CHUNK, 8, 1)
+                     if PREDICT_CHUNK % c == 0])  # and the stream
+    want = k_launches(n + cands, 0, n + cands)
+    out = root / "out_adaptive"
+    sync(dev)
+    zero_launches()
+    predict.main(["--mode", "ycbv", "--seq_id", "48", "--class_id", "4",
+                  "--ycb_dir", str(root), "--train_data_path",
+                  str(root / "train_data"), "--mean_std_path", str(root),
+                  "--model_path", str(root / "object.obj"), "--ckpt_dir",
+                  ckpt, "--device", str(dev), "--track_mode", "adaptive",
+                  "--chunk_size", str(PREDICT_CHUNK), "--outdir", str(out)])
+    launches = read_launches()
+    scan_files = sorted(p.name for p in (root / "out_scan").glob("*.txt"))
+    files = sorted(p.name for p in out.glob("*.txt"))
+    same = files == scan_files and all(
+        (out / f).read_bytes() == (root / "out_scan" / f).read_bytes()
+        for f in files)
+    print(f"adaptive predict --track_mode adaptive: {len(files)} files, equal "
+          f"to the scan run's: {same}, launches {launches} (want {want}: {n} "
+          f"tracked frames and {cands} warm-up frames)", flush=True)
+    if not same or launches != want:
+        raise AssertionError("predict adaptive differs from scan")
+    return launches
+
+
+def time_adaptive(tracker, pose0, rgb, depth, card):
+    """Phase 10.4: Hz over ADAPTIVE_TURN_FRAMES frames (host clock, the
+    poses on the host at the end) of ``track_video``, the dispatcher with
+    ADAPTIVE_CANDIDATES and each candidate forced alone
+    (``candidates=(c,)``), in turns and then the other way round; each
+    dispatcher warmed up first. Returns the Hz by run."""
+    from iros20_6d_pose_tracking_tpu_torch.tracking.dispatch import (
+        AdaptiveVideoTracker)
+
+    n = ADAPTIVE_TURN_FRAMES
+    rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
+    runs = {"adaptive": AdaptiveVideoTracker(
+        tracker, candidates=ADAPTIVE_CANDIDATES, probe_frames=ADAPTIVE_PROBE)}
+    for c in ADAPTIVE_CANDIDATES:
+        runs[f"forced {c}"] = AdaptiveVideoTracker(
+            tracker, candidates=(c,), probe_frames=ADAPTIVE_PROBE)
+    for d in runs.values():
+        d.warmup(rgb, depth, pose0, chunk_size=n)
+    order = ["track_video"] + list(runs)
+    hz, steady = {k: [] for k in order}, []
+    for name in order + order[::-1]:
+        sync(tracker.device)
+        t0 = time.perf_counter()
+        if name == "track_video":
+            tracker.track_video(pose0, rgbs, depths)
+        else:
+            runs[name].track(pose0, rgbs, depths, chunk_size=n)
+        hz[name].append(n / (time.perf_counter() - t0))
+        if name == "adaptive":
+            steady.append((runs[name].mode, runs[name].steady_ms_per_frame()))
+    print(f"timing adaptive in turns over {n} frames ({order}, then "
+          f"reversed): " + ", ".join(f"{k} {[round(h, 2) for h in v]} Hz"
+                                     for k, v in hz.items())
+          + f"; adaptive (mode, steady ms/frame) {steady}; ms/frame "
+          + ", ".join(f"{k} {[round(1e3 / h, 3) for h in v]}"
+                      for k, v in hz.items()) + f" {card}", flush=True)
+    return hz
+
+
+def datagen_setup():
+    """The pair factory's configuration: the production mesh, and from
+    configs/dataset_info.yml (read by the port's ``utils/config``) the
+    camera, the resolution, the normalisers (the perturbations' bounds) and
+    the pose ranges; the object width as ``apps/datagen.py`` computes it;
+    DR scenes with max_distractors 2 and occluder_prob 0.5. Returns (tm, K,
+    ProducerConfig, DRSceneConfig, xyz_range)."""
+    from iros20_6d_pose_tracking_tpu_torch.core.camera import Camera
+    from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.utils import config
+
+    info = config.load_yaml(str(pathlib.Path(__file__).resolve().parent
+                                / "configs" / "dataset_info.yml"))
+    tm, _ = production_mesh()
+    cam = Camera.from_dict(info["camera"])
+    width = M.compute_obj_max_width(tm.verts) * (
+        1 + info.get("boundingbox", 0) / 100.0)
+    cfg = pp.ProducerConfig(
+        resolution=int(info["resolution"]), object_width_mm=float(width),
+        max_translation=float(info["max_translation"]),
+        max_rotation_deg=float(info["max_rotation"]), width=cam.width,
+        height=cam.height)
+    b = info["blender"]
+    xyz = (tuple(b["range_x"]), tuple(b["range_y"]), tuple(b["range_z"]))
+    scene_cfg = pp.DRSceneConfig(width=cam.width, height=cam.height,
+                                 max_distractors=2, occluder_prob=0.5)
+    return tm, cam.K.astype(np.float32), cfg, scene_cfg, xyz
+
+
+def run_datagen(tracker, dev, root, card):
+    """Phase 10.5: ``produce_dataset`` of DATAGEN_TRAIN + DATAGEN_VAL pairs
+    on the card into ``root`` (``datagen_setup``), timed on the host clock;
+    launches exactly one K3 and one ``pass2_shade`` a scene layer and one
+    K1 and one ``pass2_shade`` a pair (the counts the run records); the
+    port's ``PairDataset`` reads both splits back, and one batch-4
+    ``train_step`` on a copy of phase 4's network gives finite losses.
+    Returns the launches."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data.dataset import PairDataset
+    from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    tm, K, cfg, scene_cfg, xyz = datagen_setup()
+    mesh = rz.upload(tm, dev)
+    stats = {}
+    sync(dev)
+    zero_launches()
+    t0 = time.perf_counter()
+    train_dir, val_dir = pp.produce_dataset(
+        mesh, K, str(root), cfg, DATAGEN_TRAIN, DATAGEN_VAL, xyz_range=xyz,
+        seed=SEED, scene_cfg=scene_cfg, stats=stats)
+    secs = time.perf_counter() - t0
+    launches = read_launches()
+    want = k_launches(stats["pairs"], stats["layers"],
+                      stats["layers"] + stats["pairs"])
+    ds, ds_val = (PairDataset(train_dir, cfg.resolution),
+                  PairDataset(val_dir, cfg.resolution))
+    print(f"datagen produce_dataset: {stats} at {cfg.width}x{cfg.height}, "
+          f"resolution {cfg.resolution}, width {cfg.object_width_mm:.2f} mm, "
+          f"normalisers {cfg.max_translation} m / {cfg.max_rotation_deg} "
+          f"deg, xyz {xyz}; launches {launches} (want {want}); PairDataset "
+          f"reads {len(ds)} train + {len(ds_val)} val pairs", flush=True)
+    print(f"timing datagen: {stats['pairs'] / secs:.2f} pairs/s end to end "
+          f"({stats['pairs']} pairs from {stats['scenes']} scenes of "
+          f"{stats['layers']} layers in {secs:.3f} s: scenes, pairs, PNG "
+          f"files) {card}", flush=True)
+    if launches != want or stats["pairs"] != DATAGEN_TRAIN + DATAGEN_VAL \
+            or (len(ds), len(ds_val)) != (DATAGEN_TRAIN, DATAGEN_VAL):
+        raise AssertionError("produce_dataset's launches or pairs are wrong")
+    net = copy.deepcopy(tracker.model)
+    tcfg = tr.TrainConfig(resolution=cfg.resolution, batch_size=4)
+    opt, lr_at = tr.make_optimizer(net, tcfg, 10)
+    m = tr.train_step(net, opt, lr_at(0), tcfg,
+                      torch.Generator(dev).manual_seed(SEED),
+                      next(ds.batches(4, shuffle=False)), tracker.mean,
+                      tracker.std)
+    losses = {k: float(v) for k, v in m.items()}
+    print(f"datagen train_step on a batch of 4 read back: {losses}",
+          flush=True)
+    if not all(np.isfinite(v) for v in losses.values()):
+        raise AssertionError("the train step on the produced pairs is not "
+                             "finite")
+    return launches
+
+
+def check_dr_scenes_with_cpu(dev):
+    """Phase 10.6: DATAGEN_CPU_SCENES scenes of ``DRSceneGenerator`` on the
+    card and on the port's plain CPU path, with the same seed (layouts) and
+    draws: fewer than DR_PIXEL_SHARE of the pixels off (coverage or seg
+    differ, depth beyond DR_DEPTH_BAR_MM, or rgb more than 1 level
+    apart)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    tm, K, _, scene_cfg, _ = datagen_setup()
+    cpu = torch.device("cpu")
+    gens = {d: pp.DRSceneGenerator(rz.upload(tm, d), K, scene_cfg,
+                                   seed=SEED + 10) for d in (dev, cpu)}
+    t0 = time.perf_counter()
+    for i in range(DATAGEN_CPU_SCENES):
+        pose = np.eye(4, dtype=np.float32)
+        pose[:3, 3] = [0.03 * i, -0.02, 0.55 + 0.1 * i]
+        draws = pp.draw_dr_photometry(torch.Generator().manual_seed(SEED + i),
+                                      scene_cfg.height, scene_cfg.width, cpu,
+                                      noise=False)
+        out = {}
+        for d, g in gens.items():
+            n0 = g.layers
+            out[d] = [x.cpu() for x in g.scene(pose, {
+                k: None if v is None else v.to(d) for k, v in draws.items()})]
+            layers = g.layers - n0
+        (rgb, depth, seg), (rgb_c, depth_c, seg_c) = out[dev], out[cpu]
+        bg = float(draws["bg_depth"])  # the depth where no layer renders
+        cov = (depth != bg) != (depth_c != bg)
+        far = (depth - depth_c).abs() > DR_DEPTH_BAR_MM
+        seg_off = seg != seg_c
+        rgb_off = (rgb - rgb_c).abs().amax(-1) > 1.0
+        share = float((cov | far | seg_off | rgb_off).float().mean())
+        n_bits = int((depth.view(torch.int32) != depth_c.view(torch.int32))
+                     .sum())
+        print(f"datagen scene {i} card vs plain CPU path: {layers} layers, "
+              f"seg pixels {int(seg.sum())}; pixels whose coverage differs "
+              f"{int(cov.sum())}, depth beyond {DR_DEPTH_BAR_MM} mm "
+              f"{int(far.sum())}, seg differs {int(seg_off.sum())}, rgb > 1 "
+              f"level {int(rgb_off.sum())}: {share:.2e} of the frame (bar "
+              f"{DR_PIXEL_SHARE}); depth not bit-equal on {n_bits} pixels, "
+              f"max |d depth| {float((depth - depth_c).abs().max()):.3e} mm, "
+              f"max |d rgb| {float((rgb - rgb_c).abs().max()):.3e}",
+              flush=True)
+        if share >= DR_PIXEL_SHARE or seg.sum() == 0:
+            raise AssertionError("a DR scene differs between the card and "
+                                 "the CPU")
+    print(f"datagen scenes card vs CPU: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+
+
+def run_complete_blender(dev, root):
+    """Phase 10.7: DATAGEN_BLENDER_IMAGES full-frame renders of the
+    production mesh on the card written in the Blender stage-1 layout
+    (``%07d{rgb,depth,seg}.png`` by ``write_png``, ``poses_in_world.npz``,
+    class id 7, the camera at (0.1, 0.2, 1.5) in the world) into ``root``,
+    then ``complete_blender``: one K1 and one ``pass2_shade`` a pair, one
+    pair moved to validation, the stored B the CV-frame pose (1e-5).
+    Returns the launches."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    tm, K, cfg, _, _ = datagen_setup()
+    mesh = rz.upload(tm, dev)
+    gen = root / "generated_data"
+    gen.mkdir(parents=True)
+    flip = np.diag([1.0, -1.0, -1.0, 1.0])
+    cam_in_world = np.eye(4)
+    cam_in_world[:3, 3] = [0.1, 0.2, 1.5]
+    poses = []
+    for i in range(DATAGEN_BLENDER_IMAGES):
+        pose_cv = np.eye(4)
+        pose_cv[:3, 3] = [0.01 * i, -0.01 * i, 0.6]
+        rgb, depth = rz.render(
+            mesh, torch.as_tensor(pose_cv, dtype=torch.float32).to(dev),
+            torch.as_tensor(K).to(dev),
+            rz.full_frame_window(cfg.width, cfg.height),
+            out_hw=(cfg.height, cfg.width), cull_backfaces=True)
+        depth = depth.cpu().numpy()
+        write_png(gen / f"{i:07d}rgb.png", rgb.cpu().numpy().astype(np.uint8))
+        write_png(gen / f"{i:07d}depth.png", depth.astype(np.uint16))
+        write_png(gen / f"{i:07d}seg.png", (depth > 0).astype(np.uint8) * 7)
+        np.savez(gen / f"{i:07d}poses_in_world.npz", class_ids=np.array([7]),
+                 poses_in_world=(cam_in_world @ np.linalg.inv(flip)
+                                 @ pose_cv)[None],
+                 blendercam_in_world=cam_in_world)
+        poses.append(pose_cv)
+    info = {"camera": {"focalX": float(K[0, 0]), "focalY": float(K[1, 1]),
+                       "centerX": float(K[0, 2]), "centerY": float(K[1, 2]),
+                       "width": cfg.width, "height": cfg.height},
+            "resolution": cfg.resolution,
+            "object_width": cfg.object_width_mm,
+            "max_translation": cfg.max_translation,
+            "max_rotation": cfg.max_rotation_deg, "val_samples": 1}
+    sync(dev)
+    zero_launches()
+    train_dir, val_dir = pp.complete_blender(str(gen), str(root / "pairs"),
+                                             info, mesh=mesh, class_id=7)
+    launches = read_launches()
+    n_train = len(list(pathlib.Path(train_dir).glob("*rgbA.png")))
+    n_val = len(list(pathlib.Path(val_dir).glob("*rgbA.png")))
+    want = k_launches(n_train + n_val, 0, n_train + n_val)
+    B = [np.load(p)["B_in_cam"] for p in
+         sorted(pathlib.Path(train_dir).glob("*meta.npz"))]
+    err = max(float(np.abs(b - p).max()) for b, p in zip(B, poses))
+    print(f"datagen complete_blender: {DATAGEN_BLENDER_IMAGES} Blender-layout "
+          f"renders -> {n_train} train + {n_val} val pairs, launches "
+          f"{launches} (want {want}), max |B_in_cam - pose| {err:.2e}",
+          flush=True)
+    if launches != want or n_val != 1 or \
+            n_train + n_val != DATAGEN_BLENDER_IMAGES or err > 1e-5:
+        raise AssertionError("complete_blender's pairs are wrong")
+    return launches
+
+
+def time_datagen(dev, card):
+    """Phase 10.8: the pair factory's split over DATAGEN_TIMED scenes and
+    pairs (a generator and producer of their own): scene render ms
+    (``DRSceneGenerator.scene``) and pair render + crop ms
+    (``PairProducer.generate`` with its PNG writer held back), CUDA events,
+    median; PNG write ms (``_save``, host clock, median); then K3 and
+    ``pass2_shade`` at the factory's new shapes, a 256-face primitive layer
+    (a cube) and the 3072-face target layer at full frame, against their
+    plain versions and bounds. Returns the kernels-line numbers of those
+    shapes."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    tm, K, cfg, scene_cfg, _ = datagen_setup()
+    mesh = rz.upload(tm, dev)
+    scenes = pp.DRSceneGenerator(mesh, K, scene_cfg, seed=SEED + 20)
+    producer = pp.PairProducer(mesh, K, cfg)
+    gen = torch.Generator(dev).manual_seed(SEED)
+    held, scene_ms, pair_ms = [], [], []
+    producer._save = lambda *a: held.append(a)
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        res = fn()
+        end.record()
+        end.synchronize()
+        return res, start.elapsed_time(end)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_dg_") as tmp:
+        for i in range(DATAGEN_TIMED + 1):  # the first warms up
+            pose = np.eye(4, dtype=np.float32)
+            pose[:3, 3] = [0.02 * (i % 3), -0.01 * (i % 2), 0.5 + 0.02 * i]
+            draws = pp.draw_dr_photometry(gen, cfg.height, cfg.width, dev,
+                                          noise=False)
+            (rgb, depth, seg), ms = timed(lambda: scenes.scene(pose, draws))
+            _, ms2 = timed(lambda: producer.generate(
+                tmp, pose, rgb, depth, 1, class_id=1, current_seg=seg,
+                generator=gen))
+            if i:
+                scene_ms.append(ms)
+                pair_ms.append(ms2)
+        save = pp.PairProducer._save
+        png_ms = []
+        for a in held[1:]:
+            t0 = time.perf_counter()
+            save(producer, tmp, *a[1:])
+            png_ms.append((time.perf_counter() - t0) * 1e3)
+    print(f"timing datagen split over {DATAGEN_TIMED} scenes: scene render "
+          f"{float(np.median(scene_ms)):.3f} ms (DRSceneGenerator.scene, "
+          f"{scenes.layers} layers in all, CUDA events, median), pair render "
+          f"+ crop {float(np.median(pair_ms)):.3f} ms (generate without its "
+          f"PNGs, {len(held) - 1} pairs, CUDA events, median), PNG write "
+          f"{float(np.median(png_ms)):.3f} ms (5 PNGs and the npz, host "
+          f"clock, median) {card}", flush=True)
+    shapes = []
+    prim_pose = np.eye(4, dtype=np.float32)
+    prim_pose[:3, 3] = [0.04, -0.03, 0.45]
+    target = np.eye(4, dtype=np.float32)
+    target[:3, 3] = [0.02, -0.01, 0.55]
+    for name, m, p in (("cube primitive layer", scenes._prims[0], prim_pose),
+                       ("target layer", mesh, target)):
+        c = render_case(m, p, K, rz.full_frame_window(cfg.width, cfg.height),
+                        FRAME_HW, cull=False)
+        c["iz"], c["win"] = rk.pass1_worklist(c["coef"], c["bbox"], FRAME_HW,
+                                              c["fb"])
+        label = (f"(datagen {name}: {int(m.fmask.sum())} faces padded to "
+                 f"{m.fmask.shape[0]}, full frame)")
+        args1 = (c["coef"], c["bbox"], FRAME_HW, c["fb"])
+        args2 = (c["attr"], c["iz"], c["win"], c["R"], c["t"], FRAME_HW, FAR)
+        for kname, fn, plain, bnd, args in (
+                ("raster_pass1_worklist", rk.pass1_worklist,
+                 rk.pass1_worklist_ref, pass1_bound(c, FRAME_HW), args1),
+                ("pass2_shade", rk.pass2_shade, rk.pass2_shade_ref,
+                 pass2_bound(c), args2)):
+            r = report_kernel(kname, label, lambda: fn(*args),
+                              lambda: plain(*args), bnd, card, plain_runs=5)
+            shapes.append({"kernel": kname, "shape": name,
+                           "faces": int(m.fmask.shape[0]), **r})
+    return shapes
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3200,9 +3735,36 @@ def main() -> int:
     check_fill_and_ros(tracker, pose0, rgb_r, depth_r, card)
     stream_launches = run_predict_stream(root, ckpt, dev, card)
     by_path["live predict stream"] = stream_launches["stream"]
-    ycb_tmp.cleanup()
     time_live(tracker, pose0, rgb, depth, multi_s, card)
     print(f"live phase: {time.perf_counter() - t9:.1f} s", flush=True)
+
+    # 10. The adaptive dispatcher (bit-equal to track_video, its launches,
+    # samples 4, predict adaptive on phase 8's tree, the modes' rates in
+    # turns) and the synthetic pair factory (produce_dataset with its
+    # launches, read back and trained on; DR scenes card against CPU;
+    # complete_blender; the split and the kernels at the new shapes).
+    t10 = time.perf_counter()
+    print(f"adaptive and datagen: AdaptiveVideoTracker {ADAPTIVE_CANDIDATES} "
+          f"at {RES}^2 on {FRAME_HW[0]}x{FRAME_HW[1]} frames; "
+          f"produce_dataset of {DATAGEN_TRAIN} + {DATAGEN_VAL} pairs of the "
+          f"production mesh at {FRAME_HW[0]}x{FRAME_HW[1]}, {RES}^2",
+          flush=True)
+    by_path["adaptive"] = run_adaptive(tracker, pose0, rgb, depth, card)
+    by_path["adaptive samples=4"] = run_adaptive_multi(tracker, pose0, rgb_r,
+                                                       depth_r)
+    by_path["adaptive predict"] = run_predict_adaptive(root, ckpt, dev)
+    ycb_tmp.cleanup()
+    time_adaptive(tracker, pose0, rgb, depth, card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_datagen_") as tmp:
+        tmp = pathlib.Path(tmp)
+        by_path["datagen produce_dataset"] = run_datagen(
+            tracker, dev, tmp / "dr", card)
+        by_path["datagen complete_blender"] = run_complete_blender(
+            dev, tmp / "blender")
+    check_dr_scenes_with_cpu(dev)
+    datagen_shapes = time_datagen(dev, card)
+    print(f"adaptive and datagen phase: {time.perf_counter() - t10:.1f} s",
+          flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)
@@ -3215,7 +3777,11 @@ def main() -> int:
          "launches_by_path": {p: c[name] for p, c in by_path.items()},
          **({"serving_views": [
              {k: v for k, v in r.items() if k != "library_ms"}
-             for r in nview[name]]} if name in nview else {})}
+             for r in nview[name]]} if name in nview else {}),
+         **({"datagen_shapes": [
+             {k: v for k, v in r.items() if k not in ("kernel", "library_ms")}
+             for r in datagen_shapes if r["kernel"] == name]}
+            if any(r["kernel"] == name for r in datagen_shapes) else {})}
         for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -28,12 +28,18 @@ Execution paths:
   --track_mode ontrack  per-frame ``Tracker.on_track`` with the pose fetched
                         every frame (the reference's frame loop, reference
                         predict.py:529-564); ``--samples N`` > 1 runs the
-                        multi-hypothesis step (stream mode too).
+                        multi-hypothesis step (stream, adaptive modes too).
+  --track_mode adaptive scan's segments through one
+                        ``tracking/dispatch.AdaptiveVideoTracker``: chunks of
+                        --chunk_size frames, the candidates --chunk_size, 8
+                        and 1 frames a dispatch (those dividing the chunk)
+                        and the stream, probed on the video and the fastest
+                        kept; scan's poses, and the telemetry printed.
 
-Not ported yet, each raising NotImplementedError (ROADMAP.md): ``--track_mode
-adaptive`` (P12), ``--bf16`` (item 8). Frame chunks (scan, stream) decode with
-the native libpng loader (``native/dataload.py``) where it builds, else with
-Pillow; the first decode prints which.
+Not ported yet, raising NotImplementedError (ROADMAP.md): ``--bf16`` (item
+8). Frame chunks (scan, stream, adaptive) decode with the native libpng
+loader (``native/dataload.py``) where it builds, else with Pillow; the first
+decode prints which.
 
 Outputs per-frame 4x4 pose txts in the layouts the scoring CLIs read;
 optional mp4 + projected-point overlays + render|crop canvases (reference
@@ -122,7 +128,8 @@ def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
 
     scan: chunked tracking, segmented at re-init frames (each segment
     restarts the device-carried pose from the PoseCNN result, reference
-    predict.py:539-541). stream: the live ``StreamTracker``, re-initialized
+    predict.py:539-541); adaptive: the same segments through one
+    ``AdaptiveVideoTracker``. stream: the live ``StreamTracker``, re-initialized
     at those frames, and with ``--auto_reinit`` wherever its health policy
     fires (``redetect(file_index)`` gives the pose). ontrack: the
     reference's blocking frame loop.
@@ -132,7 +139,19 @@ def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
               if p is not None and start + 1 <= i < n}
     init_pose = np.asarray(init_pose, np.float64)
 
-    if args.track_mode == "scan":
+    if args.track_mode in ("scan", "adaptive"):
+        chunk, dispatcher = args.chunk_size, None
+        if args.track_mode == "adaptive":
+            # The dispatch granularity is chosen on this video as it runs
+            # (tracking/dispatch.py); one dispatcher keeps its warm state
+            # and probe table across re-init segments.
+            from ..tracking.dispatch import AdaptiveVideoTracker
+
+            chunk = args.chunk_size or 100
+            cands = tuple(dict.fromkeys(
+                c for c in (chunk, 8, 1) if chunk % c == 0)) + (0,)
+            dispatcher = AdaptiveVideoTracker(tracker, candidates=cands,
+                                              samples=args.samples)
         bounds = sorted(set([start + 1] + list(reinit)))
         poses = [init_pose]
         cur = init_pose
@@ -143,12 +162,19 @@ def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
                 print("Reinitialized at", a)
             if a >= b:
                 continue
-            seg = tracker.track_video_chunked(
-                cur, _batch_src(rgb_files[a:b], "rgb"),
-                _batch_src(depth_files[a:b], "depth"),
-                chunk_size=min(args.chunk_size, b - a), n_frames=b - a)
+            rgb_src = _batch_src(rgb_files[a:b], "rgb")
+            depth_src = _batch_src(depth_files[a:b], "depth")
+            if dispatcher is not None:
+                seg, _ = dispatcher.track(cur, rgb_src, depth_src,
+                                          chunk_size=chunk, n_frames=b - a)
+            else:
+                seg = tracker.track_video_chunked(
+                    cur, rgb_src, depth_src, chunk_size=min(chunk, b - a),
+                    n_frames=b - a)
             poses.extend(list(seg))
             cur = seg[-1]
+        if dispatcher is not None:
+            print(f"adaptive dispatch: {dispatcher.telemetry()}")
         return np.stack(poses)
 
     if args.track_mode == "stream":
@@ -484,16 +510,17 @@ def build_parser():
                         choices=["scan", "stream", "ontrack", "adaptive"],
                         help="scan: chunked tracking; stream: the live "
                              "pipelined StreamTracker; ontrack: per-frame; "
-                             "adaptive is not ported yet")
+                             "adaptive: the dispatch granularity chosen at "
+                             "run time (tracking/dispatch.py)")
     parser.add_argument("--chunk_size", default=64, type=int,
-                        help="frames per device chunk in scan mode "
-                             "(bounds device memory for long videos)")
+                        help="frames per device chunk in scan and adaptive "
+                             "modes (bounds device memory for long videos)")
     parser.add_argument("--no_window", action="store_true",
                         help="stream mode: upload full frames instead of "
                              "the object window")
     parser.add_argument("--samples", default=1, type=int,
-                        help="pose hypotheses per frame (stream, ontrack "
-                             "modes): N "
+                        help="pose hypotheses per frame (stream, ontrack, "
+                             "adaptive modes): N "
                              "perturbed priors refine in one batched step; "
                              "the depth-agreement winner is kept (the "
                              "reference scaffolds this arg but evaluates "
@@ -525,9 +552,6 @@ def build_parser():
 def _refuse_unported(args):
     """The JAX CLI's options the port does not have yet raise, naming the
     ROADMAP.md item that holds them."""
-    if args.track_mode == "adaptive":
-        raise NotImplementedError(f"--track_mode adaptive: {_NOT_PORTED} "
-                                  "(P12)")
     if args.bf16:
         raise NotImplementedError(f"--bf16: {_NOT_PORTED} (item 8)")
 

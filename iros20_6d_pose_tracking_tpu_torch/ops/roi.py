@@ -82,16 +82,16 @@ def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
 
 
 def crop_bbox(color: torch.Tensor, depth: torch.Tensor, bbox: torch.Tensor,
-              output_size: tuple[int, int]):
-    """Crop + nearest-resize color and depth to the bbox window, or to
-    each of N bboxes (N, 4, 2). ``output_size`` is (W, H), the cv2
-    convention of the reference."""
+              output_size: tuple[int, int], seg: torch.Tensor | None = None):
+    """Crop + nearest-resize color and depth (and ``seg``, where given) to
+    the bbox window, or to each of N bboxes (N, 4, 2). ``output_size`` is
+    (W, H), the cv2 convention of the reference."""
     W_out, H_out = output_size
     left, right, top, bottom = bbox_window(bbox)
     crop_h = bottom - top
     crop_w = right - left
-    out_c = crop_resize_nearest(color, top, left, crop_h, crop_w,
-                                (H_out, W_out))
-    out_d = crop_resize_nearest(depth, top, left, crop_h, crop_w,
-                                (H_out, W_out))
-    return out_c, out_d
+    out = tuple(crop_resize_nearest(img, top, left, crop_h, crop_w,
+                                    (H_out, W_out))
+                for img in ((color, depth) if seg is None
+                            else (color, depth, seg)))
+    return out

@@ -40,8 +40,9 @@ wait for the card:
 
 ``samples > 1`` refines N hypotheses a push (``hypotheses.track_step_multi``),
 their perturbations drawn from a ``torch.Generator`` on the device seeded
-with the stream's frame index (``Tracker.on_track`` seeds with its frame
-count: the two give the same bits over the same frames).
+with the stream's frame index plus ``begin``'s ``first_frame``
+(``Tracker.on_track`` seeds with its frame count: the two give the same bits
+over the same frames).
 
 Consumers: ``apps/predict.py --track_mode stream`` and
 ``apps/predict_ros.py``.
@@ -146,6 +147,7 @@ class StreamTracker:
         self._side_px = None
         self._hw = None
         self._frame_idx = 0
+        self._first_frame = 0             # draws' seed of push 0 (samples > 1)
         self._center_frame = 0            # frame the centre estimate is of
         self._offset_cache = {}           # (top, left) -> device int32 pair
         self._sides = set()               # window sides used ("full": none)
@@ -202,7 +204,12 @@ class StreamTracker:
         return self._cur_bucket
 
     def begin(self, init_pose: np.ndarray,
-              image_hw: tuple[int, int] | None = None):
+              image_hw: tuple[int, int] | None = None,
+              first_frame: int = 0):
+        """Start a stream at ``init_pose``. At samples > 1 the k-th push
+        draws its hypotheses from a generator seeded ``first_frame + k``
+        (the frame's index in a longer video)."""
+        self._first_frame = int(first_frame)
         self._pose_dev = trk.upload_async(np.array(init_pose, np.float32),
                                           self._device)
         self._poses = [self._pose_dev]
@@ -225,7 +232,8 @@ class StreamTracker:
         t = self.t
         rgb, depth = unpack_window(packed)
         if self.samples > 1:
-            gen = torch.Generator(self._device).manual_seed(self._frame_idx)
+            gen = torch.Generator(self._device).manual_seed(
+                self._first_frame + self._frame_idx)
             pose, score, _ = hy.track_step_multi(
                 t.model, t.cfg, t.mesh, t.K, t.mean, t.std, self._pose_dev,
                 rgb, depth, gen, samples=self.samples,

@@ -31,7 +31,8 @@ uint16, so :func:`upload_depth` widens them to int32 on the device.
 :func:`upload_async` is the upload of the live stream
 (``tracking/stream.py``), which must never make the host wait.
 
-Not ported yet (ROADMAP.md): ``track_video_adaptive`` (P12); bf16
+``Tracker.track_video_adaptive`` chooses how a video is dispatched as it
+runs (``tracking/dispatch.py``). Not ported yet (ROADMAP.md): bf16
 (``TrackerConfig.dtype``) raises (item 8).
 """
 from __future__ import annotations
@@ -411,8 +412,30 @@ class Tracker:
             upload_depth(frames_depth_mm, self.device))
         return poses.cpu().numpy()
 
-    def track_video_adaptive(self, *args, **kwargs):
-        raise NotImplementedError(f"track_video_adaptive: {_NOT_PORTED} (P12)")
+    def track_video_adaptive(self, init_pose, rgb_source, depth_source,
+                             n_frames: int | None = None,
+                             chunk_size: int = 100, candidates=(100, 10, 1),
+                             samples: int = 1, dispatcher=None):
+        """Bounded-memory whole-video tracking whose dispatch granularity
+        is chosen as the video runs (``tracking/dispatch.py``): the
+        candidates are probed on the video's first frames (real work, the
+        poses kept) and the fastest runs the rest, probed again if its rate
+        collapses. Every mode gives :meth:`track_video`'s bits.
+
+        Returns (poses (T, 4, 4), telemetry dict), the telemetry with
+        ``scores`` (T,) when samples > 1. A prebuilt ``dispatcher``
+        (``AdaptiveVideoTracker``) keeps its warm state across videos.
+        """
+        from .dispatch import AdaptiveVideoTracker
+
+        d = dispatcher or AdaptiveVideoTracker(
+            self, candidates=candidates, samples=samples)
+        poses, scores = d.track(init_pose, rgb_source, depth_source,
+                                n_frames=n_frames, chunk_size=chunk_size)
+        tel = d.telemetry()
+        if scores is not None:
+            tel["scores"] = scores
+        return poses, tel
 
     def track_video_chunked(self, init_pose, rgb_source, depth_source,
                             chunk_size: int = 64,

@@ -4,8 +4,8 @@ one.
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
-one tracking step, one multi-hypothesis step, two windowed stream pushes, a
-depth fill, a two-frame hard test
+one tracking step, one multi-hypothesis step, two windowed stream pushes, an
+adaptive three-frame video, a DR scene, a depth fill, a two-frame hard test
 video with its scores and one synthetic train step on the CPU, and look at
 ``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
@@ -57,6 +57,18 @@ for _ in range(2):
     s.push(rgb, depth)
 assert s.poses().shape == (2, 4, 4) and s.stats()["bucket"] < 192
 s.close()
+from iros20_6d_pose_tracking_tpu_torch.tracking.dispatch import (
+    AdaptiveVideoTracker)
+d = AdaptiveVideoTracker(t, candidates=(2, 1), probe_frames=1)
+poses, _ = d.track(pose, np.stack([rgb] * 3), np.stack([depth] * 3),
+                   chunk_size=2)
+assert np.array_equal(poses, t.track_video(pose, np.stack([rgb] * 3),
+                                           np.stack([depth] * 3)))
+from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
+gen = torch.Generator().manual_seed(0)
+out = pp.render_dr_scene(t.mesh, K, pose, pp.draw_dr_photometry(
+    gen, 192, 256, "cpu"), 256, 192)
+assert out[2].sum() > 0 and out[0].shape == (192, 256, 3)
 from iros20_6d_pose_tracking_tpu_torch.ops import depthproc
 filled = depthproc.fill_depth(torch.full((24, 32), 0.5))
 assert torch.isfinite(filled).all()
@@ -110,7 +122,9 @@ def test_port_imports_and_runs_without_jax():
                       "utils.config", "apps.train", "apps.predict",
                       "tracking.hypotheses", "ops.pointcloud",
                       "utils.viz", "tracking.stream", "apps.predict_ros",
-                      "native.dataload"}, walked
+                      "native.dataload", "tracking.dispatch",
+                      "datagen.blender_gen", "core.views",
+                      "apps.datagen"}, walked
 
 
 def _imported_modules(path):

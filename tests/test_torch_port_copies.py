@@ -2,9 +2,9 @@
 originals: the mesh module (procedural shapes, decimation, OBJ files and
 the geometry utilities), the Flax <-> state_dict conversions, the config
 helpers, the visualization helpers, the YCB sequence discovery, the native
-PNG decoder's C++ source and the live stream's numpy helpers (the packed
-window, the host ROI geometry). The port imports none of these from the JAX
-package."""
+PNG decoder's C++ source, the live stream's numpy helpers (the packed
+window, the host ROI geometry), the view-sphere sampling and the Blender
+scene script. The port imports none of these from the JAX package."""
 import dataclasses
 import os
 
@@ -76,7 +76,8 @@ def _write_config_tree(root):
     "state_dict_from_jax", "state_dict_to_variables", "load_yaml",
     "find_dataset_info", "load_mean_std", "normalizers_from_info",
     "viz_make_canvas", "viz_projected_points", "viz_video_writer",
-    "find_class_contained_videos_ycb", "dataload_cc", "stream_numpy_helpers"])
+    "find_class_contained_videos_ycb", "dataload_cc", "stream_numpy_helpers",
+    "core_views", "blender_gen"])
 def test_port_copy_equals_jax(case, tmp_path):
     if case == "icosphere4_decimated_2048":
         (tm, extra), (tm_j, extra_j) = (_icosphere_decimated(M),
@@ -147,6 +148,16 @@ def test_port_copy_equals_jax(case, tmp_path):
             assert f.read() == g.read()
     elif case == "stream_numpy_helpers":
         _check_stream_helpers()
+    elif case == "core_views":
+        _check_views()
+    elif case == "blender_gen":
+        # run by path inside Blender (tests/test_torch_datagen.py drives it
+        # under tests/bpy_stub.py): the port keeps the JAX package's script
+        from iros20_6d_pose_tracking_tpu.datagen import blender_gen as jbg
+        from iros20_6d_pose_tracking_tpu_torch.datagen import blender_gen as bg
+
+        with open(bg.__file__, "rb") as f, open(jbg.__file__, "rb") as g:
+            assert f.read() == g.read()
     elif case == "find_class_contained_videos_ycb":
         for seq, classes in ((47, [4]), (48, [4, 7]), (50, [7]), (59, [4]),
                              (60, [4])):
@@ -246,3 +257,31 @@ def _check_stream_helpers():
         rect = (100 + i, 120, 256)
         assert port._roi_escaped(want[0], want[1], rect) == \
             ref._roi_escaped(want[0], want[1], rect)
+
+
+def _check_views():
+    """core/views.py: the same source, and the same hinter sampling, look-at
+    rotations, sampled views and random view matrices."""
+    from iros20_6d_pose_tracking_tpu.core import views as jv
+    from iros20_6d_pose_tracking_tpu_torch.core import views as v
+
+    with open(v.__file__, "rb") as f, open(jv.__file__, "rb") as g:
+        assert f.read() == g.read()
+    for n in (12, 42, 300):
+        for x, y in zip(v.hinter_sampling(n, 0.7), jv.hinter_sampling(n, 0.7)):
+            np.testing.assert_array_equal(x, y)
+    eye = np.array([0.3, -0.2, 0.9])
+    np.testing.assert_array_equal(v.look_at_rotation(eye),
+                                  jv.look_at_rotation(eye))
+    np.testing.assert_array_equal(v.look_at_rotation([0, 0, 2.0]),
+                                  jv.look_at_rotation([0, 0, 2.0]))
+    views, pts = v.sample_views(100, 0.5, (0.0, 1.2))
+    jviews, jpts = jv.sample_views(100, 0.5, (0.0, 1.2))
+    np.testing.assert_array_equal(pts, jpts)
+    assert len(views) == len(jviews) > 10
+    for a, b in zip(views, jviews):
+        np.testing.assert_array_equal(a["R"], b["R"])
+        np.testing.assert_array_equal(a["t"], b["t"])
+    np.testing.assert_array_equal(
+        v.random_view_matrix(np.random.RandomState(3), 0.4, 0.9),
+        jv.random_view_matrix(np.random.RandomState(3), 0.4, 0.9))

@@ -227,6 +227,25 @@ def test_stream_modes_equal_scan(tree, tmp_path, capsys):
         np.sqrt(3) * 0.03 + 1e-6
 
 
+def test_adaptive_writes_scan_files(tree, tmp_path, capsys):
+    """--track_mode adaptive (candidates chunk, 8, 1 and the stream, one
+    dispatcher across the re-init segments) writes scan's pose files bit
+    for bit and prints its telemetry."""
+    root, _ = tree
+    runs = {}
+    for name, extra in (("scan", ["--track_mode", "scan"]),
+                        ("adaptive", ["--track_mode", "adaptive",
+                                      "--chunk_size", "2"])):
+        out = tmp_path / name
+        predict.main(_args(root, out, "--device", "cpu", *extra))
+        runs[name] = _poses(out)
+        assert sorted(os.listdir(out)) == sorted(os.listdir(tmp_path / "scan"))
+    said = capsys.readouterr().out
+    assert "adaptive dispatch: {'mode': " in said
+    assert "probe_ms_per_frame" in said
+    np.testing.assert_array_equal(runs["adaptive"], runs["scan"])
+
+
 def test_track_files_auto_reinit_wiring(tree, monkeypatch):
     """--auto_reinit wires a ReinitPolicy and a redetect-backed
     on_track_lost into the stream (raising samples to 2), as JAX's
@@ -418,7 +437,9 @@ def test_init_poses_match_jax(tree):
 
 
 @pytest.mark.parametrize("flags,item", [
-    pytest.param(["--track_mode", "adaptive"], "P12", id="flags2-P12"),
+    # adaptive is ported; with --bf16 it still raises for item 8
+    pytest.param(["--track_mode", "adaptive", "--bf16"], "item 8",
+                 id="flags2-P12"),
     pytest.param(["--bf16"], "item 8", id="flags3-item 8")])
 def test_unported_options_raise(tree, tmp_path, flags, item):
     root, _ = tree

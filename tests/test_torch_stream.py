@@ -337,6 +337,27 @@ def test_stream_samples_equal_on_track_loop(scene):
     s.close()
 
 
+def test_stream_first_frame_seeds_draws(scene):
+    """begin(first_frame=k) at samples 4: push i draws with seed k + i, so
+    the stream gives the bits of on_track(samples=4) from frame_cnt = k."""
+    k, n = 5, 2
+    t = _tracker(scene)
+    t.frame_cnt = k
+    pose, want, want_scores = scene["gt"], [], []
+    for _ in range(n):
+        pose = t.on_track(pose, scene["rgb"], scene["depth"], samples=4)
+        want.append(pose)
+        want_scores.append(t.last_score)
+    s = st.StreamTracker(_tracker(scene), window=True, samples=4)
+    s.begin(scene["gt"], image_hw=(H, W), first_frame=k)
+    for _ in range(n):
+        s.push(scene["rgb"], scene["depth"])
+    np.testing.assert_array_equal(s.poses(), np.stack(want))
+    np.testing.assert_array_equal(s.scores(),
+                                  np.asarray(want_scores, np.float32))
+    s.close()
+
+
 def test_stream_containment_violation(scene):
     """A teleported device pose is caught by the background containment
     check (tests/test_stream.py's case): counted, and the pad widened."""

@@ -139,8 +139,8 @@ def test_on_track_equals_track_video_and_detects_metres(scene):
 
 def test_tracker_from_dataset_info(scene):
     """__init__ decimates past max_faces, auto-culls the closed mesh, and
-    carries Flax variables across; ``samples > 1`` and the chunked video run,
-    the modes still missing raise."""
+    carries Flax variables across; ``samples > 1``, the chunked and the
+    adaptive video run, bf16 (not ported yet) raises."""
     s = scene
     tm = M.make_icosphere(subdiv=2, radius=0.04)
     info = {"resolution": RES, "object_width": WIDTH_MM,
@@ -162,8 +162,11 @@ def test_tracker_from_dataset_info(scene):
         t.track_video_chunked(s["init"], frames_rgb, frames_depth,
                               chunk_size=2),
         t.track_video(s["init"], frames_rgb, frames_depth))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.track_video_adaptive(s["init"], None, None)
+    poses, tel = t.track_video_adaptive(s["init"], frames_rgb, frames_depth,
+                                        chunk_size=2, candidates=(2, 1))
+    np.testing.assert_array_equal(
+        poses, t.track_video(s["init"], frames_rgb, frames_depth))
+    assert set(tel["probe_ms_per_frame"]) <= {2, 1}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         trk.Tracker(info, s["mean"], s["std"], mesh=tm, device="cpu",
                     dtype=torch.bfloat16).on_track(s["init"], s["rgb"],
