@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
 closed-loop synthetic evaluation, synthetic training, the serving path, the
-live path, the adaptive dispatcher and the synthetic pair factory.
+live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
+suite and the bf16 CNN.
 
     python3 chip_smoke.py
 
@@ -190,7 +191,28 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      frames; pairs/s end to end, scene render and pair render + crop ms
      (CUDA events), PNG write ms (host clock); K3 and ``pass2_shade`` on a
      cube primitive layer (256 faces) and the target layer (3072) at full
-     frame against their plain versions and bounds.
+     frame against their plain versions and bounds;
+ 11. drives the accuracy suite (``eval/domain_shift.py``,
+     ``eval/synthetic_benchmark.run_suite``) and the bf16 CNN. First
+     ``pass2_shade`` against its plain version on full 480x640 frames at the
+     suite's lighting: the production mesh at the sensor model's x1 and x4
+     (ambient -0.15, the light beyond the object) and the textured box at
+     ``texture_hostile``'s, as phase 3's bars, each timed beside its plain
+     version and bound. ``shift_video`` on the card against the CPU path on
+     the same draws over the first 10 frames of phase 5's video at x1 and
+     x4 (rgb within 1e-3; depth different on at most 0.1% of pixels, each
+     by a quantization step or dropout), and its ms per frame over the 60
+     frames (CUDA events). ``run_suite`` cut to size: the production mesh
+     as the one object, 5 train steps at batch 32, 60 hard frames, the
+     domain-shifted table, the sweep (0.5, 2, 4), the x2 ablation, a
+     90-frame long horizon with its forced-burst recovery and the live
+     recovery at 30 Hz; every AUC finite, the live row with ``recovered``
+     and no nan, and K1, K2, K3 and ``pass2_shade`` launched exactly as
+     ``suite_launches_predicted`` derives from the code. bf16: one step
+     against the float32 step under JAX's bars (1 mm, 5e-3), the drift of
+     100 bf16 ``track_video`` frames from float32 (printed), the card's
+     bf16 path against the CPU's over 20 frames, and ``track_video`` Hz and
+     batch-200 ``train_step_synth`` samples/s, bf16 and float32 in turns.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -201,8 +223,9 @@ production inputs (K3: the full frame), and ``launches_by_path`` (each
 path's counts, zeroed just before it and read just after; "live" is the
 windowed stream's); K1 and
 ``pass2_shade`` also carry ``serving_views``, their times at the culled
-N-view shapes of phase 8, and K3 and ``pass2_shade`` ``datagen_shapes``,
-their times at phase 10's layers. The last is
+N-view shapes of phase 8, K3 and ``pass2_shade`` ``datagen_shapes``,
+their times at phase 10's layers, and ``pass2_shade`` ``suite_lighting``,
+its times at phase 11's lighting. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -367,6 +390,23 @@ DATAGEN_CPU_SCENES = 2
 DATAGEN_BLENDER_IMAGES = 3
 DATAGEN_TIMED = 10
 DR_DEPTH_BAR_MM, DR_PIXEL_SHARE = 0.01, 1e-3
+# Phase 11, the accuracy suite and the bf16 CNN. The sensor model's severities
+# whose lighting pass2_shade is held at (x4: ambient -0.15, the light beyond
+# the object); the frames of phase 5's video shifted on the card and on the
+# CPU path, and the runs of the card's shift_video timing; the reduced
+# run_suite (the production mesh, train steps at a batch, test frames, the
+# sweep, the long horizon); bf16: the frames of its drift from float32, the
+# frames the card's bf16 path is held to the CPU's bf16 path over, with its
+# bars (metres, radians: about 10x the 1.8e-5 m and 9.0e-5 rad measured on
+# an H100; bf16 rounds the CNN's activations to 8 bits, so the two devices'
+# poses drift apart as the frames go), and the batch-200 train steps a turn.
+SUITE_SEVERITIES = (1.0, 4.0)
+SHIFT_CPU_FRAMES, SHIFT_TIMED_RUNS = 10, 5
+SUITE_STEPS, SUITE_BATCH, SUITE_FRAMES = 5, 32, 60
+SUITE_SWEEP, SUITE_LONG = (0.5, 2.0, 4.0), 90
+BF16_VIDEO_FRAMES, BF16_CPU_FRAMES = 100, 20
+BF16_CPU_BAR_M, BF16_CPU_BAR_RAD = 2e-4, 1e-3
+BF16_TRAIN_STEPS = 3
 
 
 def production_mesh():
@@ -427,7 +467,9 @@ def build_model(seed):
     return net.eval()
 
 
-def make_tracker(net, device):
+def make_tracker(net, device, dtype=None):
+    """The production tracker around a copy of ``net`` on ``device``, its
+    CNN in ``dtype`` (default float32)."""
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
     from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
@@ -437,7 +479,7 @@ def make_tracker(net, device):
         cull_backfaces=cull)
     return trk.Tracker.from_parts(
         copy.deepcopy(net).to(device), cfg, rz.upload(tm, device), K_PROD,
-        np.zeros(8, np.float32), np.full(8, 100.0, np.float32))
+        np.zeros(8, np.float32), np.full(8, 100.0, np.float32), dtype=dtype)
 
 
 def render_case(mesh, pose, K, window, hw, cull, fb=None):
@@ -654,16 +696,18 @@ def pass1_bound(case, hw):
                  OPS_PER_PAIR * int(pix.sum()))
 
 
-def pass2_bound(case):
-    """pass2_shade's bound on an untextured case: iz, win, R and t read,
-    and the distinct attribute rows the hit pixels' winners name; rgb and
-    depth written; OPS_PER_HIT_PIXEL for each hit pixel."""
+def pass2_bound(case, texture=None):
+    """pass2_shade's bound on a case: iz, win, R and t read, and the
+    distinct attribute rows the hit pixels' winners name (and the texture,
+    read once, where there is one); rgb and depth written;
+    OPS_PER_HIT_PIXEL for each hit pixel."""
     from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 
     hit = rk.zmin_from_iz(case["iz"]) < FAR
     return bound(nbytes(case["iz"], case["win"], case["R"], case["t"])
                  + winner_rows_bytes(case["attr"], case["win"], hit)
-                 + case["iz"].numel() * 16,
+                 + case["iz"].numel() * 16
+                 + (0 if texture is None else nbytes(texture)),
                  OPS_PER_HIT_PIXEL * int(hit.sum()))
 
 
@@ -3473,6 +3517,317 @@ def time_datagen(dev, card):
     return shapes
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the accuracy suite (the sensor model, the sweep, the ablation,
+# the long-horizon and live recovery) and the bf16 CNN.
+# ---------------------------------------------------------------------------
+
+
+def check_suite_lighting(ff_production, dev, card):
+    """Phase 11.1: ``pass2_shade`` against its plain version on full
+    480x640 frames at the suite's lighting: the production mesh at the
+    sensor model's x1 and x4 lighting (x4: ambient -0.15, the light at (1.4,
+    -1.5, 1.3), beyond the object, so most lit values fall below 0 and the
+    [0, 1] clamp does the work), and the textured box at
+    ``texture_hostile``'s lighting (depth bit-equal, rgb within 1e-3, as
+    ``check_pass2``); each timed beside its plain version and bound.
+    ``ff_production``: phase 3's full-frame case of the production mesh
+    with K3's outputs. Returns (max error, kernels-line rows)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.eval import domain_shift as DS
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    box = rz.upload(M.make_textured_box(), dev)
+    pose = se3.make_pose(se3.so3_exp(torch.tensor([0.5, 0.3, -0.2])),
+                         torch.tensor([0.01, -0.01, 0.55])).numpy()
+    tex_case = full_frame_case(box, pose)
+    tex_case["iz"], tex_case["win"] = rk.pass1_worklist(
+        tex_case["coef"], tex_case["bbox"], FRAME_HW, tex_case["fb"])
+    cases = [(f"production full frame, suite lighting x{s:g}", ff_production,
+              None, DS.SensorModel().scaled(s)) for s in SUITE_SEVERITIES]
+    cases.append(("textured box full frame, texture_hostile lighting",
+                  tex_case, box.texture, DS.texture_hostile()))
+    err, rows = 0.0, []
+    for name, c, texture, sm in cases:
+        light = sm.lighting(dev)
+        err = max(err, check_pass2(name, c, FRAME_HW, texture=texture,
+                                   lighting=light))
+        args = (c["attr"], c["iz"], c["win"], c["R"], c["t"], FRAME_HW, FAR)
+        kw = {"texture": texture, "lighting": light}
+        r = report_kernel("pass2_shade", f"({name})",
+                          lambda: rk.pass2_shade(*args, **kw),
+                          lambda: rk.pass2_shade_ref(*args, **kw),
+                          pass2_bound(c, texture), card, plain_runs=5)
+        rows.append({"shape": name, "lighting": light.tolist(), **r})
+    return err, rows
+
+
+def shift_close(rgb_a, dep_a, rgb_b, dep_b, quant_mm):
+    """The CPU tests' bars on two shifted videos: (max |rgb difference|,
+    share of depth pixels that differ, whether every differing pixel is one
+    quantization step apart or dropped on one side)."""
+    d_rgb = float((rgb_a - rgb_b).abs().max())
+    diff = dep_a != dep_b
+    step = ((dep_a - dep_b).abs() - quant_mm).abs() <= 1e-5 * quant_mm
+    dropped = (dep_a == 0) | (dep_b == 0)
+    return (d_rgb, float(diff.float().mean()),
+            bool((step | dropped)[diff].all()))
+
+
+def check_shift_video(frames, gt, dev, card):
+    """Phase 11.2: ``shift_video`` on the card against the port's CPU path
+    on the same draws (made on the CPU), over the first SHIFT_CPU_FRAMES
+    frames of phase 5's hard video, at the sensor model's x1 and x4: rgb
+    within 1e-3 (of 255), depth different on at most 0.1% of pixels, each
+    by one quantization step or by dropout (the CPU tests' bars). Then
+    ``shift_video`` of the whole video on the card (its draws made there),
+    ms per frame (CUDA events, median of SHIFT_TIMED_RUNS)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.eval import domain_shift as DS
+
+    n = SHIFT_CPU_FRAMES
+    rgb = torch.from_numpy(frames[0]).to(torch.float32)
+    dep = torch.from_numpy(frames[1].astype(np.float32))
+    draws = DS.draw_sensor_noise(torch.Generator().manual_seed(SEED), n,
+                                 FRAME_HW, "cpu")
+    draws_dev = {k: v.to(dev) for k, v in draws.items()}
+    for s in SUITE_SEVERITIES:
+        sm = DS.SensorModel().scaled(s)
+        t0 = time.perf_counter()
+        rgb_c, dep_c = DS.shift_video(rgb[:n], dep[:n], gt[:n], K_PROD, sm,
+                                      draws=draws)
+        cpu_s = time.perf_counter() - t0
+        rgb_g, dep_g = DS.shift_video(rgb[:n].to(dev), dep[:n].to(dev),
+                                      gt[:n], K_PROD, sm, draws=draws_dev)
+        d_rgb, share, explained = shift_close(rgb_g.cpu(), dep_g.cpu(), rgb_c,
+                                              dep_c, sm.depth_quant_mm)
+        print(f"shift_video x{s:g} card vs plain CPU path, {n} frames of "
+              f"phase 5's video at {FRAME_HW[0]}x{FRAME_HW[1]}: rgb max|d| "
+              f"{d_rgb:.3e}, depth differs on {share:.2e} of pixels "
+              f"(each a quantization step or dropout: {explained}); valid "
+              f"depth {float((dep_g > 0).float().mean()):.4f} of pixels "
+              f"(CPU path {cpu_s:.1f} s)", flush=True)
+        if not (d_rgb <= 1e-3 and share <= 1e-3 and explained):
+            raise AssertionError(f"shift_video x{s:g}: card and CPU disagree")
+    rgb_d, dep_d = rgb.to(dev), dep.to(dev)
+    T = rgb_d.shape[0]
+    for s in SUITE_SEVERITIES:
+        sm = DS.SensorModel().scaled(s)
+        ms = cuda_ms(lambda: DS.shift_video(rgb_d, dep_d, gt, K_PROD, sm,
+                                            seed=SEED),
+                     runs=SHIFT_TIMED_RUNS, warmup=1)
+        print(f"timing shift_video x{s:g}: {ms / T:.4f} ms per frame at "
+              f"{FRAME_HW[0]}x{FRAME_HW[1]} ({T} frames in one batch, draws "
+              f"made on the card; CUDA events, median of {SHIFT_TIMED_RUNS}) "
+              f"{card}", flush=True)
+
+
+def suite_launches_predicted(tracked_with_health):
+    """The kernels' launches the reduced ``run_suite`` of phase 11 makes,
+    from the code, for one untextured object on the hard video (object and
+    occluder rendered a frame, each through K3 and ``pass2_shade``):
+    training, one K1 + one ``pass2_shade`` per sampled batch (4 for the
+    mean/std pass, one a step); ``evaluate_tracking`` one K1 + one
+    ``pass2_shade`` a tracked frame (F - 1); videos: the matched one, the
+    shifted one, one per sweep severity, two for the ablation (its seven
+    rows share the renders of two lightings), the long horizon's (L
+    frames); the long-horizon protocol and its recovery 2 + 2 a frame they
+    track (the step and the health's render; ``tracked_with_health``, the
+    frames of every ``track_video_with_health`` call: a chunk is tracked
+    whole, and the frames after a fire are tracked again); the live
+    recovery 2 + 2 a push (samples 4), L - 1 pushes; K2 never."""
+    F, L, n_s = SUITE_FRAMES, SUITE_LONG, len(SUITE_SWEEP)
+    train = 4 + SUITE_STEPS
+    evals = 2 + n_s + 7  # matched, shifted, sweep, ablation rows
+    videos = 2 + n_s + 2  # matched, shifted, sweep, ablation's two
+    tracked = 2 * tracked_with_health + 2 * (L - 1)
+    return {"raster_pass1": train + evals * (F - 1) + tracked,
+            "gather_rows": 0,
+            "raster_pass1_worklist": 2 * F * videos + 2 * L,
+            "pass2_shade": (train + evals * (F - 1) + 2 * F * videos
+                            + 2 * L + tracked)}
+
+
+def run_suite_reduced(dev, card):
+    """Phase 11.3: ``run_suite`` cut to size on the card: the production
+    mesh as the object, SUITE_STEPS train steps at batch SUITE_BATCH,
+    SUITE_FRAMES hard frames, the domain-shifted table, the sweep
+    SUITE_SWEEP, the ablation, a SUITE_LONG-frame long horizon with its
+    recovery and the live recovery (paced at 30 Hz, its default). Every AUC
+    must be
+    finite, the live row must say ``recovered`` and hold no nan, and each
+    kernel's launches (zeroed just before, read just after) must be what
+    ``suite_launches_predicted`` derives. Returns the launches."""
+    from iros20_6d_pose_tracking_tpu_torch.eval import domain_shift as DS
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+
+    lengths = []
+    orig = DS.hy.track_video_with_health
+
+    def counted(*a, **kw):
+        lengths.append(int(a[7].shape[0]))  # frames_rgb
+        return orig(*a, **kw)
+
+    SB.OBJECTS["production"] = lambda: production_mesh()[0]
+    DS.hy.track_video_with_health = counted
+    try:
+        t0 = time.perf_counter()
+        zero_launches()
+        results = SB.run_suite(
+            ("production",), steps=SUITE_STEPS, frames=SUITE_FRAMES,
+            batch=SUITE_BATCH, domain_shift=True,
+            long_horizon_frames=SUITE_LONG, shift_sweep=SUITE_SWEEP,
+            sweep_objects=("production",), recovery_objects=("production",),
+            live_recovery_objects=("production",),
+            ablation_objects=("production",), K=K_PROD, hw=FRAME_HW,
+            log=lambda *a: print("suite:", *a, flush=True), device=dev)
+        launches = read_launches()
+        secs = time.perf_counter() - t0
+    finally:
+        del SB.OBJECTS["production"]
+        DS.hy.track_video_with_health = orig
+    want = suite_launches_predicted(sum(lengths))
+    for k in launches:
+        print(f"suite launches {k}: {launches[k]} (predicted {want[k]})")
+    print(f"suite: track_video_with_health tracked {sum(lengths)} frames in "
+          f"{len(lengths)} chunks; run_suite took {secs:.1f} s on the card "
+          f"{card}", flush=True)
+    if launches != want:
+        raise AssertionError(f"suite launch counts {launches} != {want}")
+    r = results[0]
+    aucs = [r["add_auc"], r["adi_auc"], r["domain_shifted"]["add_auc"]]
+    aucs += [p["add_auc"] for p in r["shift_sweep"] + r["shift_ablation"]]
+    aucs += [r[k][a] for k in ("long_horizon", "recovery", "live_recovery")
+             for a in ("add_auc", "adi_auc")]
+    live = r["live_recovery"]
+    print(f"suite: ADD AUC {r['add_auc']:.2f}, shifted "
+          f"{r['domain_shifted']['add_auc']:.2f}, sweep "
+          f"{[round(p['add_auc'], 2) for p in r['shift_sweep']]}, ablation "
+          f"{[round(p['add_auc'], 2) for p in r['shift_ablation']]}, long "
+          f"horizon {r['long_horizon']['add_auc']:.2f} (re-inits "
+          f"{r['long_horizon']['reinit_frames']}), recovery "
+          f"{SB.recovery_auc_text(r['recovery'])}, live "
+          f"{SB.recovery_auc_text(live)} (random weights, {SUITE_STEPS} "
+          "steps: a smoke run, not an accuracy)", flush=True)
+    if not np.isfinite(aucs).all():
+        raise AssertionError(f"suite AUCs not finite: {aucs}")
+    floats = [v for v in live.values() if isinstance(v, float)]
+    if "recovered" not in live or not np.isfinite(floats).all():
+        raise AssertionError(f"live recovery row: {live}")
+    return launches
+
+
+def check_bf16(net, tracker, pose0, rgb, depth, card):
+    """Phase 11.4, the bf16 CNN on the card with phase 4's weights and
+    frames: one bf16 step against the float32 step under JAX's bars (1 mm,
+    5e-3 on the rotation matrix); the drift of a BF16_VIDEO_FRAMES-frame
+    bf16 ``track_video`` from the float32 one (printed, ROADMAP F1); the
+    card's
+    bf16 path against the CPU's bf16 path over BF16_CPU_FRAMES frames
+    (BF16_CPU_BAR_M, BF16_CPU_BAR_RAD); ``track_video`` Hz bf16 and float32
+    in turns; batch-200 ``train_step_synth`` samples/s bf16 and float32 in
+    turns (TF32 off)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    dev, bf16 = tracker.device, torch.bfloat16
+    t16 = make_tracker(net, dev, bf16)
+    args = (torch.as_tensor(pose0).to(dev), trk.upload_rgb(rgb, dev),
+            trk.upload_depth(depth, dev))
+    steps = {}
+    for name, t in (("float32", tracker), ("bf16", t16)):
+        p, _ = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+                              *args)
+        steps[name] = p.cpu().numpy()
+    dt = float(np.linalg.norm(steps["bf16"][:3, 3] - steps["float32"][:3, 3]))
+    dr = float(np.abs(steps["bf16"][:3, :3] - steps["float32"][:3, :3]).max())
+    print(f"bf16 step vs float32 step on the card: |dt| {dt:.3e} m, max "
+          f"|dR| {dr:.3e} (bars 1e-3, 5e-3)", flush=True)
+    if not (dt < 1e-3 and dr < 5e-3):
+        raise AssertionError("bf16 step disagrees with the float32 step")
+    n = BF16_VIDEO_FRAMES
+    rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
+    v32 = tracker.track_video(pose0, rgbs, depths)
+    v16 = t16.track_video(pose0, rgbs, depths)
+    drift_t = np.linalg.norm(v16[:, :3, 3] - v32[:, :3, 3], axis=-1)
+    drift_r = [rot_angle(a[:3, :3], b[:3, :3]) for a, b in zip(v16, v32)]
+    print(f"bf16 drift from float32 over {n} track_video frames: max "
+          f"translation {drift_t.max():.4e} m (frame "
+          f"{int(drift_t.argmax())}), last {drift_t[-1]:.4e} m; max angle "
+          f"{max(drift_r):.4e} rad, last {drift_r[-1]:.4e} rad", flush=True)
+    if not np.isfinite(v16).all():
+        raise AssertionError("bf16 poses not finite")
+    m = BF16_CPU_FRAMES
+    t0 = time.perf_counter()
+    c16 = make_tracker(net, "cpu", bf16).track_video(pose0, rgbs[:m],
+                                                     depths[:m])
+    dt = float(np.abs(c16[:, :3, 3] - v16[:m, :3, 3]).max())
+    dr = max(rot_angle(a[:3, :3], b[:3, :3]) for a, b in zip(c16, v16[:m]))
+    print(f"bf16 card vs plain CPU bf16 path, {m} frames: max |dt| "
+          f"{dt:.3e} m, max rotation {dr:.3e} rad (bars {BF16_CPU_BAR_M}, "
+          f"{BF16_CPU_BAR_RAD}; {time.perf_counter() - t0:.1f} s)",
+          flush=True)
+    if dt > BF16_CPU_BAR_M or dr > BF16_CPU_BAR_RAD:
+        raise AssertionError("bf16 card and CPU trajectories disagree")
+    hz = {}
+    for name in ("float32", "bf16", "bf16", "float32"):
+        t = tracker if name == "float32" else t16
+        t.track_video(pose0, rgbs[:3], depths[:3])  # warm
+        t0 = time.perf_counter()
+        t.track_video(pose0, rgbs, depths)
+        hz.setdefault(name, []).append(n / (time.perf_counter() - t0))
+    print(f"timing track_video in turns ({n} frames each): float32 "
+          f"{[round(h, 2) for h in hz['float32']]} Hz, bf16 "
+          f"{[round(h, 2) for h in hz['bf16']]} Hz {card}", flush=True)
+    _, synth, cfg = train_setup(dev)
+    mean = torch.zeros(8, device=dev)
+    std = torch.full((8,), 100.0, device=dev)
+    models = {}
+    for name, dtype in (("float32", torch.float32), ("bf16", bf16)):
+        model = tracknet.init_params(
+            tracknet.Se3TrackNet(image_size=RES, dtype=dtype).to(dev),
+            torch.Generator().manual_seed(SEED))
+        models[name] = (model, *tr.make_optimizer(model, cfg, 1000))
+    rate, losses = {}, {}
+    for turn, name in enumerate(("float32", "bf16", "bf16", "float32")):
+        model, opt, lr_at = models[name]
+        ms = []
+        for i in range(BF16_TRAIN_STEPS + (1 if turn < 2 else 0)):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            mt = tr.train_step_synth(model, opt, lr_at(i), cfg, synth,
+                                     tr.step_generator(dev, 7, i),
+                                     tr.step_generator(dev, 7, 10**6 + i),
+                                     mean, std)
+            end.record()
+            end.synchronize()
+            ms.append(start.elapsed_time(end))
+            losses.setdefault(name, []).append(float(mt["loss"]))
+        ms = ms[1:] if turn < 2 else ms  # the first turn's first step warms
+        rate.setdefault(name, []).append(
+            cfg.batch_size / float(np.median(ms)) * 1e3)
+    print(f"timing train_step_synth in turns (batch {cfg.batch_size}, "
+          f"{RES}^2, {BF16_TRAIN_STEPS} steps a turn, CUDA events, median): "
+          f"float32 {[round(r, 2) for r in rate['float32']]} samples/s, bf16 "
+          f"{[round(r, 2) for r in rate['bf16']]} samples/s (TF32 off) "
+          f"{card}", flush=True)
+    state16 = models["bf16"][0].state_dict().values()
+    if not (np.isfinite(losses["bf16"]).all()
+            and all(v.dtype in (torch.float32, torch.int64)
+                    for v in state16)):
+        raise AssertionError("bf16 training: losses not finite, or state "
+                             "not float32")
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -3766,6 +4121,25 @@ def main() -> int:
     print(f"adaptive and datagen phase: {time.perf_counter() - t10:.1f} s",
           flush=True)
 
+    # 11. The accuracy suite and the bf16 CNN: pass2_shade at the suite's
+    # lighting on full frames, shift_video card against CPU and its time, a
+    # reduced run_suite with its launches predicted, and bf16 tracking and
+    # training against float32.
+    t11 = time.perf_counter()
+    print(f"accuracy suite and bf16: the sensor model at x"
+          f"{' and x'.join(f'{s:g}' for s in SUITE_SEVERITIES)}, run_suite "
+          f"on the production mesh ({SUITE_STEPS} steps at batch "
+          f"{SUITE_BATCH}, {SUITE_FRAMES} frames, a {SUITE_LONG}-frame long "
+          f"horizon) at {FRAME_HW[0]}x{FRAME_HW[1]}, the bf16 CNN at "
+          f"{RES}^2", flush=True)
+    e3, suite_rows = check_suite_lighting(ff_cases["production"], dev, card)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
+    check_shift_video(frames, gt, dev, card)
+    by_path["accuracy suite"] = run_suite_reduced(dev, card)
+    check_bf16(net, tracker, pose0, rgb, depth, card)
+    print(f"accuracy suite and bf16 phase: {time.perf_counter() - t11:.1f} s",
+          flush=True)
+
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -3781,7 +4155,10 @@ def main() -> int:
          **({"datagen_shapes": [
              {k: v for k, v in r.items() if k not in ("kernel", "library_ms")}
              for r in datagen_shapes if r["kernel"] == name]}
-            if any(r["kernel"] == name for r in datagen_shapes) else {})}
+            if any(r["kernel"] == name for r in datagen_shapes) else {}),
+         **({"suite_lighting": [
+             {k: v for k, v in r.items() if k != "library_ms"}
+             for r in suite_rows]} if name == "pass2_shade" else {})}
         for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

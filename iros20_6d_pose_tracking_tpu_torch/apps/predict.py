@@ -36,10 +36,10 @@ Execution paths:
                         and the stream, probed on the video and the fastest
                         kept; scan's poses, and the telemetry printed.
 
-Not ported yet, raising NotImplementedError (ROADMAP.md): ``--bf16`` (item
-8). Frame chunks (scan, stream, adaptive) decode with the native libpng
-loader (``native/dataload.py``) where it builds, else with Pillow; the first
-decode prints which.
+``--bf16`` runs the CNN in bfloat16 (float32 parameters;
+``models/tracknet.py``). Frame chunks (scan, stream, adaptive) decode with
+the native libpng loader (``native/dataload.py``) where it builds, else with
+Pillow; the first decode prints which.
 
 Outputs per-frame 4x4 pose txts in the layouts the scoring CLIs read;
 optional mp4 + projected-point overlays + render|crop canvases (reference
@@ -55,9 +55,6 @@ import glob
 import os
 
 import numpy as np
-
-_NOT_PORTED = "not ported to PyTorch yet; see ROADMAP.md"
-
 
 def _load_rgb(path):
     from PIL import Image
@@ -114,12 +111,16 @@ def _batch_src(files, kind):
 
 def _make_tracker(dataset_info, mean, std, args, trans_normalizer=0.03,
                   rot_normalizer=5 * np.pi / 180):
+    import torch
+
     from ..tracking.tracker import Tracker
 
     return Tracker(dataset_info, mean, std, ckpt_dir=args.ckpt_dir,
                    model_path=args.model_path,
                    trans_normalizer=trans_normalizer,
-                   rot_normalizer=rot_normalizer, device=args.device)
+                   rot_normalizer=rot_normalizer,
+                   dtype=torch.bfloat16 if args.bf16 else torch.float32,
+                   device=args.device)
 
 
 def _track_files(tracker, rgb_files, depth_files, init_pose, args, start=0,
@@ -542,25 +543,17 @@ def build_parser():
                         help="save render|crop ROI canvases here "
                              "(reference predict.py:284-291)")
     parser.add_argument("--bf16", action="store_true",
-                        help="bf16 CNN (not ported yet)")
+                        help="run the CNN in bfloat16 (float32 weights)")
     parser.add_argument("--device", default="cuda",
                         help="torch device of the tracker and the scorer "
                              "(cuda, or cpu for the kernels' plain versions)")
     return parser
 
 
-def _refuse_unported(args):
-    """The JAX CLI's options the port does not have yet raise, naming the
-    ROADMAP.md item that holds them."""
-    if args.bf16:
-        raise NotImplementedError(f"--bf16: {_NOT_PORTED} (item 8)")
-
-
 def main(argv=None):
     import yaml
 
     args = build_parser().parse_args(argv)
-    _refuse_unported(args)
     with open(os.path.join(args.train_data_path, "..",
                            "dataset_info.yml")) as f:
         dataset_info = yaml.safe_load(f)

@@ -17,8 +17,9 @@ Beyond the reference: ``--resume`` continues from ``checkpoint_last.pt``
 (optimizer state included); ``--synthetic`` trains from the pair renderer
 (``data.dataset.SyntheticPairs``) on the device instead of files, ``--dr``
 adds its randomized scenes. Everything runs on ``--device`` (default
-``cuda``); there is no fallback to another device. ``--bf16`` is not
-ported yet and raises.
+``cuda``); there is no fallback to another device. ``--bf16`` runs the
+network's activations in bfloat16; the parameters, Adam's state, BatchNorm's
+statistics and the loss stay float32.
 """
 from __future__ import annotations
 
@@ -57,15 +58,13 @@ def main(argv=None):
                         help="mesh for --synthetic mode")
     parser.add_argument("--epochs", type=int, default=None)
     parser.add_argument("--device", default="cuda")
-    parser.add_argument("--bf16", action="store_true")
+    parser.add_argument("--bf16", action="store_true",
+                        help="bfloat16 activations (float32 parameters)")
     args = parser.parse_args(argv)
     if args.dr and not args.synthetic:
         parser.error("--dr requires --synthetic (DR compositing happens in "
                      "the pair sampler; disk datasets carry their own "
                      "backgrounds)")
-    if args.bf16:
-        raise NotImplementedError("--bf16: bfloat16 training is not ported "
-                                  "to PyTorch yet; see ROADMAP.md")
     device = torch.device(args.device)
 
     with open(args.config) as f:
@@ -143,8 +142,10 @@ def main(argv=None):
         print("images_std", std)
 
     # -- pass 2: train ----------------------------------------------------
-    trainer = tr.Trainer(tracknet.Se3TrackNet(image_size=res), cfg,
-                         output_path, steps_per_epoch, mean, std, device)
+    model = tracknet.Se3TrackNet(
+        image_size=res, dtype=torch.bfloat16 if args.bf16 else torch.float32)
+    trainer = tr.Trainer(model, cfg, output_path, steps_per_epoch, mean, std,
+                         device)
     if args.resume:
         last = ck.latest_checkpoint(output_path)
         if last:

@@ -18,13 +18,23 @@ pair sampler (``data/dataset.py``) with ``train/trainer.py``, checkpointing
 and resuming by recipe fingerprint; :func:`hard_aug` is the augmentation
 stack of DR training.
 
+The accuracy suite: :func:`shift_severity_sweep` (the tracker under the
+sensor model of ``eval/domain_shift.py`` scaled to each severity, plus a
+texture-hostile row for textured objects), :func:`shift_axis_ablation`
+(one shift axis at a time) and :func:`run_suite` (train, track and score
+each object, with the domain-shifted table, the sweep, the ablation, the
+long-horizon protocol and its forced-failure recovery offline and live).
+The suite always renders full frames through K3; the JAX module's ``impl``
+has no counterpart.
+
 Everything runs on the device of the object's mesh. Not ported yet, and
 raising ``NotImplementedError``: the object ensemble
-(``train_objects_ensemble``, ``ensemble_evaluate_tracking``; ROADMAP.md
-P17), and the shift sweeps and ``run_suite`` (P16).
+(``train_objects_ensemble``, ``ensemble_evaluate_tracking``, and
+``run_suite(ensemble=True)``; ROADMAP.md P17).
 """
 from __future__ import annotations
 
+import dataclasses
 import hashlib
 import os
 import time
@@ -43,6 +53,7 @@ from ..render import rasterizer as rz
 from ..tracking import tracker as trk
 from ..train import checkpoint as ck
 from ..train import trainer as tr
+from . import domain_shift as DS
 from . import metrics as ME
 
 # YCB-Video camera intrinsics (reference dataset_info.yml camera block).
@@ -237,18 +248,6 @@ def ensemble_evaluate_tracking(*args, **kwargs):
         f"ensemble_evaluate_tracking: {_NOT_PORTED} (P17)")
 
 
-def shift_severity_sweep(*args, **kwargs):
-    raise NotImplementedError(f"shift_severity_sweep: {_NOT_PORTED} (P16)")
-
-
-def shift_axis_ablation(*args, **kwargs):
-    raise NotImplementedError(f"shift_axis_ablation: {_NOT_PORTED} (P16)")
-
-
-def run_suite(*args, **kwargs):
-    raise NotImplementedError(f"run_suite: {_NOT_PORTED} (P16, P17)")
-
-
 def make_gt_trajectory(T: int, seed: int = 5,
                        z0: float = 0.6) -> np.ndarray:
     """(T, 4, 4) smooth random-walk camera-frame trajectory: 6 deg/frame
@@ -422,3 +421,263 @@ def evaluate_tracking(obj: BenchObject, gt: np.ndarray, frames_rgb,
         trk.upload_depth(frames_depth[1:], dev))
     poses = np.concatenate([gt[:1], poses.cpu().numpy()], axis=0)
     return _score_poses(obj, gt, poses)
+
+
+def _init_pose_np(draws_seed: int, pose, sensor) -> np.ndarray:
+    """A noisy initialization of ``pose`` (``domain_shift.noisy_init_pose``)
+    drawn from a CPU generator seeded ``draws_seed``: the same on every
+    device. (The JAX module draws from ``PRNGKey(draws_seed)``; F7.)"""
+    return DS.noisy_init_pose(torch.Generator().manual_seed(draws_seed), pose,
+                              sensor).numpy()
+
+
+def _shifted_eval(obj: BenchObject, gt, rgb, dep, sm, video_seed: int,
+                  init_seed: int, K) -> dict:
+    """``evaluate_tracking`` of a rendered video through the sensor model
+    ``sm`` (noise drawn on the video's device from ``video_seed``),
+    quantized, from a noisy initialization drawn from ``init_seed``."""
+    rgb_s, dep_s = _quantize(*DS.shift_video(rgb, dep, gt, K, sm,
+                                             seed=video_seed))
+    return evaluate_tracking(obj, gt, rgb_s, dep_s, K=K,
+                             init_pose=_init_pose_np(init_seed, gt[0], sm))
+
+
+def shift_severity_sweep(obj: BenchObject, gt: np.ndarray, *,
+                         hard: bool = True,
+                         severities=(0.5, 1.0, 2.0, 4.0),
+                         sensor=None, seed: int = 0, K=YCB_K,
+                         hw=(480, 640), log=_print_flush) -> list[dict]:
+    """AUC against severity: the tracker under the sensor model scaled to
+    each severity (``domain_shift.SensorModel.scaled``). Each severity
+    renders the observed video again (its lighting moves with s), shifts it
+    (noise seeded 2000 + seed + 100 s) and draws a noisy initialization of
+    the scaled size (seed 700 + seed + 100 s). Textured objects get one more
+    row, ``"tex_hostile"`` (``domain_shift.texture_hostile``, seeds + 9999):
+    the shift that attacks the UV appearance cue."""
+    base = sensor if sensor is not None else DS.SensorModel()
+    points = [(float(s), base.scaled(float(s))) for s in severities]
+    if obj.tm.texture is not None:
+        points.append(("tex_hostile", DS.texture_hostile(base)))
+    dev = obj.mesh.fverts.device
+    rows = []
+    for tag, sm in points:
+        rgb, dep = render_test_video(obj.mesh, gt, K=K, hw=hw, hard=hard,
+                                     lighting=sm.lighting(dev))
+        sd = seed + (int(tag * 100) if isinstance(tag, float) else 9999)
+        r = _shifted_eval(obj, gt, rgb, dep, sm, 2000 + sd, 700 + sd, K)
+        rows.append({
+            "severity": tag,
+            "add_auc": r["add_auc"],
+            "adi_auc": r["adi_auc"],
+            "add_mean_mm": r["add_mean_mm"],
+            "final_trans_err_mm": r["final_trans_err_mm"],
+        })
+        log(f"[{obj.name}] shift x{tag}: ADD AUC {r['add_auc']:.2f} "
+            f"ADD-S {r['adi_auc']:.2f} mean {r['add_mean_mm']:.1f}mm")
+    return rows
+
+
+SHIFT_AXES = {
+    "lighting": ("ambient", "diffuse", "light_cam"),
+    "photometric": ("exposure_amp", "wb_amp", "gamma", "rgb_noise_std",
+                    "wb_const"),
+    "blur": ("motion_blur_px",),
+    "depth": ("depth_quant_mm", "edge_dropout_prob", "depth_warp_amp",
+              "depth_noise_mm", "dropout_prob"),
+    "init": ("init_trans_m", "init_rot_deg"),
+}
+
+
+def shift_axis_ablation(obj: BenchObject, gt: np.ndarray, *,
+                        severity: float = 2.0, hard: bool = True,
+                        sensor=None, seed: int = 0, K=YCB_K, hw=(480, 640),
+                        log=_print_flush) -> list[dict]:
+    """Which shift axis kills tracking at ``severity``: the tracker under
+    single-axis sensor models, every field at its nominal (severity 0) value
+    but one axis group (:data:`SHIFT_AXES`) at the full severity, anchored
+    by ``"none"`` (all nominal) and ``"full"`` (all at severity). Only the
+    lighting changes the render, so renders are cached by lighting. Noise
+    seeded 3000 + seed, the initialization 800 + seed."""
+    base = sensor if sensor is not None else DS.SensorModel()
+    full = base.scaled(float(severity))
+    nominal = base.scaled(0.0)
+    axes = ([("none", ())] + list(SHIFT_AXES.items())
+            + [("full", tuple(x for f in SHIFT_AXES.values() for x in f))])
+    dev = obj.mesh.fverts.device
+    render_cache = {}
+    rows = []
+    for name, fields in axes:
+        sm = dataclasses.replace(
+            nominal, **{f: getattr(full, f) for f in fields})
+        lkey = tuple(sm.lighting().tolist())
+        if lkey not in render_cache:
+            render_cache[lkey] = render_test_video(
+                obj.mesh, gt, K=K, hw=hw, hard=hard,
+                lighting=sm.lighting(dev))
+        rgb, dep = render_cache[lkey]
+        r = _shifted_eval(obj, gt, rgb, dep, sm, 3000 + seed, 800 + seed, K)
+        rows.append({
+            "axis": name,
+            "severity": float(severity),
+            "add_auc": r["add_auc"],
+            "adi_auc": r["adi_auc"],
+            "add_mean_mm": r["add_mean_mm"],
+        })
+        log(f"[{obj.name}] shift-ablation x{severity} {name}: "
+            f"ADD AUC {r['add_auc']:.2f} mean {r['add_mean_mm']:.1f}mm")
+    return rows
+
+
+def recovery_auc_text(row: dict) -> str:
+    """A recovery row's post-recovery ADD AUC for a log line, or "not
+    recovered" (never ``nan``)."""
+    if not row["recovered"]:
+        return "not recovered"
+    return f"post-recovery ADD AUC {row['post_recovery_add_auc']:.2f}"
+
+
+def run_suite(
+    object_names=("cube", "box", "lshape", "icosahedron"),
+    *,
+    steps: int = 5_000,
+    frames: int = 120,
+    batch: int = 200,
+    res: int = 176,
+    hard: bool = True,
+    log=_print_flush,
+    on_result=None,
+    ensemble: bool = False,
+    ensemble_ckpt_dir: str | None = None,
+    domain_shift: bool = False,
+    shift_sensor=None,
+    long_horizon_frames: int = 0,
+    shift_sweep=(),
+    sweep_objects=("cube", "lshape", "textured_box"),
+    recovery_objects=(),
+    live_recovery_objects=(),
+    ablation_objects=(),
+    K=YCB_K,
+    hw=(480, 640),
+    device="cuda",
+) -> list[dict]:
+    """Train, track and score each object on ``device``: the accuracy table,
+    one dict per object (the JAX ``run_suite``'s keys; ``eval_path`` is
+    always ``"sequential"``).
+
+    Defaults are the measured recipe: batch 200 for 5,000 steps, 1M DR
+    pairs an object. ``ensemble_ckpt_dir`` is ``train_object``'s checkpoint
+    directory (each object resumes from its own file). ``domain_shift``:
+    also score each object on a shifted video (other lighting, photometric
+    drift, sensor-model depth, motion blur, noisy initialization;
+    ``eval/domain_shift.py``) -> ``domain_shifted``.
+    ``long_horizon_frames`` > 0: the closed-loop long-horizon protocol on
+    every object -> ``long_horizon``; on ``recovery_objects`` also with a
+    forced 15-frame occlusion burst a third of the way in -> ``recovery``,
+    and on ``live_recovery_objects`` the same burst through the live path
+    -> ``live_recovery``. ``shift_sweep``: severities of the sweep on
+    ``sweep_objects`` -> ``shift_sweep``. ``ablation_objects``: the x2
+    single-axis ablation -> ``shift_ablation``. ``on_result(rows)`` is
+    called after every object (incremental persistence).
+
+    Beyond the JAX signature: ``K`` and ``hw``, the camera and frame size
+    of every test video (the JAX suite fixes YCB's), and ``device``.
+    ``ensemble=True`` raises ``NotImplementedError`` (ROADMAP P17) before
+    any training."""
+    unknown = [n for n in object_names if n not in OBJECTS]
+    if unknown:  # fail before hours of training, not at the bad name
+        raise KeyError(
+            f"unknown object(s) {unknown}; available: {sorted(OBJECTS)}")
+    if ensemble:
+        raise NotImplementedError(
+            f"run_suite(ensemble=True): {_NOT_PORTED} (P17)")
+    dr = DRComposite() if hard else None
+    aug = hard_aug() if hard else None
+    sensor = shift_sensor if shift_sensor is not None else DS.SensorModel()
+    gt = make_gt_trajectory(frames)
+
+    results = []
+    for idx, name in enumerate(object_names):
+        obj = train_object(
+            OBJECTS[name](), K, name=name, steps=steps, batch=batch, res=res,
+            dr=dr, aug=aug, seed_offset=idx, log=log,
+            ckpt_dir=ensemble_ckpt_dir, device=device)
+        dev = obj.mesh.fverts.device
+        frames_rgb, frames_depth = _quantize(*render_test_video(
+            obj.mesh, gt, K, hw=hw, hard=hard))
+        r = evaluate_tracking(obj, gt, frames_rgb, frames_depth, K=K)
+        r["eval_path"] = "sequential"
+        r["train_secs"] = obj.train_secs
+        r["symmetric"] = name in SYMMETRIC_OBJECTS
+        r.pop("poses")
+        # JSON-serializable per-frame curves
+        r["add"] = [float(v) for v in r["add"]]
+        r["adi"] = [float(v) for v in r["adi"]]
+        log(f"[{name}] ADD AUC {r['add_auc']:.2f} "
+            f"ADD-S AUC {r['adi_auc']:.2f} "
+            f"mean {r['add_mean_mm']:.1f}mm "
+            f"(hold-init {r['baseline_add_mean_mm']:.1f}mm)")
+        if domain_shift:
+            rgb2, dep2 = render_test_video(obj.mesh, gt, K, hw=hw, hard=hard,
+                                           lighting=sensor.lighting(dev))
+            rs = _shifted_eval(obj, gt, rgb2, dep2, sensor, 100 + idx,
+                               500 + idx, K)
+            r["domain_shifted"] = {
+                k: rs[k] for k in (
+                    "add_auc", "adi_auc", "add_mean_mm", "add_max_mm",
+                    "final_trans_err_mm")
+            }
+            r["domain_shifted"]["eval_path"] = "sequential"
+            log(f"[{name}] domain-shifted: "
+                f"ADD AUC {rs['add_auc']:.2f} "
+                f"ADD-S AUC {rs['adi_auc']:.2f} "
+                f"mean {rs['add_mean_mm']:.1f}mm (noisy init, shifted "
+                f"lighting/sensor)")
+        if shift_sweep and name in sweep_objects:
+            r["shift_sweep"] = shift_severity_sweep(
+                obj, gt, hard=hard, severities=shift_sweep, sensor=sensor,
+                seed=idx, K=K, hw=hw, log=log)
+        if name in ablation_objects:
+            r["shift_ablation"] = shift_axis_ablation(
+                obj, gt, severity=2.0, hard=hard, sensor=sensor, seed=idx,
+                K=K, hw=hw, log=log)
+        if long_horizon_frames:
+            gt_lh = make_gt_trajectory(long_horizon_frames, seed=17)
+            rgb_lh, dep_lh = render_test_video(
+                obj.mesh, gt_lh, K, hw=hw, hard=hard,
+                lighting=sensor.lighting(dev) if domain_shift else None)
+            if domain_shift:
+                rgb_lh, dep_lh = DS.shift_video(rgb_lh, dep_lh, gt_lh, K,
+                                                sensor, seed=777)
+            rgb_lh, dep_lh = _quantize(rgb_lh, dep_lh)
+            lh = r["long_horizon"] = DS.long_horizon_eval(
+                obj, gt_lh, rgb_lh, dep_lh, K, reinit_sensor=sensor)
+            log(f"[{name}] long-horizon {lh['frames']}fr: "
+                f"ADD AUC {lh['add_auc']:.2f} "
+                f"reinit x{lh['reinit_count']}")
+            if name in recovery_objects:
+                # a forced 15-frame full-occlusion burst a third of the way
+                # in: detection latency and post-recovery AUC
+                rc = r["recovery"] = DS.long_horizon_eval(
+                    obj, gt_lh, rgb_lh, dep_lh, K, reinit_sensor=sensor,
+                    fail_at=long_horizon_frames // 3, fail_len=15)
+                log(f"[{name}] recovery (occlusion burst @"
+                    f"{rc['fail_at']}+{rc['fail_len']}): detected in "
+                    f"{rc['detection_latency']} frames, recovered at "
+                    f"{rc['recovered_at']}, {recovery_auc_text(rc)}, "
+                    f"reinit x{rc['reinit_count']}")
+            if name in live_recovery_objects:
+                # the same burst through the live path: latency quantized
+                # by patience x refetch_every + the fetch's round trip
+                lv = r["live_recovery"] = DS.live_recovery_eval(
+                    obj, gt_lh, rgb_lh, dep_lh, K, reinit_sensor=sensor,
+                    fail_at=long_horizon_frames // 3, fail_len=15)
+                log(f"[{name}] LIVE recovery (burst @{lv['fail_at']}+"
+                    f"{lv['fail_len']}, samples={lv['samples']}, "
+                    f"refetch_every={lv['refetch_every']}): detected in "
+                    f"{lv['detection_latency']} frames, reinit applied "
+                    f"at {lv['reinit_applied_at']}, "
+                    f"{recovery_auc_text(lv)}")
+        results.append(r)
+        if on_result is not None:  # incremental persistence for long runs
+            on_result(list(results))
+    return results

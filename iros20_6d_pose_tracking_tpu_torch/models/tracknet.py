@@ -22,7 +22,16 @@ initialisers, so a freshly initialised network is the JAX trainer's.
 
 The public ``forward(A, B)`` takes NHWC ``(N, H, W, 4)`` like the JAX model
 and returns ``{"feature" (N, H/8, W/8, 256) NHWC, "trans" (N, 3),
-"rot" (N, 3)}``; inside, the convolutions run NCHW. float32 only for now.
+"rot" (N, 3)}``; inside, the convolutions run NCHW.
+
+``dtype`` is the activations' type, the Flax model's ``dtype``: float32, or
+bfloat16 with the parameters and BatchNorm's running statistics kept
+float32 (the JAX package's TPU precision). In bfloat16 the convolutions and
+the heads' Linear run on bfloat16 copies of the weights, the bias added in
+the same call (one rounding; Flax adds it as a second bfloat16 op);
+BatchNorm computes in float32 and rounds to bfloat16 once, as Flax's
+``_normalize`` does; SELU, ReLU, max-pool and the spatial mean run in
+bfloat16; ``trans`` and ``rot`` come out float32, ``feature`` bfloat16.
 """
 from __future__ import annotations
 
@@ -47,17 +56,36 @@ class BatchNorm2d(nn.BatchNorm2d):
     reference checkpoints load with ``strict=True``."""
 
     def forward(self, x):
+        # A bfloat16 x is normalized in float32 against the float32
+        # statistics and parameters, and rounded to bfloat16 once.
         if not self.training:
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x, dim=(0, 2, 3), correction=0)
+            var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
+                                       correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+
+class Conv2d(nn.Conv2d):
+    """``nn.Conv2d`` in the input's type: float32 parameters, used as
+    bfloat16 copies on a bfloat16 input."""
+
+    def forward(self, x):
+        return self._conv_forward(x, self.weight.to(x.dtype),
+                                  self.bias.to(x.dtype))
+
+
+class Linear(nn.Linear):
+    """``nn.Linear`` in the input's type, as :class:`Conv2d`."""
+
+    def forward(self, x):
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
 
 
 class ConvBNSELU(nn.Sequential):
@@ -68,7 +96,7 @@ class ConvBNSELU(nn.Sequential):
                  stride: int = 1):
         p = (kernel_size - 1) // 2
         super().__init__(
-            nn.Conv2d(cin, cout, kernel_size, stride, p, bias=True),
+            Conv2d(cin, cout, kernel_size, stride, p, bias=True),
             BatchNorm2d(cout, eps=1e-5, momentum=0.1),
             nn.SELU(),
         )
@@ -80,9 +108,9 @@ class ResnetBasicBlock(nn.Module):
 
     def __init__(self, ch: int):
         super().__init__()
-        self.conv1 = nn.Conv2d(ch, ch, 3, 1, 1, bias=True)
+        self.conv1 = Conv2d(ch, ch, 3, 1, 1, bias=True)
         self.bn1 = BatchNorm2d(ch, eps=1e-5, momentum=0.1)
-        self.conv2 = nn.Conv2d(ch, ch, 3, 1, 1, bias=True)
+        self.conv2 = Conv2d(ch, ch, 3, 1, 1, bias=True)
         self.bn2 = BatchNorm2d(ch, eps=1e-5, momentum=0.1)
 
     def forward(self, x):
@@ -95,11 +123,16 @@ class Se3TrackNet(nn.Module):
     """Two-branch relative-pose regressor (reference se3_tracknet.py:52-112).
 
     ``image_size`` is kept for parity with the JAX model's signature; the
-    network is fully convolutional up to the global pool."""
+    network is fully convolutional up to the global pool. ``dtype``: the
+    activations' type, float32 or bfloat16 (module docstring)."""
 
-    def __init__(self, image_size: int = 176):
+    def __init__(self, image_size: int = 176,
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
+        if dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {dtype}: float32 or bfloat16")
         self.image_size = image_size
+        self.dtype = dtype
         self.convA1 = ConvBNSELU(4, 64, 7, 2)
         self.convA2 = ResnetBasicBlock(64)
         self.convB1 = ConvBNSELU(4, 64, 7, 2)
@@ -109,14 +142,14 @@ class Se3TrackNet(nn.Module):
         self.convAB2 = ResnetBasicBlock(256)
         self.trans_conv1 = ConvBNSELU(256, 512, 3, 2)
         self.trans_conv2 = ResnetBasicBlock(512)
-        self.trans_out = nn.Sequential(nn.Linear(512, 3), nn.Tanh())
+        self.trans_out = nn.Sequential(Linear(512, 3), nn.Tanh())
         self.rot_conv1 = ConvBNSELU(256, 512, 3, 2)
         self.rot_conv2 = ResnetBasicBlock(512)
-        self.rot_out = nn.Sequential(nn.Linear(512, 3), nn.Tanh())
+        self.rot_out = nn.Sequential(Linear(512, 3), nn.Tanh())
 
     def forward(self, A: torch.Tensor, B: torch.Tensor) -> dict:
-        A = A.to(torch.float32).permute(0, 3, 1, 2)
-        B = B.to(torch.float32).permute(0, 3, 1, 2)
+        A = A.to(self.dtype).permute(0, 3, 1, 2)
+        B = B.to(self.dtype).permute(0, 3, 1, 2)
         pool = nn.functional.max_pool2d
         a = self.convA2(pool(self.convA1(A), 3, 2, 1))
         b = self.convB3(self.convB2(pool(self.convB1(B), 3, 2, 1)))
@@ -125,8 +158,8 @@ class Se3TrackNet(nn.Module):
         r = self.rot_conv2(self.rot_conv1(ab)).mean(dim=(2, 3))
         return {
             "feature": ab.permute(0, 2, 3, 1),
-            "trans": self.trans_out(t),
-            "rot": self.rot_out(r),
+            "trans": self.trans_out(t).to(torch.float32),
+            "rot": self.rot_out(r).to(torch.float32),
         }
 
 
@@ -150,8 +183,9 @@ def loss_fn(pred_trans, pred_rot, target_trans, target_rot,
     return total, {"trans": trans_loss, "rot": rot_loss}
 
 
-def create_model(image_size: int = 176) -> Se3TrackNet:
-    return Se3TrackNet(image_size=image_size)
+def create_model(image_size: int = 176,
+                 dtype: torch.dtype = torch.float32) -> Se3TrackNet:
+    return Se3TrackNet(image_size=image_size, dtype=dtype)
 
 
 # Flax's lecun_normal: a normal truncated to [-2, 2] whose stddev is

@@ -463,6 +463,14 @@ class StreamTracker:
             return np.zeros((0,), np.float32)
         return torch.stack(self._scores).cpu().numpy().astype(np.float32)
 
+    def wait_fetch(self) -> None:
+        """Wait for the background pose fetch in flight, if any (its centre
+        update and policy check), and raise what it raised; the thread keeps
+        running. A caller that waits after every push makes the stream's
+        re-inits independent of the thread's timing."""
+        if self._fetch_future is not None:
+            self._fetch_future.result()
+
     def close(self) -> None:
         """Wait for the background pose fetch, stop its thread, and raise
         what it raised."""

@@ -32,11 +32,13 @@ uint16, so :func:`upload_depth` widens them to int32 on the device.
 (``tracking/stream.py``), which must never make the host wait.
 
 ``Tracker.track_video_adaptive`` chooses how a video is dispatched as it
-runs (``tracking/dispatch.py``). Not ported yet (ROADMAP.md): bf16
-(``TrackerConfig.dtype``) raises (item 8).
+runs (``tracking/dispatch.py``). ``TrackerConfig.dtype`` is the CNN's
+activation type, float32 or bfloat16 (``models/tracknet.py``); the crop,
+the render and the pose stay float32.
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -50,9 +52,6 @@ from ..ops import roi as roi_ops
 from ..render import mesh as mesh_mod
 from ..render import rasterizer as rz
 from ..render.mesh import TriMesh
-
-_NOT_PORTED = "not ported to PyTorch yet; see ROADMAP.md"
-
 
 @dataclass(frozen=True)
 class TrackerConfig:
@@ -68,8 +67,12 @@ class TrackerConfig:
     object_width_mm: float = 250.0          # reference predict.py:136-142
     near: float = rz.NEAR_M
     far: float = rz.FAR_M
-    dtype: torch.dtype = torch.float32      # only float32 so far
+    dtype: torch.dtype = torch.float32      # the CNN's; bfloat16 too
     cull_backfaces: bool = False            # True for closed CAD meshes
+
+    def __post_init__(self):
+        if self.dtype not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"dtype {self.dtype}: float32 or bfloat16")
 
 
 def upload_rgb(rgb, device) -> torch.Tensor:
@@ -176,11 +179,12 @@ def track_step(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
         window for the B-branch crop only.
 
     Returns the new (4, 4) pose, or (N, 4, 4) poses, and a dict of
-    intermediates.
+    intermediates. The CNN runs in ``cfg.dtype``, which must be the
+    model's.
     """
-    if cfg.dtype != torch.float32:
-        raise NotImplementedError(f"dtype {cfg.dtype}: {_NOT_PORTED} "
-                                  "(item 8)")
+    if model.dtype != cfg.dtype:
+        raise ValueError(f"the model runs in {model.dtype}, the config says "
+                         f"{cfg.dtype}")
     rgbA, depthA, rgbB, depthB = roi_views(
         cfg, mesh, K, prev_pose, frame_rgb, frame_depth_mm, object_width_mm,
         frame_offset_vu)
@@ -321,7 +325,7 @@ class Tracker:
 
         with torch.random.fork_rng(devices=[]):
             torch.manual_seed(0)
-            model = tracknet.Se3TrackNet(image_size=res)
+            model = tracknet.Se3TrackNet(image_size=res, dtype=dtype)
         state_dict = None
         if variables is not None:
             state_dict = state_dict_from_jax(variables)
@@ -335,9 +339,15 @@ class Tracker:
 
     @classmethod
     def from_parts(cls, model: tracknet.Se3TrackNet, cfg: TrackerConfig,
-                   mesh: rz.MeshArrays, K, mean, std):
+                   mesh: rz.MeshArrays, K, mean, std,
+                   dtype: torch.dtype | None = None):
         """Assemble a Tracker from prebuilt pieces on one device (the
-        mesh's): benchmarks, tests, pipelines without ``dataset_info``."""
+        mesh's): benchmarks, tests, pipelines without ``dataset_info``.
+        ``dtype`` (default ``cfg.dtype``): the CNN's activation type, set on
+        the config and on ``model``, which is used as it is, not copied."""
+        if dtype is not None:
+            cfg = dataclasses.replace(cfg, dtype=dtype)
+            model.dtype = dtype
         t = cls.__new__(cls)
         t.dataset_info = None
         t.trimesh = None
@@ -352,9 +362,10 @@ class Tracker:
         self.mesh = mesh
         self.object_width = cfg.object_width_mm
 
-        def put(a):
-            return torch.as_tensor(np.asarray(a), dtype=torch.float32).to(
-                self.device)
+        def put(a):  # a host array, or a tensor on any device
+            if not torch.is_tensor(a):
+                a = torch.as_tensor(np.asarray(a))
+            return a.detach().to(device=self.device, dtype=torch.float32)
 
         self.K, self.mean, self.std = put(K), put(mean), put(std)
         self.frame_cnt = 0

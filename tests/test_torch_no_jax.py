@@ -6,7 +6,8 @@ The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
 one tracking step, one multi-hypothesis step, two windowed stream pushes, an
 adaptive three-frame video, a DR scene, a depth fill, a two-frame hard test
-video with its scores and one synthetic train step on the CPU, and look at
+video with its scores, one synthetic train step, the sensor model over two
+frames and one bf16 tracking step on the CPU, and look at
 ``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
 port loads neither PyYAML nor Pillow (the CLIs and the file-backed dataset
@@ -95,6 +96,20 @@ m = tr.train_step_synth(net, opt, lr_at(0), cfg, synth,
                         torch.Generator().manual_seed(2),
                         torch.zeros(8), torch.full((8,), 100.0))
 assert torch.isfinite(m["loss"])
+from iros20_6d_pose_tracking_tpu_torch.eval import domain_shift as DS
+rgb_s, dep_s = DS.shift_video(torch.from_numpy(rgb_v[:2]).float(),
+                              torch.from_numpy(dep_v[:2].astype(np.float32)),
+                              gt, K, DS.SensorModel().scaled(4.0), seed=0)
+assert rgb_s.shape == (2, 192, 256, 3) and (dep_s > 0).any()
+t16 = trk.Tracker.from_parts(
+    tracknet.create_model(64).eval(),
+    trk.TrackerConfig(resolution=64, object_width_mm=110.0),
+    rz.upload(M.make_cube(0.08), "cpu"), K, np.zeros(8), np.full(8, 100.0),
+    dtype=torch.bfloat16)
+p16, _ = trk.track_step(t16.model, t16.cfg, t16.mesh, t16.K, t16.mean,
+                        t16.std, torch.from_numpy(pose), torch.from_numpy(rgb),
+                        trk.upload_depth(depth, "cpu"))
+assert p16.dtype == torch.float32 and torch.isfinite(p16).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 pkg = sorted(m for m in sys.modules if m == "iros20_6d_pose_tracking_tpu"
@@ -124,7 +139,8 @@ def test_port_imports_and_runs_without_jax():
                       "utils.viz", "tracking.stream", "apps.predict_ros",
                       "native.dataload", "tracking.dispatch",
                       "datagen.blender_gen", "core.views",
-                      "apps.datagen"}, walked
+                      "apps.datagen", "eval.domain_shift",
+                      "apps.accuracy_suite"}, walked
 
 
 def _imported_modules(path):

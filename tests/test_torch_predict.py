@@ -436,15 +436,21 @@ def test_init_poses_match_jax(tree):
                                   jpredict._poserbpf_pose(args, 4, 48))
 
 
-@pytest.mark.parametrize("flags,item", [
-    # adaptive is ported; with --bf16 it still raises for item 8
-    pytest.param(["--track_mode", "adaptive", "--bf16"], "item 8",
-                 id="flags2-P12"),
-    pytest.param(["--bf16"], "item 8", id="flags3-item 8")])
-def test_unported_options_raise(tree, tmp_path, flags, item):
+@pytest.mark.parametrize("flags", [
+    pytest.param(["--track_mode", "adaptive", "--bf16"], id="flags2-P12"),
+    pytest.param(["--bf16"], id="flags3-item 8")])
+def test_unported_options_raise(tree, tmp_path, flags):
+    """The options that raised until ROADMAP item 8 landed (the ids keep
+    their names): ``--bf16`` now runs the CNN in bfloat16, in scan and in
+    adaptive mode, and writes every pose within JAX's bf16 bars of the
+    float32 scan's (tests/test_tracker.py: 1 mm, 5e-3 on the rotation)."""
     root, _ = tree
-    with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-        predict.main(_args(root, tmp_path / "x", "--device", "cpu", *flags))
+    predict.main(_args(root, tmp_path / "f32", "--device", "cpu"))
+    predict.main(_args(root, tmp_path / "bf16", "--device", "cpu", *flags))
+    p32, p16 = _poses(tmp_path / "f32"), _poses(tmp_path / "bf16")
+    assert p16.shape == p32.shape and np.isfinite(p16).all()
+    assert np.linalg.norm(p16[:, :3, 3] - p32[:, :3, 3], axis=-1).max() < 1e-3
+    assert np.abs(p16[:, :3, :3] - p32[:, :3, :3]).max() < 5e-3
 
 
 def test_rgbd_to_pointcloud_matches_jax():

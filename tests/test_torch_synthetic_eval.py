@@ -9,6 +9,8 @@ relative. Op by op, float32 ops round as the port's do. The port runs on
 the CPU, so its kernel wrappers take their plain versions (K3 for the
 video's full-frame renders, K1 and K2 for the tracker's ROI renders).
 """
+import functools
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -234,11 +236,14 @@ def test_evaluate_tracking_follows_jax(scene):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    # train_object and hard_aug are ported (tests/test_torch_trainer.py).
+    # train_object and hard_aug are ported (tests/test_torch_trainer.py), the
+    # sweep, the ablation and run_suite too (tests/test_torch_suite.py); the
+    # object ensemble is not, and run_suite(ensemble=True) raises with it.
     for fn in (SB.train_objects_ensemble, SB.ensemble_evaluate_tracking,
-               SB.shift_severity_sweep, SB.shift_axis_ablation, SB.run_suite):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(P1[3-7]"):
+               functools.partial(SB.run_suite, ensemble=True)):
+        with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(P17"):
             fn()
+    assert SB.SHIFT_AXES == JSB.SHIFT_AXES
     assert (SB.hard_aug().depth_missing_prob
             == JSB.hard_aug().depth_missing_prob)
     assert SB.SYMMETRIC_OBJECTS == JSB.SYMMETRIC_OBJECTS

@@ -140,7 +140,9 @@ def test_on_track_equals_track_video_and_detects_metres(scene):
 def test_tracker_from_dataset_info(scene):
     """__init__ decimates past max_faces, auto-culls the closed mesh, and
     carries Flax variables across; ``samples > 1``, the chunked and the
-    adaptive video run, bf16 (not ported yet) raises."""
+    adaptive video run, and so does a bf16 tracker, within JAX's bars of
+    float32 (tests/test_tracker.py: 1 mm, 5e-3; tests/test_torch_bf16.py
+    holds it against JAX's bf16)."""
     s = scene
     tm = M.make_icosphere(subdiv=2, radius=0.04)
     info = {"resolution": RES, "object_width": WIDTH_MM,
@@ -167,10 +169,34 @@ def test_tracker_from_dataset_info(scene):
     np.testing.assert_array_equal(
         poses, t.track_video(s["init"], frames_rgb, frames_depth))
     assert set(tel["probe_ms_per_frame"]) <= {2, 1}
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        trk.Tracker(info, s["mean"], s["std"], mesh=tm, device="cpu",
-                    dtype=torch.bfloat16).on_track(s["init"], s["rgb"],
-                                                   s["depth"])
+    t16 = trk.Tracker(info, s["mean"], s["std"], mesh=tm,
+                      variables=s["variables"], trans_normalizer=TAU,
+                      rot_normalizer=RHO, max_faces=200, device="cpu",
+                      dtype=torch.bfloat16)
+    assert t16.cfg.dtype == t16.model.dtype == torch.bfloat16
+    pose16 = t16.on_track(s["init"], s["rgb"], s["depth"])
+    assert np.linalg.norm(pose16[:3, 3] - pose[:3, 3]) < 1e-3
+    assert np.abs(pose16[:3, :3] - pose[:3, :3]).max() < 5e-3
+
+
+def test_from_parts_takes_tensors_without_numpy(scene):
+    """K, mean and std may come as tensors on the tracker's device
+    (``train_object`` hands its statistics over on the card): they are moved
+    there, never read through numpy, which refuses a CUDA tensor. On the
+    CPU a tensor that requires grad, which numpy refuses too, stands in for
+    one on the card. The tracker then tracks as with arrays."""
+    s = scene
+    t = s["tracker"]
+    ts = trk.Tracker.from_parts(
+        t.model, t.cfg, t.mesh, torch.tensor(K, requires_grad=True),
+        torch.tensor(s["mean"], requires_grad=True),
+        torch.tensor(s["std"], requires_grad=True))
+    for name in ("K", "mean", "std"):
+        got = getattr(ts, name)
+        assert torch.equal(got, getattr(t, name)) and not got.requires_grad
+    np.testing.assert_array_equal(
+        ts.on_track(s["init"], s["rgb"], s["depth"]),
+        t.on_track(s["init"], s["rgb"], s["depth"]))
 
 
 def test_tracker_loads_reference_checkpoint(scene, tmp_path):

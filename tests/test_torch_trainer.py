@@ -242,10 +242,26 @@ def test_train_cli_file_backed(tmp_path, synth):
 
 
 def test_train_cli_refuses_bf16_and_dr_without_synthetic(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_app.main(["--config", str(tmp_path / "none.yml"), "--bf16"])
+    """``--dr`` without ``--synthetic`` is refused. ``--bf16`` is no longer
+    refused: it trains bfloat16 activations, and the checkpoints hold
+    float32 parameters, statistics and Adam state."""
     with pytest.raises(SystemExit):
         train_app.main(["--config", str(tmp_path / "none.yml"), "--dr"])
+    _write_obj(_mesh(), tmp_path / "object.obj")
+    (tmp_path / "train_data").mkdir()
+    info = _write_config(tmp_path, tmp_path / "train_data")
+    outdir = tmp_path / "train_out"
+    train_app.main(["--config", str(tmp_path / "config.yml"),
+                    "--output_path", str(outdir), "--synthetic",
+                    "--model_path", str(tmp_path / "object.obj"),
+                    "--epochs", "1", "--device", "cpu", "--bf16"])
+    _check_outputs(outdir, info)
+    state = ck.load_checkpoint(str(outdir / "checkpoint_last.pt"))
+    assert all(v.dtype in (torch.float32, torch.int64)
+               for v in state["model"].values())
+    assert all(t.dtype == torch.float32
+               for st in state["optimizer"]["state"].values()
+               for k, t in st.items() if k != "step")
 
 
 def test_hard_aug_matches_jax():
