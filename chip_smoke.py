@@ -2,7 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
 closed-loop synthetic evaluation, synthetic training, the serving path, the
 live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
-suite and the bf16 CNN.
+suite, the bf16 CNN and the scale-out layer.
 
     python3 chip_smoke.py
 
@@ -203,16 +203,37 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      x4 (rgb within 1e-3; depth different on at most 0.1% of pixels, each
      by a quantization step or dropout), and its ms per frame over the 60
      frames (CUDA events). ``run_suite`` cut to size: the production mesh
-     as the one object, 5 train steps at batch 32, 60 hard frames, the
+     as the one object, 5 train steps at batch 32, 30 hard frames, the
      domain-shifted table, the sweep (0.5, 2, 4), the x2 ablation, a
-     90-frame long horizon with its forced-burst recovery and the live
+     45-frame long horizon with its forced-burst recovery and the live
      recovery at 30 Hz; every AUC finite, the live row with ``recovered``
      and no nan, and K1, K2, K3 and ``pass2_shade`` launched exactly as
      ``suite_launches_predicted`` derives from the code. bf16: one step
      against the float32 step under JAX's bars (1 mm, 5e-3), the drift of
-     100 bf16 ``track_video`` frames from float32 (printed), the card's
+     50 bf16 ``track_video`` frames from float32 (printed), the card's
      bf16 path against the CPU's over 20 frames, and ``track_video`` Hz and
-     batch-200 ``train_step_synth`` samples/s, bf16 and float32 in turns.
+     batch-200 ``train_step_synth`` samples/s, bf16 and float32 in turns;
+ 12. drives the scale-out layer (``parallel/spmd.py``,
+     ``parallel/latency.py``): the JAX ``bench.py`` ``bench_ensemble``
+     shape, 4 icospheres of subdivision 3 (radii 0.04-0.07 m), each with its
+     own network and width, over 50 production frames through
+     ``multi_object_track_videos``: serial gives per-object ``track_video``
+     bits with 200 K1 and 200 ``pass2_shade`` launches, batched stays within
+     5e-4 m and 5e-3 rad of it with 50 and 50; ``bench_multi``'s 8 videos of
+     50 frames through ``batched_track_videos`` against per-video
+     ``track_video`` (50 and 50 launches); K1 and ``pass2_shade`` at the 4-
+     and 8-view shapes against their plain versions; aggregate frames/s in
+     turns with sequential ``track_video``; ``ensemble_train_step`` at 4
+     objects of batch 200, 176^2, serial and batched, against per-object
+     ``train_step`` under the card's training bars, and samples/s in turns;
+     ``run_suite(ensemble=True)`` on the production mesh and the cube with
+     its launches predicted; and two processes sharing the card over gloo
+     with CUDA tensors (NCCL refuses two ranks on one device): the
+     face-sharded render of the 5120-face icosphere against the single
+     render at the bars of JAX's test, K1 and K2 (the owned rows of a
+     shard) against their plain versions bit for bit in each rank,
+     ``sp_track_step`` against ``track_step`` and ``dp_train_step`` against
+     ``train_step``, with the sharded render's and K2's times.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -225,7 +246,10 @@ windowed stream's); K1 and
 ``pass2_shade`` also carry ``serving_views``, their times at the culled
 N-view shapes of phase 8, K3 and ``pass2_shade`` ``datagen_shapes``,
 their times at phase 10's layers, and ``pass2_shade`` ``suite_lighting``,
-its times at phase 11's lighting. The last is
+its times at phase 11's lighting, K1 and ``pass2_shade``
+``scale_out_views``, their times at phase 12's 4 objects' and 8 videos'
+views, and K2 ``sharded_render``, its time at a shard's owned rows. The
+last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -234,6 +258,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import dataclasses
 import functools
 import json
 import pathlib
@@ -361,7 +386,7 @@ LIVE_FRAMES = 100
 LIVE_MULTI_FRAMES = 20
 SYNC_PUSHES = 100
 SLEEP_MS, SLEEP_PUSHES, SLEEP_BAR = 100.0, 10, 0.5
-HOST_LOOP_FRAMES, HOST_LOOP_REPEATS = 150, 3
+HOST_LOOP_FRAMES, HOST_LOOP_REPEATS = 75, 3
 MOVING_DRIFT_MM = 0.45
 LIVE_PROFILE_PUSHES = 20
 ROS_FRAMES = 10
@@ -402,11 +427,26 @@ DR_DEPTH_BAR_MM, DR_PIXEL_SHARE = 0.01, 1e-3
 # poses drift apart as the frames go), and the batch-200 train steps a turn.
 SUITE_SEVERITIES = (1.0, 4.0)
 SHIFT_CPU_FRAMES, SHIFT_TIMED_RUNS = 10, 5
-SUITE_STEPS, SUITE_BATCH, SUITE_FRAMES = 5, 32, 60
-SUITE_SWEEP, SUITE_LONG = (0.5, 2.0, 4.0), 90
-BF16_VIDEO_FRAMES, BF16_CPU_FRAMES = 100, 20
+SUITE_STEPS, SUITE_BATCH, SUITE_FRAMES = 5, 32, 30
+SUITE_SWEEP, SUITE_LONG = (0.5, 2.0, 4.0), 45
+BF16_VIDEO_FRAMES, BF16_CPU_FRAMES = 50, 20
 BF16_CPU_BAR_M, BF16_CPU_BAR_RAD = 2e-4, 1e-3
 BF16_TRAIN_STEPS = 3
+# (HOST_LOOP_FRAMES, SUITE_FRAMES, SUITE_LONG and BF16_VIDEO_FRAMES were
+# halved to make room for phase 12 in the run's time.)
+# Phase 12, the scale-out layer: the JAX bench.py bench_ensemble (O objects,
+# T frames) and bench_multi (V videos, T frames) shapes; the ensemble train
+# steps compared and timed a turn; the turns of the aggregate rates; the
+# reduced ensemble suite (two objects, its train steps and frames); the
+# two-rank phase's data-parallel batch (split over the ranks) and its time
+# limit.
+ENSEMBLE_O, ENSEMBLE_T = 4, 50
+VIDEOS_V, VIDEOS_T = 8, 50
+ENSEMBLE_TRAIN_STEPS = 2
+SCALE_TURNS = 2
+SUITE_ENSEMBLE_STEPS, SUITE_ENSEMBLE_FRAMES = 2, 30
+DP_BATCH = 32
+RANKS_TIMEOUT_S = 240
 
 
 def production_mesh():
@@ -3828,6 +3868,604 @@ def check_bf16(net, tracker, pose0, rgb, depth, card):
                              "not float32")
 
 
+
+# ---------------------------------------------------------------------------
+# Phase 12: the scale-out layer (parallel/spmd.py, parallel/latency.py): an
+# object ensemble and batched videos on the one card, ensemble training, the
+# suite's ensemble mode, and two ranks sharing the card over gloo.
+# ---------------------------------------------------------------------------
+
+def ensemble_case(dev):
+    """The JAX ``bench.py`` ``bench_ensemble`` objects: ENSEMBLE_O
+    icospheres of subdivision 3, radii 0.04 to 0.07 m, each with its own
+    seeded network (``build_model(SEED + o)``) and width, all tracking
+    ENSEMBLE_T copies of phase 4's production frame from its pose. Returns
+    a dict of the stacked state, meshes and inputs."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    O, T = ENSEMBLE_O, ENSEMBLE_T
+    tms = [M.make_icosphere(subdiv=3, radius=r)
+           for r in (0.04, 0.05, 0.06, 0.07)][:O]
+    nets = [build_model(SEED + o).to(dev) for o in range(O)]
+    pose0, rgb, depth = production_frames()
+    frames_rgb = trk.upload_rgb(rgb, dev).expand((O, T) + rgb.shape)
+    frames_depth = trk.upload_depth(depth, dev).expand((O, T) + depth.shape)
+    return {"tms": tms, "nets": nets, "ens": spmd.stack_states(nets),
+            "meshes": spmd.stack_meshes(tms, dev),
+            "own": [rz.upload(tm, dev) for tm in tms],
+            "widths": [float(tm.diameter) * 1000 * 1.1 for tm in tms],
+            "cfg": trk.TrackerConfig(resolution=RES, cull_backfaces=True),
+            "K": torch.as_tensor(K_PROD).to(dev),
+            "mean": torch.zeros(8, device=dev),
+            "std": torch.full((8,), 100.0, device=dev),
+            "init": torch.as_tensor(pose0).to(dev).expand(O, 4, 4),
+            "rgb": frames_rgb, "depth": frames_depth}
+
+
+def check_track_close(name, poses, ref):
+    """Per frame within 5e-4 m and 5e-3 rad of ``ref`` (phase 4's bars)."""
+    poses, ref = poses.cpu().numpy(), ref.cpu().numpy()
+    worst_t = float(np.abs(poses[..., :3, 3] - ref[..., :3, 3]).max())
+    worst_r = max(rot_angle(a[:3, :3], b[:3, :3]) for a, b in zip(
+        poses.reshape(-1, 4, 4), ref.reshape(-1, 4, 4)))
+    print(f"{name}: worst translation {worst_t:.3e} m, rotation "
+          f"{worst_r:.3e} rad", flush=True)
+    if not np.isfinite(poses).all() or worst_t > 5e-4 or worst_r > 5e-3:
+        raise AssertionError(f"{name}: beyond 5e-4 m / 5e-3 rad")
+
+
+def timed_turns(runs, turns=SCALE_TURNS, warm=True):
+    """{name: [seconds]} of each ``fn`` of ``runs`` ({name: (fn, frames)}),
+    run in turns (each ends with its result on the host), after a warm-up
+    call each unless ``warm`` is False (each has just run)."""
+    import torch
+
+    for fn, _ in runs.values() if warm else ():
+        fn()
+    torch.cuda.synchronize()
+    secs = {k: [] for k in runs}
+    for _ in range(turns):
+        for k, (fn, _) in runs.items():
+            t0 = time.perf_counter()
+            fn().cpu()
+            secs[k].append(time.perf_counter() - t0)
+    return secs
+
+
+def print_rates(what, runs, secs, card):
+    for k, (_, frames) in runs.items():
+        rates = [frames / s for s in secs[k]]
+        print(f"timing {what} {k}: {np.median(rates):.2f} frames/s aggregate "
+              f"(median of {len(rates)} turns, all "
+              f"{np.round(rates, 2).tolist()}) {card}", flush=True)
+
+
+def run_ensemble_tracking(c, card):
+    """Phase 12.1: ``multi_object_track_videos`` on the one-card layout.
+    Serial: each object's poses are ``track_video``'s on its own mesh, bit
+    for bit, with ENSEMBLE_O x ENSEMBLE_T K1 and ``pass2_shade`` launches;
+    batched: within 5e-4 m and 5e-3 rad of serial, one K1 and one
+    ``pass2_shade`` launch a frame over the O views. Aggregate frames/s of
+    serial, batched and O sequential ``track_video`` runs, in turns; K1 and
+    ``pass2_shade`` at the O-view shape. Returns (launches by path, the
+    kernels' numbers at the O-view shape)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    O, T = ENSEMBLE_O, ENSEMBLE_T
+    one = spmd.make_mesh(1)
+    args = (c["ens"], c["meshes"], c["K"], c["mean"], c["std"], c["init"],
+            c["rgb"], c["depth"], c["widths"])
+    fns = {serial: functools.partial(spmd.multi_object_track_videos(
+        c["ens"].model, c["cfg"], one, serial=serial), *args)
+        for serial in (True, False)}
+    launches, poses = {}, {}
+    for serial, want in ((True, O * T), (False, T)):
+        torch.cuda.synchronize()
+        zero_launches()
+        poses[serial] = fns[serial]()
+        got = read_launches()
+        launches[serial] = got
+        exp = {"raster_pass1": want, "gather_rows": 0,
+               "raster_pass1_worklist": 0, "pass2_shade": want}
+        print(f"ensemble tracking {'serial' if serial else 'batched'} "
+              f"(O={O}, T={T}): launches {got} (predicted {exp})", flush=True)
+        if got != exp:
+            raise AssertionError(f"ensemble launches {got} != {exp}")
+
+    def sequential():
+        return torch.stack([trk.track_video(
+            c["nets"][o], c["cfg"], c["own"][o], c["K"], c["mean"], c["std"],
+            c["init"][o], c["rgb"][o], c["depth"][o], c["widths"][o])
+            for o in range(O)])
+
+    ref = sequential()
+    bad = [o for o in range(O) if not torch.equal(ref[o], poses[True][o])]
+    moved = float((poses[True][:, -1, :3, 3] - c["init"][:, :3, 3]).norm(
+        dim=-1).min())
+    print(f"ensemble serial against per-object track_video: objects "
+          f"different {bad}; least motion {moved * 1e3:.2f} mm", flush=True)
+    if bad:
+        raise AssertionError("serial ensemble is not track_video's bits")
+    check_track_close("ensemble batched against serial", poses[False],
+                      poses[True])
+    runs = {"serial": (fns[True], O * T), "batched": (fns[False], O * T),
+            f"{O} sequential track_video": (sequential, O * T)}
+    print_rates(f"ensemble_{O}obj", runs, timed_turns(runs, warm=False),
+                card)
+    return launches, views_report(c["meshes"], c["init"], c["K"],
+                                  torch.tensor(c["widths"], device=c[
+                                      "K"].device), f"{O} ensemble objects",
+                                  card)
+
+
+def views_report(meshes, poses, K, widths, label, card):
+    """K1 and ``pass2_shade`` at the culled views of one batched step (each
+    checked against its plain version first), timed beside their plain
+    versions and bounds. Returns ({kernel: numbers}, K1 error, pass 2
+    error)."""
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    hw = (RES, RES)
+    window = rz.window_from_bbox(roi.compute_bbox(
+        poses, K, widths, (1000.0, 1000.0, 1000.0)))
+    c = render_case(meshes, poses, K, window, hw, cull=True)
+    e1, c["iz"], c["win"] = check_batched_pass1(label, c["coef"], c["bbox"],
+                                                hw, c["fb"])
+    e3 = check_pass2(label, c, hw)
+    out = {}
+    args1 = (c["coef"], c["bbox"], hw, c["fb"])
+    args2 = (c["attr"], c["iz"], c["win"], c["R"], c["t"], hw, FAR)
+    for name, fn, plain, args, bnd in (
+            ("raster_pass1", rk.pass1_winners, rk.pass1_winners_ref, args1,
+             pass1_bound(c, hw)),
+            ("pass2_shade", rk.pass2_shade, rk.pass2_shade_ref, args2,
+             pass2_bound(c))):
+        r = report_kernel(name, f"(culled, {label} at {RES}^2)",
+                          lambda: fn(*args), lambda: plain(*args), bnd, card,
+                          plain_runs=5)
+        out[name] = {"views": int(poses.shape[0]), "res": RES,
+                     **{k: v for k, v in r.items() if k != "library_ms"}}
+    return out, e1, e3
+
+
+def run_batched_videos(tracker, pose0, rgb, depth, card):
+    """Phase 12.2: ``batched_track_videos`` at the JAX ``bench_multi``
+    shape, VIDEOS_V videos of VIDEOS_T production frames (inits 2 mm
+    apart), against per-video ``track_video`` within 5e-4 m and 5e-3 rad,
+    with one K1 and one ``pass2_shade`` launch a frame; aggregate frames/s
+    in turns with V sequential ``track_video`` runs."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    V, T = VIDEOS_V, VIDEOS_T
+    dev = tracker.device
+    init = torch.as_tensor(pose0).to(dev).repeat(V, 1, 1)
+    init[:, 0, 3] += torch.arange(V, device=dev) * 0.002 - 0.007
+    frames_rgb = trk.upload_rgb(rgb, dev).expand((V, T) + rgb.shape)
+    frames_depth = trk.upload_depth(depth, dev).expand((V, T) + depth.shape)
+    run = functools.partial(
+        spmd.batched_track_videos(tracker.model, tracker.cfg,
+                                  spmd.make_mesh(1)),
+        tracker.mesh, tracker.K, tracker.mean, tracker.std, init,
+        frames_rgb, frames_depth)
+    torch.cuda.synchronize()
+    zero_launches()
+    poses = run()
+    launches = read_launches()
+    exp = {"raster_pass1": T, "gather_rows": 0, "raster_pass1_worklist": 0,
+           "pass2_shade": T}
+    print(f"batched videos (V={V}, T={T}): launches {launches} (predicted "
+          f"{exp})", flush=True)
+    if launches != exp:
+        raise AssertionError(f"batched video launches {launches} != {exp}")
+
+    def sequential():
+        return torch.stack([trk.track_video(
+            tracker.model, tracker.cfg, tracker.mesh, tracker.K, tracker.mean,
+            tracker.std, init[v], frames_rgb[v], frames_depth[v])
+            for v in range(V)])
+
+    check_track_close("batched videos against per-video track_video", poses,
+                      sequential())
+    runs = {"batched": (run, V * T),
+            f"{V} sequential track_video": (sequential, V * T)}
+    print_rates(f"aggregate_{V}video", runs, timed_turns(runs, warm=False),
+                card)
+    w = torch.full((V,), tracker.cfg.object_width_mm, device=dev)
+    return launches, views_report(tracker.mesh, init, tracker.K, w,
+                                  f"{V} videos", card)
+
+
+def run_ensemble_training(dev, card):
+    """Phase 12.3: ``ensemble_train_step`` at ENSEMBLE_O objects, batch
+    TRAIN_BATCH at 176^2 (the cube's sampler with DR for every object, its
+    batches drawn by ``ensemble_synth_batch``), ENSEMBLE_TRAIN_STEPS steps at
+    lr 1e-5 serial and batched, each against per-object ``train_step`` on
+    the same batches and draws under the card's training bars
+    (TRAIN_CHECKS["sampled"]: cuDNN's training is not bit-reproducible);
+    then samples/s of serial, batched and per-object steps in turns."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import augment as A
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.train import compare
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    O, n, lr = ENSEMBLE_O, TRAIN_BATCH, 1e-5
+    tms = [M.make_cube(0.08)] * O
+    cfg = tr.TrainConfig(resolution=RES, batch_size=n)
+    ens_mesh = spmd.stack_meshes(tms, dev)
+    widths = [tms[0].diameter * 1000 * 1.1] * O
+    Kt = torch.as_tensor(K_PROD).to(dev)
+    steps = ENSEMBLE_TRAIN_STEPS
+    batches = [DS.ensemble_synth_batch(
+        ens_mesh, Kt, [tr.step_generator(dev, 7, i, o) for o in range(O)],
+        widths, n, RES, 0.02, 15.0, TRAIN_XYZ, DS.DRComposite())
+        for i in range(steps)]
+    draws = [[A.draw_augment(tr.step_generator(dev, 8, i, o), n, (RES, RES),
+                             cfg.aug, dev) for o in range(O)]
+             for i in range(steps)]
+    mean = torch.tensor([120, 110, 100, 0, 120, 110, 100, 0],
+                        dtype=torch.float32, device=dev)
+    std = torch.tensor([70, 70, 70, 300, 70, 70, 70, 300],
+                       dtype=torch.float32, device=dev)
+
+    def fresh():
+        pairs = []
+        for o in range(O):
+            net = tracknet.init_params(
+                tracknet.Se3TrackNet(image_size=RES).to(dev),
+                torch.Generator().manual_seed(SEED + o))
+            pairs.append((net, tr.make_optimizer(net, cfg, 1000)[0]))
+        return pairs
+
+    refs = []
+    for o, (net, opt) in enumerate(fresh()):
+        losses, grads = [], []
+        for i in range(steps):
+            m = tr.train_step(net, opt, lr, cfg, None,
+                              {k: v[o] for k, v in batches[i].items()},
+                              mean, std, aug_draws=draws[i][o])
+            losses.append(float(m["loss"]))
+            grads.append(compare.grads_of(net))
+        refs.append((net, losses, grads, net.state_dict()))
+    bars = TRAIN_CHECKS["sampled"]
+    steppers = {}
+    for serial in (True, False):
+        ens = spmd.stack_states(fresh())
+        step = spmd.ensemble_train_step(ens.model, ens.opt, cfg,
+                                        spmd.make_mesh(1), serial=serial)
+        steppers[serial] = (ens, step)
+        zero_launches()
+        grads = []
+        for i in range(steps):
+            m = step(ens, lr, None, batches[i], mean, std,
+                     aug_draws=draws[i])
+            grads.append({k: v.grad.detach().cpu() for k, v in
+                          ens.params.items()})
+            losses = m["loss"].cpu().numpy()
+            ref_l = np.array([r[1][i] for r in refs])
+            rel = float(np.abs(losses / ref_l - 1).max())
+            if rel > 1e-4:
+                raise AssertionError(f"ensemble train loss {losses} vs "
+                                     f"{ref_l}")
+        if read_launches() != {k: 0 for k in WRAPPERS}:
+            raise AssertionError("the train step launched a raster kernel")
+        for o, (net, _, g_ref, sd_ref) in enumerate(refs):
+            g = [{k: v[o] for k, v in gi.items()} for gi in grads]
+            p, b = ens.tensors(o)
+            rg = compare.compare_grads(net, g[0], g_ref[0], **bars["grads"])
+            rs = compare.compare_states(
+                net, {k: v.detach() for k, v in {**p, **b}.items()}, sd_ref,
+                compare.noisy(g, g_ref), lr, steps, **bars["states"])
+            worst = {k: round(v[1], 3) for k, v in {**rg, **rs}.items()
+                     if k != "noisy"}
+            print(f"ensemble train {'serial' if serial else 'batched'} object "
+                  f"{o}: loss within {rel:.2e} relative; bars (worst ratio) "
+                  f"{worst}", flush=True)
+            if compare.failed(rg, rs):
+                raise AssertionError(f"ensemble train object {o} beyond the "
+                                     f"card's bars: {compare.failed(rg, rs)}")
+
+    per = fresh()
+
+    def turn(fn):
+        def run():
+            for i in range(steps):
+                out = fn(i)
+            return out
+        return run
+
+    runs = {
+        "serial": (turn(lambda i: steppers[True][1](
+            steppers[True][0], lr, None, batches[i], mean, std,
+            aug_draws=draws[i])["loss"]), O * n * steps),
+        "batched": (turn(lambda i: steppers[False][1](
+            steppers[False][0], lr, None, batches[i], mean, std,
+            aug_draws=draws[i])["loss"]), O * n * steps),
+        f"{O} per-object train_step": (turn(lambda i: torch.stack([
+            tr.train_step(net, opt, lr, cfg, None,
+                          {k: v[o] for k, v in batches[i].items()}, mean,
+                          std, aug_draws=draws[i][o])["loss"]
+            for o, (net, opt) in enumerate(per)])), O * n * steps)}
+    secs = timed_turns(runs, turns=2)
+    for k, (_, samples) in runs.items():
+        rates = [samples / s for s in secs[k]]
+        print(f"timing ensemble train {k}: {np.median(rates):.2f} samples/s "
+              f"(O={O}, batch {n} each, {RES}^2, float32, TF32 off; median "
+              f"of {len(rates)} turns of {steps} steps, all "
+              f"{np.round(rates, 2).tolist()}) {card}", flush=True)
+
+
+def suite_ensemble_predicted(n_obj):
+    """The launches of the reduced ``run_suite(ensemble=True)`` of phase
+    12.4, from the code: training, one K1 + one ``pass2_shade`` a sampled
+    batch an object (``ensemble_synth_batch``; 4 for the statistics, one a
+    step); each object's hard video, object and occluder through K3 and
+    ``pass2_shade`` a frame; the ensemble evaluation (serial on one card),
+    one K1 + one ``pass2_shade`` a tracked frame an object; K2 never."""
+    F = SUITE_ENSEMBLE_FRAMES
+    k1 = n_obj * (4 + SUITE_ENSEMBLE_STEPS) + n_obj * (F - 1)
+    k3 = n_obj * 2 * F
+    return {"raster_pass1": k1, "gather_rows": 0,
+            "raster_pass1_worklist": k3, "pass2_shade": k1 + k3}
+
+
+def run_suite_ensemble(dev, card):
+    """Phase 12.4: ``run_suite(ensemble=True)`` cut to size on the card: the
+    production mesh and the cube trained as one ensemble
+    (SUITE_ENSEMBLE_STEPS steps at batch SUITE_BATCH), SUITE_ENSEMBLE_FRAMES
+    hard frames each, evaluated in one call: every row ``"ensemble"``, the
+    AUCs finite, and the launches ``suite_ensemble_predicted``'s."""
+    from iros20_6d_pose_tracking_tpu_torch.eval import synthetic_benchmark as SB
+
+    SB.OBJECTS["production"] = lambda: production_mesh()[0]
+    try:
+        t0 = time.perf_counter()
+        zero_launches()
+        results = SB.run_suite(
+            ("production", "cube"), ensemble=True, steps=SUITE_ENSEMBLE_STEPS,
+            frames=SUITE_ENSEMBLE_FRAMES, batch=SUITE_BATCH, K=K_PROD,
+            hw=FRAME_HW, log=lambda *a: print("suite ensemble:", *a,
+                                              flush=True), device=dev)
+        launches = read_launches()
+        secs = time.perf_counter() - t0
+    finally:
+        del SB.OBJECTS["production"]
+    want = suite_ensemble_predicted(2)
+    print(f"suite ensemble: launches {launches} (predicted {want}); "
+          f"eval paths {[r['eval_path'] for r in results]}; ADD AUC "
+          f"{[round(r['add_auc'], 2) for r in results]}; {secs:.1f} s {card}",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"suite ensemble launches {launches} != {want}")
+    if [r["eval_path"] for r in results] != ["ensemble", "ensemble"] or \
+            not np.isfinite([r["add_auc"] for r in results]).all():
+        raise AssertionError("suite ensemble rows")
+    return launches
+
+
+def _rank_main(rank, world, tmp):
+    """One of the two ranks of phase 12.5, sharing card 0 over gloo."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    dist.init_process_group(
+        "gloo", init_method=f"file://{tmp}/rendezvous", rank=rank,
+        world_size=world, timeout=datetime.timedelta(seconds=120))
+    try:
+        out = rank_checks(rank, world)
+        torch.save(out, f"{tmp}/rank{rank}.pt")
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def rank_checks(rank, world):
+    """Phase 12.5 on one rank (card 0, CUDA tensors, gloo): the face-sharded
+    render of the production icosphere before its decimation (5120 faces,
+    3072 a shard, each shard holding real faces) at phase 4's pose in its
+    ROI, without the cull (so both shards cover pixels), against the
+    single
+    render at the bars of JAX's test (depth within 0.02 mm, under 2e-3 of
+    pixels more than 2 levels apart in rgb), K1 and K2 at the rank's shard
+    against their plain versions bit for bit, ``sp_track_step`` against
+    ``track_step`` (1e-5, JAX's bar), ``dp_train_step`` against
+    ``train_step`` on the whole batch (the card's training bars), their
+    launches, and the sharded render's and K2's times."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.data import augment as A
+    from iros20_6d_pose_tracking_tpu_torch.kernels import build as kbuild
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.parallel import latency as lat
+    from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.train import compare
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev = torch.device("cuda", 0)
+    torch.cuda.set_device(dev)
+    se3.pin_full_fp32()
+    for name in REPLACES:
+        kbuild.load(name)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0].strip()
+    card = f"[{card}, rank {rank} of {world}]"
+    tracker = make_tracker(build_model(SEED), dev)
+    pose0, rgb, depth = production_frames()
+    pose = torch.as_tensor(pose0).to(dev)
+    # the production mesh before its decimation (5120 faces): shards of
+    # 3072 faces, each holding real ones; no cull, so both shards' faces
+    # cover pixels and the z-test across ranks decides
+    mesh = rz.upload(M.make_icosphere(subdiv=4, radius=0.05), dev)
+    cfg = dataclasses.replace(tracker.cfg, cull_backfaces=False)
+    spm = lat.sp_mesh()
+    shard = lat.shard_mesh_faces(mesh, spm)
+    bbox = roi.compute_bbox(pose, tracker.K, tracker.cfg.object_width_mm,
+                            (1000.0, 1000.0, 1000.0))
+    render = lat.sharded_render(cfg, spm)
+    seen = {}
+    zero_launches()
+    rgb_s, depth_s = render(shard, pose, tracker.K, bbox, parts=seen)
+    launches = {"sharded_render": read_launches()}
+    rgb_1, depth_1 = rz.render(mesh, pose, tracker.K,
+                               rz.window_from_bbox(bbox), out_hw=(RES, RES))
+    d_err = float((depth_s - depth_1).abs().max())
+    off = float(((rgb_s - rgb_1).abs().amax(-1) > 2.0).float().mean())
+    hits = int((depth_1 > 0).sum())
+    print(f"rank {rank}: sharded render ({shard.fverts.shape[0]} faces a "
+          f"shard) against the single render: depth max|d| {d_err:.3e} mm, "
+          f"rgb >2 levels apart on {off:.2e} of pixels, {hits} hit pixels",
+          flush=True)
+    if d_err > 0.02 or off >= 2e-3 or hits < 1000:
+        raise AssertionError(f"rank {rank}: sharded render beyond JAX's bars")
+    coef, bb, hw, fb = seen["k1"]
+    e1 = check_pass1(f"rank {rank} shard", coef, bb, hw, fb)[0]
+    attr, win, cov = seen["k2"]
+    e2 = check_gather(f"rank {rank} owned rows of the shard", attr, win, cov)
+
+    zero_launches()
+    frame_rgb = trk.upload_rgb(rgb, dev)
+    frame_depth = trk.upload_depth(depth, dev)
+    sp_pose = lat.sp_track_step(tracker.model, cfg, spm)(
+        shard, tracker.K, tracker.mean, tracker.std, pose, frame_rgb,
+        frame_depth)
+    launches["sp_track_step"] = read_launches()
+    one_pose, _ = trk.track_step(tracker.model, cfg, mesh,
+                                 tracker.K, tracker.mean, tracker.std, pose,
+                                 frame_rgb, frame_depth)
+    p_err = float((sp_pose - one_pose).abs().max())
+    print(f"rank {rank}: sp_track_step against track_step: max|d pose| "
+          f"{p_err:.3e}; launches {launches}", flush=True)
+    if p_err > 1e-5:
+        raise AssertionError(f"rank {rank}: sp_track_step beyond 1e-5")
+
+    # dp_train_step on the whole batch's halves against train_step
+    n, lr = DP_BATCH, 1e-5
+    synth = train_setup(dev)[1]
+    cfg = tr.TrainConfig(resolution=RES, batch_size=n)
+    raw = synth.sample_batch(tr.step_generator(dev, 5, 0), n)
+    draws = [A.draw_augment(tr.step_generator(dev, 6, i), n, (RES, RES),
+                            cfg.aug, dev) for i in range(2)]
+    mean = torch.tensor([120, 110, 100, 0, 120, 110, 100, 0],
+                        dtype=torch.float32, device=dev)
+    std = torch.tensor([70, 70, 70, 300, 70, 70, 70, 300],
+                       dtype=torch.float32, device=dev)
+    runs = {}
+    for how in ("dp", "one"):
+        net = tracknet.init_params(tracknet.Se3TrackNet(image_size=RES).to(
+            dev), torch.Generator().manual_seed(SEED))
+        opt, _ = tr.make_optimizer(net, cfg, 1000)
+        step = spmd.dp_train_step(net, opt, cfg, spmd.make_mesh()) \
+            if how == "dp" else functools.partial(tr.train_step, net, opt)
+        losses, grads = [], []
+        for d in draws:
+            m = step(lr, None, raw, mean, std, aug_draws=d) if how == "dp" \
+                else step(lr, cfg, None, raw, mean, std, aug_draws=d)
+            losses.append(float(m["loss"]))
+            grads.append(compare.grads_of(net))
+        runs[how] = (net, losses, grads, net.state_dict())
+    bars = TRAIN_CHECKS["sampled"]
+    net = runs["one"][0]
+    rg = compare.compare_grads(net, runs["dp"][2][0], runs["one"][2][0],
+                               **bars["grads"])
+    rs = compare.compare_states(
+        net, runs["dp"][3], runs["one"][3],
+        compare.noisy(runs["dp"][2], runs["one"][2]), lr, 2,
+        **bars["states"])
+    rel = max(abs(a / b - 1) for a, b in zip(runs["dp"][1], runs["one"][1]))
+    worst = {k: round(v[1], 3) for k, v in {**rg, **rs}.items()
+             if k != "noisy"}
+    print(f"rank {rank}: dp_train_step (batch {n}, {n // world} a rank) "
+          f"against train_step: loss within {rel:.2e} relative; bars (worst "
+          f"ratio) {worst}", flush=True)
+    if rel > 1e-4 or compare.failed(rg, rs):
+        raise AssertionError(f"rank {rank}: dp_train_step beyond the card's "
+                             f"bars")
+
+    # times: the sharded render against the single render; K2 at the shape
+    sharded_ms = cuda_ms(lambda: render(shard, pose, tracker.K, bbox))
+    single_ms = cuda_ms(lambda: rz.render(
+        mesh, pose, tracker.K, rz.window_from_bbox(bbox),
+        out_hw=(RES, RES)))
+    print(f"timing rank {rank}: sharded render {sharded_ms:.4f} ms (CUDA "
+          f"events, median of {TIMING_RUNS}; its three collectives through "
+          f"gloo), single render {single_ms:.4f} ms {card}", flush=True)
+    k2 = report_kernel(
+        "gather_rows", f"(owned rows of a shard, ({RES}x{RES}) x "
+        f"{attr.shape[1]} rows, rank {rank})", lambda: rk.gather_rows(
+            attr, win, cov), lambda: rk.gather_rows_ref(attr, win, cov),
+        bound(nbytes(win, cov) + winner_rows_bytes(attr, win, cov)
+              + win.numel() * attr.shape[1] * 4, 0), card,
+        library_fn=lambda: torch.index_select(attr, 0, win))
+    return {"launches": launches, "k1_err": e1, "k2_err": e2,
+            "sharded_ms": sharded_ms, "single_ms": single_ms,
+            "k2": {"rows": int(win.numel()), "cols": int(attr.shape[1]),
+                   **{k: v for k, v in k2.items()}}}
+
+
+def run_two_ranks(card):
+    """Phase 12.5: two processes on the one card, gloo on CUDA tensors
+    (NCCL refuses two ranks on one device), each running ``rank_checks``;
+    joined with a timeout. Returns rank 0's result."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ranks_") as tmp:
+        t0 = time.perf_counter()
+        ctx = mp.start_processes(_rank_main, args=(2, tmp), nprocs=2,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t0 > RANKS_TIMEOUT_S:
+                    raise AssertionError("the two ranks did not end within "
+                                         f"{RANKS_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        import torch
+
+        outs = [torch.load(f"{tmp}/rank{r}.pt", weights_only=False)
+                for r in range(2)]
+    want = {"raster_pass1": 1, "gather_rows": 1, "raster_pass1_worklist": 0,
+            "pass2_shade": 0}
+    for r, o in enumerate(outs):
+        for path, got in o["launches"].items():
+            if got != want:
+                raise AssertionError(f"rank {r} {path} launches {got} != "
+                                     f"{want}")
+    print(f"two ranks: both ranks' checks passed in "
+          f"{time.perf_counter() - t0:.1f} s (process start-up included); "
+          f"launches per rank {outs[0]['launches']} {card}", flush=True)
+    return outs[0]
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4140,6 +4778,36 @@ def main() -> int:
     print(f"accuracy suite and bf16 phase: {time.perf_counter() - t11:.1f} s",
           flush=True)
 
+    # 12. The scale-out layer: an object ensemble and batched videos on the
+    # one card, ensemble training, the suite's ensemble mode, and two ranks
+    # sharing the card over gloo (face-sharded render and step, DP).
+    t12 = time.perf_counter()
+    print(f"scale-out: an ensemble of {ENSEMBLE_O} objects and {VIDEOS_V} "
+          f"batched videos ({ENSEMBLE_T} and {VIDEOS_T} frames at {RES}^2 on "
+          f"{FRAME_HW[0]}x{FRAME_HW[1]} frames), ensemble training at batch "
+          f"{TRAIN_BATCH}, run_suite(ensemble=True), two gloo ranks on the "
+          f"card", flush=True)
+    ens_case = ensemble_case(dev)
+    ens_launches, (ens_views, e1, e3) = run_ensemble_tracking(ens_case, card)
+    del ens_case
+    by_path["ensemble tracking serial"] = ens_launches[True]
+    by_path["ensemble tracking batched"] = ens_launches[False]
+    errs["raster_pass1"] = max(errs["raster_pass1"], e1)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
+    by_path["batched videos"], (video_views, e1, e3) = run_batched_videos(
+        tracker, pose0, rgb, depth, card)
+    errs["raster_pass1"] = max(errs["raster_pass1"], e1)
+    errs["pass2_shade"] = max(errs["pass2_shade"], e3)
+    run_ensemble_training(dev, card)
+    by_path["accuracy suite ensemble"] = run_suite_ensemble(dev, card)
+    ranks = run_two_ranks(card)
+    by_path["sharded render (rank 0 of 2)"] = \
+        ranks["launches"]["sharded_render"]
+    by_path["sp_track_step (rank 0 of 2)"] = ranks["launches"]["sp_track_step"]
+    errs["raster_pass1"] = max(errs["raster_pass1"], ranks["k1_err"])
+    errs["gather_rows"] = max(errs["gather_rows"], ranks["k2_err"])
+    print(f"scale-out phase: {time.perf_counter() - t12:.1f} s", flush=True)
+
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -4158,7 +4826,10 @@ def main() -> int:
             if any(r["kernel"] == name for r in datagen_shapes) else {}),
          **({"suite_lighting": [
              {k: v for k, v in r.items() if k != "library_ms"}
-             for r in suite_rows]} if name == "pass2_shade" else {})}
+             for r in suite_rows]} if name == "pass2_shade" else {}),
+         **({"scale_out_views": [ens_views[name], video_views[name]]}
+            if name in ens_views else {}),
+         **({"sharded_render": ranks["k2"]} if name == "gather_rows" else {})}
         for name in REPLACES]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -15,9 +15,11 @@ forced-occlusion recovery, offline and live
         --recovery cube --live_recovery cube --ablation cube \\
         --out accuracy_suite_results_torch.json
 
-Everything runs on ``--device`` (default ``cuda``). ``--ensemble`` (the
-object ensemble) is not ported and raises (ROADMAP P17). A recovery row
-that did not recover prints ``not recovered``.
+Everything runs on ``--device`` (default ``cuda``). ``--ensemble`` trains
+the untextured objects at once as an object ensemble and tracks their
+videos in one call (checkpointed to ``--ensemble_ckpt_dir``); each row's
+``eval_path`` says how it was evaluated. A recovery row that did not
+recover prints ``not recovered``.
 """
 from __future__ import annotations
 
@@ -41,10 +43,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--clean", action="store_true",
                    help="clean test videos (no background/occluder)")
     p.add_argument("--ensemble", action="store_true",
-                   help="train all objects as one ensemble (not ported: "
-                        "raises, ROADMAP P17)")
+                   help="train the untextured objects at once as one "
+                        "object ensemble and track their videos in one "
+                        "call (textured objects train and evaluate alone)")
     p.add_argument("--ensemble_ckpt_dir", default=None,
-                   help="checkpoint directory of each object's training "
+                   help="checkpoint directory: with --ensemble the whole "
+                        "ensemble's state (ensemble_last.msgpack, resumed "
+                        "by names, steps and recipe), else each object's "
                         "(resumed by name, steps, batch, res and recipe)")
     p.add_argument("--domain_shift", action="store_true",
                    help="also evaluate on domain-shifted videos: other "
@@ -145,10 +150,6 @@ def print_summary(payload: dict, domain_shift: bool) -> None:
 
 def main(argv=None) -> dict:
     args = build_parser().parse_args(argv)
-    if args.ensemble:
-        raise NotImplementedError(
-            "--ensemble: the object ensemble is not ported to PyTorch yet; "
-            "see ROADMAP.md (P17)")
 
     def checkpoint_results(partial):
         # persist after every object: a failure late in a long run must not
@@ -182,7 +183,7 @@ def main(argv=None) -> dict:
         results = SB.run_suite(
             _csv(args.objects), steps=args.steps, frames=args.frames,
             batch=args.batch, res=args.res, hard=not args.clean,
-            on_result=checkpoint_results,
+            on_result=checkpoint_results, ensemble=args.ensemble,
             ensemble_ckpt_dir=args.ensemble_ckpt_dir,
             domain_shift=args.domain_shift,
             long_horizon_frames=args.long_horizon,
@@ -204,7 +205,7 @@ def main(argv=None) -> dict:
                     "VOCap AUC @0.1m, synthetic clean videos",
         "steps": args.steps,
         "frames": args.frames,
-        "ensemble_training": False,
+        "ensemble_training": bool(args.ensemble),
         "device": args.device,
         "suite_wall_secs": round(time.time() - t0, 1),
         "results": results,

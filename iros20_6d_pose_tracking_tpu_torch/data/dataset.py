@@ -372,9 +372,12 @@ def render_pairs(mesh: rz.MeshArrays, K, A_in_cam, B_in_cam, resolution: int,
 def _synth_batch(mesh: rz.MeshArrays, K, gen: torch.Generator,
                  batch_size: int, resolution: int, object_width_mm: float,
                  max_trans: float, max_rot_deg: float, xyz_range,
-                 dr: DRComposite | None = None) -> dict:
-    """One sampler batch on the mesh's device: draw, poses, render."""
-    d = draw_synth(gen, batch_size, resolution, dr, mesh.fverts.device)
+                 dr: DRComposite | None = None, draws: dict | None = None
+                 ) -> dict:
+    """One sampler batch on the mesh's device: draw (or ``draws``, as
+    :func:`draw_synth` gives them), poses, render."""
+    d = draws if draws is not None else draw_synth(
+        gen, batch_size, resolution, dr, mesh.fverts.device)
     A_in_cam, B_in_cam = sample_poses(d, xyz_range, max_trans, max_rot_deg)
     return render_pairs(mesh, K, A_in_cam, B_in_cam, resolution,
                         object_width_mm, dr, d.get("dr"))
@@ -418,3 +421,38 @@ class SyntheticPairs:
                             self.resolution, self.object_width_mm,
                             self.max_trans, self.max_rot_deg, self.xyz_range,
                             self.dr)
+
+
+def ensemble_synth_batch(ens_mesh: rz.MeshArrays, K, keys, widths_mm,
+                         batch_size: int, resolution: int, max_trans: float,
+                         max_rot_deg: float, xyz_range,
+                         dr: DRComposite | None = None,
+                         draws: list | None = None) -> dict:
+    """Per-object synthetic pair batches: the input of the ensemble train
+    step (``parallel/spmd.ensemble_train_step``), for the accuracy suite's
+    ensemble mode.
+
+    ``ens_mesh``: O meshes stacked by ``parallel/spmd.stack_meshes``;
+    ``keys``: O generators, object o's batch drawn on ``keys[o]`` (the
+    caller keys them by (step, object)), or ``draws[o]`` given in their
+    place; ``widths_mm``: O ROI widths. Each object is one :func:`_synth_batch`
+    (one K1 and one ``pass2_shade`` launch over its 2 x ``batch_size``
+    views), quantized as the reference's PNG pair files are: RGB rounded to
+    uint8, depth rounded to millimetres in the uint16 range, held as int32
+    on the device (the integers ``tracking/tracker.upload_depth`` gives).
+    Returns the raw batch dict with leading (O, batch) axes."""
+    O = ens_mesh.fverts.shape[0]
+    out = []
+    for o in range(O):
+        raw = _synth_batch(
+            rz.mesh_of(ens_mesh, o), K, None if keys is None else keys[o],
+            batch_size, resolution, float(widths_mm[o]), max_trans,
+            max_rot_deg, xyz_range, dr,
+            None if draws is None else draws[o])
+        for k in ("rgbA", "rgbB"):
+            raw[k] = torch.clamp(torch.round(raw[k]), 0, 255).to(torch.uint8)
+        for k in ("depthA", "depthB"):
+            raw[k] = torch.clamp(torch.round(raw[k]), 0, 65535).to(
+                torch.int32)
+        out.append(raw)
+    return {k: torch.stack([r[k] for r in out]) for k in out[0]}

@@ -27,10 +27,14 @@ long-horizon protocol and its forced-failure recovery offline and live).
 The suite always renders full frames through K3; the JAX module's ``impl``
 has no counterpart.
 
-Everything runs on the device of the object's mesh. Not ported yet, and
-raising ``NotImplementedError``: the object ensemble
-(``train_objects_ensemble``, ``ensemble_evaluate_tracking``, and
-``run_suite(ensemble=True)``; ROADMAP.md P17).
+The object ensemble: :func:`train_objects_ensemble` trains every object at
+once (``parallel/spmd.ensemble_train_step`` over
+``data/dataset.ensemble_synth_batch``), :func:`ensemble_evaluate_tracking`
+tracks every object's video in one call
+(``parallel/spmd.multi_object_track_videos``), and ``run_suite(ensemble=
+True)`` uses both for the untextured objects.
+
+Everything runs on the device of the object's mesh.
 """
 from __future__ import annotations
 
@@ -91,9 +95,6 @@ SYMMETRIC_OBJECTS = frozenset({"cylinder", "sphere", "plate"})
 # the seed of frame i's draw (1000 + i, as the JAX module's PRNGKey).
 DROPOUT_P = 0.03
 DROPOUT_SEED = 1000
-
-_NOT_PORTED = "not ported to PyTorch yet; see ROADMAP.md"
-
 
 @dataclass
 class BenchObject:
@@ -233,8 +234,182 @@ def train_object(
         losses=losses)
 
 
-def train_objects_ensemble(*args, **kwargs):
-    raise NotImplementedError(f"train_objects_ensemble: {_NOT_PORTED} (P17)")
+def _ensemble_ckpt(path: str, ens, mean, std, metadata: dict):
+    """The ensemble's whole training state (stacked parameters, BatchNorm
+    statistics, Adam's moments and step, per-object statistics) as a
+    msgpack file of numpy arrays, written to a temporary file and renamed,
+    with its metadata beside it in ``path + ".json"``."""
+    import json
+
+    def np_(t):
+        return t.detach().cpu().numpy()
+
+    names = list(ens.params)
+    adam = [ens.opt.state.get(p, {}) for p in ens.params.values()]
+    tree = {"params": {k: np_(v) for k, v in ens.params.items()},
+            "buffers": {k: np_(v) for k, v in ens.buffers.items()},
+            "adam": {k: {f: np_(v) for f, v in st.items()}
+                     for k, st in zip(names, adam) if st},
+            "mean": np.asarray(mean, np.float32),
+            "std": np.asarray(std, np.float32)}
+    tmp = path + ".tmp"
+    ck.save_flax_checkpoint(tmp, tree)
+    os.replace(tmp, path)
+    with open(path + ".json", "w") as f:
+        json.dump(metadata, f, indent=2)
+
+
+def _restore_ensemble(ens, tree: dict):
+    """Load :func:`_ensemble_ckpt`'s tree into ``ens`` in place."""
+    with torch.no_grad():
+        for k, v in ens.params.items():
+            v.copy_(torch.from_numpy(np.array(tree["params"][k])))
+        for k, v in ens.buffers.items():
+            v.copy_(torch.from_numpy(np.array(tree["buffers"][k])))
+    for k, p in ens.params.items():
+        st = tree["adam"].get(k)
+        if st:
+            ens.opt.state[p] = {f: torch.as_tensor(np.array(v)).to(
+                p.device if f != "step" else "cpu") for f, v in st.items()}
+
+
+def train_objects_ensemble(
+    names,
+    K=YCB_K,
+    *,
+    steps: int = 5_000,
+    batch: int = 200,
+    res: int = 176,
+    dr: DRComposite | None = None,
+    aug: A.AugmentConfig | None = None,
+    log=_print_flush,
+    ckpt_dir: str | None = None,
+    ckpt_every: int = 1000,
+    device="cuda",
+) -> list[BenchObject]:
+    """Train every object at once as an object ensemble on ``device``: each
+    step samples every object's DR pairs
+    (``data/dataset.ensemble_synth_batch``) and applies every object's Adam
+    update (``parallel/spmd.ensemble_train_step`` on the one-card layout,
+    where the objects run one after the other, each through its own
+    network: per-object throughput as sequential runs, one stats pass and
+    one resumable run).
+
+    Per-object statistics (the reference's std of batch means over 4
+    batches, each object augmented apart), widths and meshes; otherwise
+    :func:`train_object`'s recipe. Step i samples object o from
+    ``step_generator(device, 7, i, o)`` and augments it from ``(7, 10**6 +
+    i, o)``; the statistics' batch i from ``(900, i, o)`` and ``(i, o)``.
+    Returns BenchObjects for :func:`evaluate_tracking`.
+
+    ``ckpt_dir``: the full state is saved every ``ckpt_every`` steps and at
+    the end to ``<ckpt_dir>/ensemble_last.msgpack``; a run of the same
+    names, steps and recipe resumes from it and consumes the batches the
+    uninterrupted run would have (loss entries before the resume point are
+    not replayed)."""
+    from ..data.dataset import ensemble_synth_batch
+    from ..parallel import spmd
+
+    dev = torch.device(device)
+    se3.pin_full_fp32()
+    tms = [OBJECTS[n]() if isinstance(n, str) else n for n in names]
+    names = [n if isinstance(n, str) else f"obj{i}"
+             for i, n in enumerate(names)]
+    O = len(tms)
+    ens_mesh = spmd.stack_meshes(tms, dev)
+    widths = [tm.diameter * 1000 * 1.1 for tm in tms]
+    cfg = tr.TrainConfig(
+        resolution=res, batch_size=batch, learning_rate=1e-3,
+        trans_normalizer=0.02, rot_normalizer=15 * np.pi / 180,
+        aug=aug if aug is not None else A.AugmentConfig())
+    xyz_range = ((-0.12, 0.12), (-0.09, 0.09), (0.45, 0.85))
+    Kt = torch.as_tensor(np.asarray(K), dtype=torch.float32).to(dev)
+    recipe = _recipe_fingerprint(dr, cfg.aug, dev)
+
+    def sample(*key):
+        return ensemble_synth_batch(
+            ens_mesh, Kt, [tr.step_generator(dev, *key, o) for o in range(O)],
+            widths, batch, res, 0.02, 15.0, xyz_range, dr)
+
+    ckpt_path = restored = None
+    if ckpt_dir:
+        ckpt_path = os.path.join(ckpt_dir, "ensemble_last.msgpack")
+        if os.path.exists(ckpt_path):
+            meta = ck.load_metadata(ckpt_path)
+            if (meta.get("names") == list(names)
+                    and int(meta.get("total_steps", -1)) == steps
+                    and meta.get("recipe") == recipe):
+                restored = ck.load_flax_checkpoint(ckpt_path)
+            else:
+                log(f"[ensemble x{O}] ignoring {ckpt_path}: different "
+                    "names/steps/recipe")
+
+    if restored is not None:
+        mean = np.array(restored["mean"], np.float32)
+        std = np.array(restored["std"], np.float32)
+    else:
+        zero = torch.zeros(8, device=dev)
+        one = torch.ones(8, device=dev)
+        batch_means = []
+        for i in range(4):
+            raw = sample(900, i)
+            batch_means.append(torch.stack([torch.cat(tr.preprocess_batch(
+                tr.step_generator(dev, i, o),
+                {k: v[o] for k, v in raw.items()}, zero, one, cfg,
+                train=True)[:2], -1).mean(dim=(0, 1, 2)) for o in range(O)]))
+        arr = torch.stack(batch_means).cpu().numpy()  # (4, O, 8)
+        mean, std = arr.mean(axis=0), arr.std(axis=0)
+    mean_t = torch.as_tensor(mean).to(dev)
+    std_t = torch.as_tensor(std).to(dev)
+
+    pairs = []
+    for o in range(O):
+        net = tracknet.Se3TrackNet(image_size=res).to(dev)
+        tracknet.init_params(net, torch.Generator().manual_seed(o))
+        opt, lr_at = tr.make_optimizer(net, cfg, steps_per_epoch=10_000)
+        pairs.append((net, opt))
+    ens = spmd.stack_states(pairs)
+    del pairs
+    start_step = 0
+    if restored is not None:
+        _restore_ensemble(ens, restored)
+        start_step = int(ck.load_metadata(ckpt_path)["step"]) + 1
+        log(f"[ensemble x{O}] resumed from {ckpt_path} at step {start_step}")
+    step = spmd.ensemble_train_step(ens.model, ens.opt, cfg,
+                                    spmd.make_mesh(1), per_object_stats=True)
+
+    key = 7
+    losses = {n: [] for n in names}
+    t0 = time.time()
+    for i in range(start_step, steps):
+        m = step(ens, lr_at(i),
+                 [tr.step_generator(dev, key, 10**6 + i, o)
+                  for o in range(O)], sample(key, i), mean_t, std_t)
+        if i % 100 == 0 or i == steps - 1:
+            lv = m["loss"].cpu().numpy()
+            for o, n in enumerate(names):
+                losses[n].append(float(lv[o]))
+            log(f"[ensemble x{O}] step {i}: " + " ".join(
+                f"{n}={lv[o]:.5f}" for o, n in enumerate(names))
+                + f" ({time.time() - t0:.0f}s)")
+        if ckpt_path and i and (i % ckpt_every == 0 or i == steps - 1):
+            _ensemble_ckpt(ckpt_path, ens, mean, std, {
+                "names": list(names), "step": int(i),
+                "total_steps": int(steps), "batch": int(batch),
+                "res": int(res), "recipe": recipe})
+    train_secs = time.time() - t0
+
+    objs = []
+    for o, (n, tm) in enumerate(zip(names, tms)):
+        w = float(widths[o])
+        objs.append(BenchObject(
+            name=n, tm=tm, mesh=rz.upload(tm, dev), model=ens.module(o).eval(),
+            mean=mean_t[o], std=std_t[o], width_mm=w,
+            tcfg=trk.TrackerConfig(
+                resolution=res, trans_normalizer=0.02,
+                rot_normalizer=15 * np.pi / 180, object_width_mm=w),
+            train_secs=train_secs / O, losses=losses[n]))
+    return objs
 
 
 def hard_aug() -> A.AugmentConfig:
@@ -243,9 +418,42 @@ def hard_aug() -> A.AugmentConfig:
     return A.AugmentConfig(depth_missing_prob=0.15)
 
 
-def ensemble_evaluate_tracking(*args, **kwargs):
-    raise NotImplementedError(
-        f"ensemble_evaluate_tracking: {_NOT_PORTED} (P17)")
+def ensemble_evaluate_tracking(objs, gt: np.ndarray, stacked_rgb,
+                               stacked_depth, K=YCB_K,
+                               init_poses=None) -> list[dict]:
+    """Track every object's test video in one call and score each with the
+    :func:`evaluate_tracking` protocol, on the device of the first object's
+    mesh: the networks stacked (``parallel/spmd.stack_states``), the meshes
+    padded to one face count (``parallel/spmd.stack_meshes``), each object
+    at its own width and statistics through
+    ``parallel/spmd.multi_object_track_videos`` on the one-card layout
+    (serial: one ``track_video`` an object).
+
+    ``stacked_rgb``/``stacked_depth``: (O, T, H, W[, 3]) uint8 / uint16
+    arrays. ``init_poses``: (O, 4, 4) (default gt[0] for every object)."""
+    from ..parallel import spmd
+
+    dev = objs[0].mesh.fverts.device
+    O = len(objs)
+    ens = spmd.stack_states([o.model for o in objs])
+    ens_meshes = spmd.stack_meshes([o.tm for o in objs], dev)
+    mean = torch.stack([torch.as_tensor(o.mean).to(dev) for o in objs])
+    std = torch.stack([torch.as_tensor(o.std).to(dev) for o in objs])
+    if init_poses is None:
+        init_poses = np.tile(gt[:1], (O, 1, 1))
+    run = spmd.multi_object_track_videos(ens.model, objs[0].tcfg,
+                                         spmd.make_mesh(1),
+                                         per_object_stats=True)
+    poses = run(ens, ens_meshes,
+                torch.as_tensor(np.asarray(K), dtype=torch.float32).to(dev),
+                mean, std,
+                torch.as_tensor(np.asarray(init_poses),
+                                dtype=torch.float32).to(dev),
+                trk.upload_rgb(np.asarray(stacked_rgb)[:, 1:], dev),
+                trk.upload_depth(np.asarray(stacked_depth)[:, 1:], dev),
+                [o.width_mm for o in objs]).cpu().numpy()
+    return [_score_poses(obj, gt, np.concatenate([gt[:1], poses[o]], axis=0))
+            for o, obj in enumerate(objs)]
 
 
 def make_gt_trajectory(T: int, seed: int = 5,
@@ -561,14 +769,24 @@ def run_suite(
     device="cuda",
 ) -> list[dict]:
     """Train, track and score each object on ``device``: the accuracy table,
-    one dict per object (the JAX ``run_suite``'s keys; ``eval_path`` is
-    always ``"sequential"``).
+    one dict per object (the JAX ``run_suite``'s keys).
 
     Defaults are the measured recipe: batch 200 for 5,000 steps, 1M DR
-    pairs an object. ``ensemble_ckpt_dir`` is ``train_object``'s checkpoint
-    directory (each object resumes from its own file). ``domain_shift``:
-    also score each object on a shifted video (other lighting, photometric
-    drift, sensor-model depth, motion blur, noisy initialization;
+    pairs an object. ``ensemble``: the untextured objects train at once
+    (:func:`train_objects_ensemble`, checkpointed to
+    ``ensemble_ckpt_dir``) and their matched (and domain-shifted) videos
+    are tracked in one call (:func:`ensemble_evaluate_tracking`);
+    textured objects cannot ride the ensemble (``stack_meshes`` bakes
+    their textures, which would train on baked renders and test on the
+    real texture), so they train with :func:`train_object` and evaluate
+    alone. Each row's ``eval_path`` says which: ``"ensemble"``,
+    ``"sequential"``, or ``"sequential_fallback"`` where the ensemble
+    evaluation ran out of device memory (``torch.OutOfMemoryError``, the
+    one failure caught; anything else raises). Without ``ensemble``,
+    ``ensemble_ckpt_dir`` is :func:`train_object`'s checkpoint directory
+    (each object resumes from its own file). ``domain_shift``: also score
+    each object on a shifted video (other lighting, photometric drift,
+    sensor-model depth, motion blur, noisy initialization;
     ``eval/domain_shift.py``) -> ``domain_shifted``.
     ``long_horizon_frames`` > 0: the closed-loop long-horizon protocol on
     every object -> ``long_horizon``; on ``recovery_objects`` also with a
@@ -580,32 +798,96 @@ def run_suite(
     called after every object (incremental persistence).
 
     Beyond the JAX signature: ``K`` and ``hw``, the camera and frame size
-    of every test video (the JAX suite fixes YCB's), and ``device``.
-    ``ensemble=True`` raises ``NotImplementedError`` (ROADMAP P17) before
-    any training."""
+    of every test video (the JAX suite fixes YCB's), and ``device``."""
     unknown = [n for n in object_names if n not in OBJECTS]
     if unknown:  # fail before hours of training, not at the bad name
         raise KeyError(
             f"unknown object(s) {unknown}; available: {sorted(OBJECTS)}")
-    if ensemble:
-        raise NotImplementedError(
-            f"run_suite(ensemble=True): {_NOT_PORTED} (P17)")
     dr = DRComposite() if hard else None
     aug = hard_aug() if hard else None
     sensor = shift_sensor if shift_sensor is not None else DS.SensorModel()
     gt = make_gt_trajectory(frames)
 
+    objs = None
+    if ensemble:
+        plain_names = [n for n in object_names
+                       if OBJECTS[n]().texture is None]
+        tex_names = [n for n in object_names if n not in plain_names]
+        by_name = {}
+        if plain_names:
+            by_name.update(zip(plain_names, train_objects_ensemble(
+                plain_names, K, steps=steps, batch=batch, res=res, dr=dr,
+                aug=aug, log=log, ckpt_dir=ensemble_ckpt_dir,
+                device=device)))
+        for i, n in enumerate(tex_names):
+            by_name[n] = train_object(
+                OBJECTS[n](), K, name=n, steps=steps, batch=batch, res=res,
+                dr=dr, aug=aug, seed_offset=len(plain_names) + i, log=log,
+                ckpt_dir=ensemble_ckpt_dir, device=device)
+        objs = [by_name[n] for n in object_names]
+
+    def shifted_video(obj, idx):
+        """The domain-shifted video (noise seeded 100 + idx) and the noisy
+        initialization (seeded 500 + idx) of object ``idx``."""
+        rgb2, dep2 = render_test_video(
+            obj.mesh, gt, K, hw=hw, hard=hard,
+            lighting=sensor.lighting(obj.mesh.fverts.device))
+        rgb_s, dep_s = _quantize(*DS.shift_video(rgb2, dep2, gt, K, sensor,
+                                                 seed=100 + idx))
+        return rgb_s, dep_s, _init_pose_np(500 + idx, gt[0], sensor)
+
+    # The ensemble evaluation: one call tracks every untextured object's
+    # matched video, one more the shifted ones.
+    ens_matched, ens_shifted, ens_fallback = {}, {}, False
+    if objs is not None:
+        plain = [(i, o) for i, o in enumerate(objs) if o.tm.texture is None]
+        try:
+            if plain:
+                sub = [o for _, o in plain]
+                vids = [_quantize(*render_test_video(o.mesh, gt, K, hw=hw,
+                                                     hard=hard)) for o in sub]
+                ens_matched = dict(zip([i for i, _ in plain],
+                                       ensemble_evaluate_tracking(
+                                           sub, gt,
+                                           np.stack([v[0] for v in vids]),
+                                           np.stack([v[1] for v in vids]),
+                                           K=K)))
+                del vids
+                if domain_shift:
+                    svids = [shifted_video(o, i) for i, o in plain]
+                    ens_shifted = dict(zip([i for i, _ in plain],
+                                           ensemble_evaluate_tracking(
+                                               sub, gt,
+                                               np.stack([v[0] for v in svids]),
+                                               np.stack([v[1] for v in svids]),
+                                               K=K, init_poses=np.stack(
+                                                   [v[2] for v in svids]))))
+                    del svids
+        except torch.OutOfMemoryError as e:
+            log(f"ensemble eval ran out of device memory ({e!r}); falling "
+                "back to sequential per-object eval: rows carry "
+                "eval_path='sequential_fallback'")
+            ens_matched, ens_shifted, ens_fallback = {}, {}, True
+    seq_path = "sequential_fallback" if ens_fallback else "sequential"
+
     results = []
     for idx, name in enumerate(object_names):
-        obj = train_object(
-            OBJECTS[name](), K, name=name, steps=steps, batch=batch, res=res,
-            dr=dr, aug=aug, seed_offset=idx, log=log,
-            ckpt_dir=ensemble_ckpt_dir, device=device)
+        if objs is not None:
+            obj = objs[idx]
+        else:
+            obj = train_object(
+                OBJECTS[name](), K, name=name, steps=steps, batch=batch,
+                res=res, dr=dr, aug=aug, seed_offset=idx, log=log,
+                ckpt_dir=ensemble_ckpt_dir, device=device)
         dev = obj.mesh.fverts.device
-        frames_rgb, frames_depth = _quantize(*render_test_video(
-            obj.mesh, gt, K, hw=hw, hard=hard))
-        r = evaluate_tracking(obj, gt, frames_rgb, frames_depth, K=K)
-        r["eval_path"] = "sequential"
+        if idx in ens_matched:
+            r = ens_matched[idx]
+            r["eval_path"] = "ensemble"
+        else:
+            frames_rgb, frames_depth = _quantize(*render_test_video(
+                obj.mesh, gt, K, hw=hw, hard=hard))
+            r = evaluate_tracking(obj, gt, frames_rgb, frames_depth, K=K)
+            r["eval_path"] = seq_path
         r["train_secs"] = obj.train_secs
         r["symmetric"] = name in SYMMETRIC_OBJECTS
         r.pop("poses")
@@ -617,16 +899,19 @@ def run_suite(
             f"mean {r['add_mean_mm']:.1f}mm "
             f"(hold-init {r['baseline_add_mean_mm']:.1f}mm)")
         if domain_shift:
-            rgb2, dep2 = render_test_video(obj.mesh, gt, K, hw=hw, hard=hard,
-                                           lighting=sensor.lighting(dev))
-            rs = _shifted_eval(obj, gt, rgb2, dep2, sensor, 100 + idx,
-                               500 + idx, K)
+            if idx in ens_shifted:
+                rs, shift_path = ens_shifted[idx], "ensemble"
+            else:
+                rgb_s, dep_s, init = shifted_video(obj, idx)
+                rs = evaluate_tracking(obj, gt, rgb_s, dep_s, K=K,
+                                       init_pose=init)
+                shift_path = seq_path
             r["domain_shifted"] = {
                 k: rs[k] for k in (
                     "add_auc", "adi_auc", "add_mean_mm", "add_max_mm",
                     "final_trans_err_mm")
             }
-            r["domain_shifted"]["eval_path"] = "sequential"
+            r["domain_shifted"]["eval_path"] = shift_path
             log(f"[{name}] domain-shifted: "
                 f"ADD AUC {rs['add_auc']:.2f} "
                 f"ADD-S AUC {rs['adi_auc']:.2f} "

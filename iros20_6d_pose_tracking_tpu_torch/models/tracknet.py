@@ -53,13 +53,22 @@ class BatchNorm2d(nn.BatchNorm2d):
     statistics), and the running buffers are written from the biased
     variance: ``running = (1 - momentum) * running + momentum * batch``.
     Eval mode is unchanged. The buffers keep the reference's names, so
-    reference checkpoints load with ``strict=True``."""
+    reference checkpoints load with ``strict=True``.
+
+    ``sync``: None, or (reduce, ranks) while a data-parallel step runs
+    (``parallel/spmd.py``): ``reduce`` sums a tensor over the ``ranks``
+    ranks that share the batch, carrying autograd, and train mode then
+    normalizes with the statistics of the whole batch (sync BatchNorm)."""
+
+    sync = None
 
     def forward(self, x):
         # A bfloat16 x is normalized in float32 against the float32
         # statistics and parameters, and rounded to bfloat16 once.
         if not self.training:
             return super().forward(x)
+        if self.sync is not None:
+            return self._synced(x, *self.sync)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
@@ -70,6 +79,24 @@ class BatchNorm2d(nn.BatchNorm2d):
             self.running_var.mul_(1.0 - m).add_(var, alpha=m)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _synced(self, x, reduce, ranks: int):
+        """Train mode over a batch split across ``ranks`` ranks of equal
+        shares: the mean, then the biased variance around it, each a sum
+        over every rank's pixels (two passes, as one device computes)."""
+        x32 = x.to(torch.float32)
+        n = x32.numel() // x32.shape[1] * ranks
+        mean = reduce(x32.sum(dim=(0, 2, 3))) / n
+        d = x32 - mean[:, None, None]
+        var = reduce((d * d).sum(dim=(0, 2, 3))) / n
+        y = d * (torch.rsqrt(var + self.eps) * self.weight)[:, None, None] \
+            + self.bias[:, None, None]
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.detach(), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.detach(), alpha=m)
+            self.num_batches_tracked.add_(1)
+        return y.to(x.dtype)
 
 
 class Conv2d(nn.Conv2d):

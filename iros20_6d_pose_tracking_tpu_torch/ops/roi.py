@@ -12,7 +12,9 @@ int32, uint8 or float32, and the crop stays bit-exact.
 
 The crop also takes N bboxes (N, 4, 2) at once (the N hypotheses of one
 frame, JAX's ``vmap`` of ``crop_bbox``): one gather gives (N, r, r[, C]),
-and view n is the same bits as the call on bbox n alone.
+and view n is the same bits as the call on bbox n alone. With N frames
+(N, H, W[, C]) beside the N bboxes, view n crops frame n (the V videos or O
+objects of ``parallel/spmd.py``, each at its own frame).
 """
 from __future__ import annotations
 
@@ -27,11 +29,14 @@ def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
     as a (4, 2) int32 tensor of (v, u) = (row, col) corners; a batch of
     poses (..., 4, 4) gives (..., 4, 2). ``scale`` multiplies the pose
     translation ((1000, 1000, 1000) for metres -> mm). ``torch.round``
-    rounds half to even, like ``jnp.round``."""
+    rounds half to even, like ``jnp.round``. ``scale_size`` may be a tensor
+    of one size per pose (...,)."""
     # Constants come from device kernels, not torch.tensor(): a copy from
     # pageable host memory would make the host wait for the stream.
     obj = [pose[..., i, 3, None] * scale[i] for i in range(3)]
     offset = scale_size / 2.0
+    if torch.is_tensor(offset) and offset.dim():
+        offset = offset[..., None]  # one size a pose, over the 4 corners
     corner = torch.arange(4, device=pose.device)
     dx = torch.where(corner >= 2, 1.0, -1.0) * offset  # [-1, -1, 1, 1]
     dy = torch.where(corner % 2 == 1, 1.0, -1.0) * offset  # [-1, 1, -1, 1]
@@ -53,13 +58,16 @@ def bbox_window(bbox: torch.Tensor):
 def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
                         left: torch.Tensor, crop_h: torch.Tensor,
                         crop_w: torch.Tensor, out_hw: tuple[int, int],
-                        ) -> torch.Tensor:
+                        per_view: bool = False) -> torch.Tensor:
     """Nearest resample of ``img[top:top+crop_h, left:left+crop_w]`` to
     ``out_hw``; out-of-image source pixels read as 0. ``img`` is (H, W) or
     (H, W, C); the bbox arguments are int tensors on ``img``'s device, 0-d
-    for one crop or (N,) for N crops, which give (N, H_out, W_out[, C])."""
+    for one crop or (N,) for N crops, which give (N, H_out, W_out[, C]).
+    ``per_view``: ``img`` is N frames (N, H, W[, C]) and crop n reads frame
+    n."""
     H_out, W_out = out_hw
-    h, w = img.shape[0], img.shape[1]
+    lead = 1 if per_view else 0
+    h, w = img.shape[lead], img.shape[lead + 1]
     dev = img.device
     oi = torch.arange(H_out, dtype=torch.int32, device=dev)
     oj = torch.arange(W_out, dtype=torch.int32, device=dev)
@@ -74,9 +82,13 @@ def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
     valid_c = (src_c >= 0) & (src_c < w)
     rr = src_r.clamp(0, h - 1)
     cc = src_c.clamp(0, w - 1)
-    out = img[rr[..., :, None], cc[..., None, :]]  # one gather for N crops
+    if per_view:
+        n = torch.arange(img.shape[0], device=dev)[:, None, None]
+        out = img[n, rr[:, :, None], cc[:, None, :]]
+    else:
+        out = img[rr[..., :, None], cc[..., None, :]]  # one gather, N crops
     mask = valid_r[..., :, None] & valid_c[..., None, :]
-    if img.ndim == 3:
+    if img.ndim == 3 + lead:
         mask = mask[..., None]
     return torch.where(mask, out, torch.zeros((), dtype=img.dtype, device=dev))
 
@@ -84,14 +96,16 @@ def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
 def crop_bbox(color: torch.Tensor, depth: torch.Tensor, bbox: torch.Tensor,
               output_size: tuple[int, int], seg: torch.Tensor | None = None):
     """Crop + nearest-resize color and depth (and ``seg``, where given) to
-    the bbox window, or to each of N bboxes (N, 4, 2). ``output_size`` is
-    (W, H), the cv2 convention of the reference."""
+    the bbox window, or to each of N bboxes (N, 4, 2), from one frame or
+    from N frames ((N, H, W, 3) color, crop n from frame n).
+    ``output_size`` is (W, H), the cv2 convention of the reference."""
     W_out, H_out = output_size
     left, right, top, bottom = bbox_window(bbox)
     crop_h = bottom - top
     crop_w = right - left
+    per_view = bbox.dim() == 3 and color.dim() == 4
     out = tuple(crop_resize_nearest(img, top, left, crop_h, crop_w,
-                                    (H_out, W_out))
+                                    (H_out, W_out), per_view)
                 for img in ((color, depth) if seg is None
                             else (color, depth, seg)))
     return out

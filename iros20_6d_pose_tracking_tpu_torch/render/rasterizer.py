@@ -99,23 +99,40 @@ def _rotate(x: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
     return x @ R.transpose(-1, -2)
 
 
-def _rotate_views(x: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+def _rotate_views(x: torch.Tensor, R: torch.Tensor,
+                  stacked: bool = False) -> torch.Tensor:
     """One x (..., 3) rotated by each of B rotations R (B, 3, 3): (B, ...,
     3). One matrix product against the B rotations side by side, whose
-    columns are each view's x @ R_b^T."""
+    columns are each view's x @ R_b^T. ``stacked``: x is (B, ..., 3), one
+    per view (the meshes of ``parallel/spmd.stack_meshes``), and view b
+    is x[b] @ R_b^T."""
     if R.dim() == 2:
         return _rotate(x, R)
+    if stacked:
+        B = R.shape[0]
+        return (x.reshape(B, -1, 3) @ R.transpose(-1, -2)).reshape(x.shape)
     B = R.shape[0]
     cols = R.permute(2, 0, 1).reshape(3, 3 * B)  # [j, 3b + i] = R[b, i, j]
     out = x.reshape(-1, 3) @ cols
     return out.reshape(x.shape[:-1] + (B, 3)).movedim(-2, 0)
 
 
+def is_stacked(mesh: MeshArrays) -> bool:
+    """True for a stack of B meshes, one per view: fverts (B, F, 3, 3)."""
+    return mesh.fverts.dim() == 4
+
+
+def mesh_of(stack: MeshArrays, b: int) -> MeshArrays:
+    """Mesh b of a stack (views of its fields)."""
+    return MeshArrays(*(None if f is None else f[b] for f in stack))
+
+
 def _project(mesh: MeshArrays, pose, K, window, out_hw, near):
     """Face corners -> window pixel space. ``window`` is four numbers or a
     (..., 4) tensor (:func:`window_from_bbox`). Returns (fx, fy, fiz,
     fvalid, R, t) with (F, 3) screen coordinates and inverse depths per
-    face. A batch of poses (B, 4, 4) with windows (B, 4) gives (B, F, 3)."""
+    face. A batch of poses (B, 4, 4) with windows (B, 4) gives (B, F, 3),
+    from one mesh or from a stack of B meshes, view b from mesh b."""
     H, W = out_hw
     dev = mesh.fverts.device
     lead = pose.shape[:-2]
@@ -126,7 +143,8 @@ def _project(mesh: MeshArrays, pose, K, window, out_hw, near):
             lead + (1, 1)) for w in window]
     R = pose[..., :3, :3]
     t = pose[..., :3, 3]
-    xc = _rotate_views(mesh.fverts, R) + t[..., None, None, :]  # (.., F, 3, 3)
+    xc = _rotate_views(mesh.fverts, R, is_stacked(mesh)) \
+        + t[..., None, None, :]  # (.., F, 3, 3)
     z = xc[..., 2]
     valid = z > near
     inv_z = torch.where(valid, 1.0 / torch.where(valid, z, 1.0), 0.0)
@@ -197,11 +215,13 @@ def _backface_mask(mesh: MeshArrays, R, t) -> torch.Tensor:
     closest visible surface of a closed mesh seen from outside. Degenerate
     faces and zero shading normals give sign 0 and are kept. B poses, R (B,
     3, 3) and t (B, 3), give (B, F), view b the same bits as pose b alone
-    (the rotations go through :func:`_rotate_views`, as in the projection)."""
-    v_cam = _rotate_views(mesh.fverts, R) + t[..., None, None, :]
+    (the rotations go through :func:`_rotate_views`, as in the projection);
+    a stack of B meshes gives view b from mesh b."""
+    per_view = is_stacked(mesh)
+    v_cam = _rotate_views(mesh.fverts, R, per_view) + t[..., None, None, :]
     gn = torch.linalg.cross(v_cam[..., 1, :] - v_cam[..., 0, :],
                             v_cam[..., 2, :] - v_cam[..., 0, :], dim=-1)
-    n_avg = _rotate_views(mesh.fnormals.mean(dim=1), R)
+    n_avg = _rotate_views(mesh.fnormals.mean(dim=-2), R, per_view)
     gn = gn * torch.sign(torch.sum(gn * n_avg, dim=-1, keepdim=True))
     centroid = v_cam.mean(dim=-2)
     return torch.sum(gn * centroid, dim=-1) > 0.0
@@ -274,6 +294,9 @@ def render(
     """Render the mesh at ``pose`` (OpenCV camera frame) into the ROI window.
 
     Args:
+      mesh: one mesh, or a stack of B meshes (``parallel/spmd
+        .stack_meshes``: (B, F, ...) fields, no texture) for B poses, view b
+        of mesh b.
       pose: (4, 4) object-in-camera, on the mesh's device, like ``K``; or
         B poses (B, 4, 4), rendered through K1 (culled or not) in one K1 and
         one pass-2 launch, view b the same bits as ``render`` of pose b

@@ -128,11 +128,12 @@ def pack_channels(rgb, depth):
 
 def normalize_pair(rgbA, depthA, rgbB, depthB, poseA, mean, std):
     """OffsetDepth + NormalizeChannels + pack, both branches. ``mean`` and
-    ``std`` are the 8-channel training statistics (A rgbd, B rgbd)."""
+    ``std`` are the 8-channel training statistics (A rgbd, B rgbd) on the
+    last axis: (8,), or one pair a view broadcast against the images."""
     bufA = pack_channels(rgbA, depthproc.offset_depth(depthA, poseA))
     bufB = pack_channels(rgbB, depthproc.offset_depth(depthB, poseA))
-    bufA = (bufA - mean[:4]) / std[:4]
-    bufB = (bufB - mean[4:]) / std[4:]
+    bufA = (bufA - mean[..., :4]) / std[..., :4]
+    bufB = (bufB - mean[..., 4:]) / std[..., 4:]
     return bufA, bufB
 
 

@@ -10,7 +10,7 @@ adaptive poses follow JAX's ``track_video`` within the bars of
 tests/test_torch_tracker.py. A mode slowed mid-video triggers a reprobe that
 keeps the other modes' samples.
 """
-import time
+import types
 
 import jax.numpy as jnp
 import numpy as np
@@ -25,6 +25,7 @@ from iros20_6d_pose_tracking_tpu_torch.models import convert, tracknet
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
 from iros20_6d_pose_tracking_tpu_torch.tracking import hypotheses as hy
+from iros20_6d_pose_tracking_tpu_torch.tracking import dispatch
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 from iros20_6d_pose_tracking_tpu_torch.tracking.dispatch import (
     AdaptiveVideoTracker)
@@ -201,11 +202,19 @@ def test_reprobe_keeps_the_other_modes_samples(tracker, frames, ref,
     slowed once it has run a steady segment: the dispatcher settles on the
     scan, re-probes when it collapses, keeps the per-frame sample in the
     table until that mode is measured again, and settles on the per-frame
-    mode. The poses do not change."""
+    mode. The poses do not change.
+
+    The dispatcher's clock is a fake one that only the segments advance:
+    every frame costs 1 ms in either mode, and a slowed segment costs more,
+    so no stall of the host can change a decision."""
     rgbs, deps, pose0 = _video(frames, 32)
     d = AdaptiveVideoTracker(tracker, candidates=(4, 1), probe_frames=4)
     scan, per_frame = d._run_scan, d._run_per_frame
     tables = []  # the table as each per-frame segment starts
+    now = [0.0]  # the fake clock, s
+    frame_s = 1e-3
+    monkeypatch.setattr(dispatch, "time",
+                        types.SimpleNamespace(perf_counter=lambda: now[0]))
 
     def steady_seen():
         return any(ph == "steady" for *_, ph in d.segments)
@@ -215,15 +224,17 @@ def test_reprobe_keeps_the_other_modes_samples(tracker, frames, ref,
 
     def slow_scan(pose, buf, sbuf, rgb, dep, a, b, c, g0):
         out = scan(pose, buf, sbuf, rgb, dep, a, b, c, g0)
+        now[0] += frame_s * (b - a)
         if steady_seen():  # 4x its sample: past reprobe_factor 2
-            time.sleep(3 * scan_sample_s() * (b - a))
+            now[0] += 3 * scan_sample_s() * (b - a)
         return out
 
     def slow_per_frame(pose, buf, sbuf, rgb, dep, a, b, g0):
         tables.append(dict(d.probe_ms_per_frame))
         out = per_frame(pose, buf, sbuf, rgb, dep, a, b, g0)
+        now[0] += frame_s * (b - a)
         if b - a == 1 and d.segments and not steady_seen():  # not warm-up
-            time.sleep(4 * scan_sample_s())  # past the 3x cutoff
+            now[0] += 4 * scan_sample_s()  # past the 3x cutoff
         return out
 
     monkeypatch.setattr(d, "_run_scan", slow_scan)

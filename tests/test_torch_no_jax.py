@@ -7,7 +7,8 @@ the check runs in a fresh interpreter: import every module of the port, run
 one tracking step, one multi-hypothesis step, two windowed stream pushes, an
 adaptive three-frame video, a DR scene, a depth fill, a two-frame hard test
 video with its scores, one synthetic train step, the sensor model over two
-frames and one bf16 tracking step on the CPU, and look at
+frames, one bf16 tracking step, a two-object batched ensemble step and a
+one-rank face-sharded step on the CPU, and look at
 ``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
 port loads neither PyYAML nor Pillow (the CLIs and the file-backed dataset
@@ -110,6 +111,21 @@ p16, _ = trk.track_step(t16.model, t16.cfg, t16.mesh, t16.K, t16.mean,
                         t16.std, torch.from_numpy(pose), torch.from_numpy(rgb),
                         trk.upload_depth(depth, "cpu"))
 assert p16.dtype == torch.float32 and torch.isfinite(p16).all()
+from iros20_6d_pose_tracking_tpu_torch.parallel import latency, spmd
+ens = spmd.stack_states([t.model, t.model])
+run = spmd.multi_object_track_videos(ens.model, t.cfg, spmd.make_mesh(1),
+                                     serial=False)
+two = run(ens, spmd.stack_meshes([M.make_cube(0.08)] * 2, "cpu"), t.K,
+          t.mean, t.std, torch.from_numpy(np.stack([pose] * 2)),
+          trk.upload_rgb(np.stack([rgb[None]] * 2), "cpu"),
+          trk.upload_depth(np.stack([depth[None]] * 2), "cpu"), [110.0, 90.0])
+assert two.shape == (2, 1, 4, 4) and torch.isfinite(two).all()
+sp = latency.sp_mesh(1)
+p_sp = latency.sp_track_step(t.model, t.cfg, sp)(
+    latency.shard_mesh_faces(t.mesh, sp), t.K, t.mean, t.std,
+    torch.from_numpy(pose), torch.from_numpy(rgb),
+    trk.upload_depth(depth, "cpu"))
+assert torch.isfinite(p_sp).all()
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 pkg = sorted(m for m in sys.modules if m == "iros20_6d_pose_tracking_tpu"
@@ -140,7 +156,8 @@ def test_port_imports_and_runs_without_jax():
                       "native.dataload", "tracking.dispatch",
                       "datagen.blender_gen", "core.views",
                       "apps.datagen", "eval.domain_shift",
-                      "apps.accuracy_suite"}, walked
+                      "apps.accuracy_suite", "parallel.spmd",
+                      "parallel.latency"}, walked
 
 
 def _imported_modules(path):

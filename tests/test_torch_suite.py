@@ -3,10 +3,10 @@ ablation, ``run_suite`` end to end and its CLI (``apps/accuracy_suite.py``),
 at a 48^2 ROI on 96x128 frames.
 
 These mirror the JAX package's tests of the same functions
-(``tests/test_synthetic_benchmark.py``, ``tests/test_domain_shift.py``),
-minus the object ensemble, which is not ported (ROADMAP P17) and raises
-before any training. The port always renders full frames through K3 (here
-its plain version), so it has no ``impl``.
+(``tests/test_synthetic_benchmark.py``, ``tests/test_domain_shift.py``);
+the object ensemble's are in ``tests/test_torch_ensemble_suite.py``. The
+port always renders full frames through K3 (here its plain version), so it
+has no ``impl``.
 """
 import functools
 import json
@@ -136,18 +136,21 @@ def test_run_suite_with_textured_and_extras():
 
 
 def test_run_suite_ensemble_raises_before_training(monkeypatch):
-    """The object ensemble is ROADMAP P17: it raises before any training;
-    an unknown object raises first."""
+    """An unknown object raises before any training, in the ensemble mode
+    too and from the CLI's ``--ensemble`` (the object ensemble itself runs:
+    ``tests/test_torch_ensemble_suite.py``)."""
     def no_training(*a, **kw):
-        raise AssertionError("trained before refusing the ensemble")
+        raise AssertionError("trained before refusing the object")
 
     monkeypatch.setattr(SB, "train_object", no_training)
-    with pytest.raises(NotImplementedError, match=r"ROADMAP.*P17"):
-        SB.run_suite(("cube",), ensemble=True, device="cpu")
+    monkeypatch.setattr(SB, "train_objects_ensemble", no_training)
+    with pytest.raises(KeyError, match="nothing"):
+        SB.run_suite(("cube", "nothing"), ensemble=True, device="cpu")
     with pytest.raises(KeyError, match="nothing"):
         SB.run_suite(("nothing",), ensemble=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="P17"):
-        accuracy_suite.main(["--ensemble", "--device", "cpu"])
+    with pytest.raises(KeyError, match="nothing"):
+        accuracy_suite.main(["--ensemble", "--objects", "cube,nothing",
+                             "--device", "cpu"])
 
 
 def test_accuracy_suite_cli_writes_json_and_partial(tmp_path, monkeypatch,

@@ -9,7 +9,7 @@ relative. Op by op, float32 ops round as the port's do. The port runs on
 the CPU, so its kernel wrappers take their plain versions (K3 for the
 video's full-frame renders, K1 and K2 for the tracker's ROI renders).
 """
-import functools
+import inspect
 
 import jax
 import jax.numpy as jnp
@@ -236,13 +236,20 @@ def test_evaluate_tracking_follows_jax(scene):
 
 
 def test_unported_entry_points_name_the_roadmap():
-    # train_object and hard_aug are ported (tests/test_torch_trainer.py), the
-    # sweep, the ablation and run_suite too (tests/test_torch_suite.py); the
-    # object ensemble is not, and run_suite(ensemble=True) raises with it.
-    for fn in (SB.train_objects_ensemble, SB.ensemble_evaluate_tracking,
-               functools.partial(SB.run_suite, ensemble=True)):
-        with pytest.raises(NotImplementedError, match=r"ROADMAP.*\(P17"):
-            fn()
+    # Every entry point of the JAX module is ported: train_object and
+    # hard_aug (tests/test_torch_trainer.py), the sweep, the ablation and
+    # run_suite (tests/test_torch_suite.py), and the object ensemble of
+    # ROADMAP P17 (tests/test_torch_ensemble_suite.py). Each takes the JAX
+    # function's parameters (but ``impl``), and none raises
+    # NotImplementedError any more.
+    for name in ("train_object", "train_objects_ensemble",
+                 "ensemble_evaluate_tracking", "run_suite",
+                 "evaluate_tracking", "shift_severity_sweep",
+                 "shift_axis_ablation"):
+        ours = inspect.signature(getattr(SB, name)).parameters
+        theirs = inspect.signature(getattr(JSB, name)).parameters
+        assert set(theirs) - {"impl"} <= set(ours), name
+    assert "NotImplementedError" not in inspect.getsource(SB)
     assert SB.SHIFT_AXES == JSB.SHIFT_AXES
     assert (SB.hard_aug().depth_missing_prob
             == JSB.hard_aug().depth_missing_prob)
