@@ -2,7 +2,8 @@
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
 closed-loop synthetic evaluation, synthetic training, the serving path, the
 live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
-suite, the bf16 CNN and the scale-out layer.
+suite, the bf16 CNN, the scale-out layer, and the last modules (the TF32
+pin, profiling, ``render_at_bbox``, the demo, the fixture, the dry run).
 
     python3 chip_smoke.py
 
@@ -234,6 +235,20 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      shard) against their plain versions bit for bit in each rank,
      ``sp_track_step`` against ``track_step`` and ``dp_train_step`` against
      ``train_step``, with the sharded render's and K2's times.
+ 13. drives the last modules of the port: F16, a fresh process that leaves
+     TF32 at torch's default calls the module-level ``track_video`` (no
+     ``Tracker``) over 50 production frames, every convolution must see
+     ``cudnn.allow_tf32`` False and the poses must be the pinned main
+     process's bits; the TF32 drift of the heads at batch 1 and 200 (F1,
+     printed, gates nothing); ``utils/profiling``: ``StepTimer`` not
+     returning before a device sleep ends, and beside the CUDA-event step
+     time, ``trace`` around 5 ``track_video`` frames naming K1 and
+     ``pass2_shade``; ``render_at_bbox`` bit-equal to ``render`` at its
+     window, one K1 and one ``pass2_shade``, and against the CPU path at
+     tests/test_torch_raster.py's bars; the demo
+     (``apps/demo_train_and_track.main``, 100 steps at batch 32, 30 frames)
+     with its launches predicted from the code; the fixture and the
+     real-data dry run on the card.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -248,8 +263,9 @@ N-view shapes of phase 8, K3 and ``pass2_shade`` ``datagen_shapes``,
 their times at phase 10's layers, and ``pass2_shade`` ``suite_lighting``,
 its times at phase 11's lighting, K1 and ``pass2_shade``
 ``scale_out_views``, their times at phase 12's 4 objects' and 8 videos'
-views, and K2 ``sharded_render``, its time at a shard's owned rows. The
-last is
+views, and K2 ``sharded_render``, its time at a shard's owned rows;
+phase 13 adds ``render_at_bbox``, ``demo``, ``fixture`` and ``dryrun`` to
+``launches_by_path``. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -262,6 +278,7 @@ import dataclasses
 import functools
 import json
 import pathlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -447,6 +464,17 @@ SCALE_TURNS = 2
 SUITE_ENSEMBLE_STEPS, SUITE_ENSEMBLE_FRAMES = 2, 30
 DP_BATCH = 32
 RANKS_TIMEOUT_S = 240
+# Phase 13, the last modules of the port: the unpinned process's frames
+# (F16) and its time limit; the batches of the TF32 drift measurement (F1);
+# the nominal device sleep StepTimer must not return before; the frames
+# under trace; the reduced demo (apps/demo_train_and_track.py at its clean
+# batch) and the fixture's and the dry run's frames.
+F16_FRAMES, F16_TIMEOUT_S = 50, 180
+TF32_BATCHES = (1, 200)
+TIMER_SLEEP_MS = 5.0
+TRACE_FRAMES = 5
+DEMO_STEPS, DEMO_FRAMES, DEMO_BATCH = 100, 30, 32
+FIXTURE_FRAMES, DRYRUN_FRAMES = 8, 6
 
 
 def production_mesh():
@@ -4466,6 +4494,356 @@ def run_two_ranks(card):
     return outs[0]
 
 
+# ---------------------------------------------------------------------------
+# Phase 13: the TF32 pin (F16), profiling, render_at_bbox and the apps.
+# ---------------------------------------------------------------------------
+
+def _f16_child(rank, tmp):
+    """Phase 13.1's fresh process: TF32 left at torch's default, the
+    module-level ``track_video`` over F16_FRAMES production frames with no
+    ``Tracker`` built; every convolution's ``cudnn.allow_tf32`` recorded by
+    a forward pre-hook."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    default = [torch.backends.cuda.matmul.allow_tf32,
+               torch.backends.cudnn.allow_tf32]
+    dev = torch.device("cuda", 0)
+    net = build_model(SEED).to(dev)
+    seen = []
+    for m in net.modules():
+        if isinstance(m, torch.nn.Conv2d):
+            m.register_forward_pre_hook(
+                lambda *_: seen.append(torch.backends.cudnn.allow_tf32))
+    tm, cull = production_mesh()
+    cfg = trk.TrackerConfig(
+        resolution=RES, object_width_mm=float(tm.diameter) * 1000 * 1.1,
+        cull_backfaces=cull)
+    pose0, rgb, depth = production_frames()
+    poses = trk.track_video(
+        net, cfg, rz.upload(tm, dev), torch.from_numpy(K_PROD).to(dev),
+        torch.zeros(8, device=dev), torch.full((8,), 100.0, device=dev),
+        torch.from_numpy(pose0).to(dev),
+        trk.upload_rgb(np.stack([rgb] * F16_FRAMES), dev),
+        trk.upload_depth(np.stack([depth] * F16_FRAMES), dev))
+    torch.save({"default": default, "seen": seen, "poses": poses.cpu()},
+               f"{tmp}/f16.pt")
+
+
+def check_f16(tracker, pose0, rgb, depth, card):
+    """Phase 13.1, F16 on the card: ``_f16_child`` in a spawned process; its
+    convolutions all ran with TF32 off, and its poses are the bits of this
+    (pinned) process's module-level ``track_video`` on the same inputs."""
+    import torch
+    import torch.multiprocessing as mp
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev = tracker.device
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_f16_") as tmp:
+        ctx = mp.start_processes(_f16_child, args=(tmp,), nprocs=1,
+                                 join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1.0):
+                if time.perf_counter() - t0 > F16_TIMEOUT_S:
+                    raise AssertionError("the unpinned process did not end "
+                                         f"within {F16_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+        child = torch.load(f"{tmp}/f16.pt", weights_only=False)
+    child_s = time.perf_counter() - t0
+    pinned = trk.track_video(
+        tracker.model, tracker.cfg, tracker.mesh, tracker.K, tracker.mean,
+        tracker.std, torch.from_numpy(pose0).to(dev),
+        trk.upload_rgb(np.stack([rgb] * F16_FRAMES), dev),
+        trk.upload_depth(np.stack([depth] * F16_FRAMES), dev)).cpu()
+    seen = child["seen"]
+    n_on = sum(bool(v) for v in seen)
+    diff = float((child["poses"] - pinned).abs().max())
+    equal = torch.equal(child["poses"], pinned)
+    print(f"F16: a fresh process with TF32 at torch's default (matmul, "
+          f"cudnn allow_tf32 = {child['default']}) ran the module-level "
+          f"track_video over {F16_FRAMES} production frames, no Tracker: "
+          f"{len(seen)} convolution calls, {n_on} with cudnn.allow_tf32 on; "
+          f"poses bit-equal to the pinned process's: {equal} (max |d| "
+          f"{diff:.3e}); {child_s:.1f} s with the process's start {card}",
+          flush=True)
+    if not child["default"][1]:
+        raise AssertionError("the fresh process did not start with torch's "
+                             "default cudnn.allow_tf32")
+    n_conv = sum(isinstance(m, torch.nn.Conv2d)
+                 for m in tracker.model.modules())
+    if len(seen) != n_conv * F16_FRAMES or n_on:
+        raise AssertionError(f"F16: {n_on} of {len(seen)} convolution calls "
+                             "ran with TF32 allowed")
+    if not equal:
+        raise AssertionError("F16: the unpinned process's poses differ from "
+                             "the pinned process's")
+
+
+@contextlib.contextmanager
+def tf32_convolutions():
+    """For the F1 measurement only: the network's forward stops pinning
+    float32 and cuDNN may run its convolutions in TF32 (``flags`` with
+    ``enabled=True``: its default, ``enabled=False``, turns cuDNN off)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+
+    pin = se3.pin_full_fp32
+    se3.pin_full_fp32 = lambda: None
+    try:
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=True):
+            yield
+    finally:
+        se3.pin_full_fp32 = pin
+
+
+def tf32_drift(tracker, card):
+    """Phase 13.2, F1 measured: the production network's heads at batch 1
+    and 200 (seeded standard-normal 176^2 inputs) with TF32 convolutions
+    against float32; printed in head units and as pose (x the tracker's
+    normalizers). Gates nothing but finite outputs."""
+    import torch
+
+    model, cfg = tracker.model, tracker.cfg
+    gen = torch.Generator(tracker.device).manual_seed(SEED + 13)
+    rows = []
+    for n in TF32_BATCHES:
+        A, B = (torch.randn((n, RES, RES, 4), generator=gen,
+                            device=tracker.device) for _ in range(2))
+        with torch.no_grad():
+            ref = model(A, B)
+            with tf32_convolutions():
+                tf = model(A, B)
+        if torch.backends.cudnn.allow_tf32:
+            raise AssertionError("TF32 stayed on after the measurement")
+        dt = float((tf["trans"] - ref["trans"]).abs().max())
+        dr = float((tf["rot"] - ref["rot"]).abs().max())
+        if not all(bool(torch.isfinite(o[k]).all()) for o in (ref, tf)
+                   for k in ("trans", "rot")):
+            raise AssertionError("the TF32 measurement gave non-finite heads")
+        rows.append((n, dt, dr))
+        print(f"F1: TF32 against float32 convolutions, batch {n} at {RES}^2 "
+              f"(seeded N(0, 1) inputs): max |d trans head| {dt:.3e} "
+              f"({dt * cfg.trans_normalizer:.3e} m), max |d rot head| "
+              f"{dr:.3e} ({dr * cfg.rot_normalizer:.3e} rad) {card}",
+              flush=True)
+    return rows
+
+
+def check_profiling(tracker, pose0, rgb, depth, card):
+    """Phase 13.3, ``utils/profiling`` on the card: ``StepTimer`` over a
+    function that only enqueues a TIMER_SLEEP_MS device sleep reports no
+    less than the sleep's device time (CUDA events); its ``track_step`` ms
+    beside ``cuda_ms``'s; ``trace`` around TRACE_FRAMES ``track_video``
+    frames writes a trace naming K1's and ``pass2_shade``'s kernels."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+    from iros20_6d_pose_tracking_tpu_torch.utils import profiling as prof
+
+    sleep_cycles_per_ms.cache_clear()
+    cycles = int(TIMER_SLEEP_MS * sleep_cycles_per_ms())
+
+    def sleep():
+        torch.cuda._sleep(cycles)
+
+    sleep_ms = cuda_ms(sleep, runs=5, warmup=1)
+    timed = prof.StepTimer(warmup=1, reps=5).measure(sleep)
+    print(f"StepTimer: a function that enqueues a {TIMER_SLEEP_MS:g} ms "
+          f"device sleep ({cycles} cycles, {sleep_ms:.4f} ms by CUDA events, "
+          f"median of 5): per_iter_ms {timed['per_iter_ms']:.4f} (best of "
+          f"5), mean_s {timed['mean_s']:.6f} {card}", flush=True)
+    # A timer that returned at the enqueue would read ~0.01 ms. The sleep's
+    # own length varies by microseconds from call to call, so the bar is
+    # the nominal length, or the sleep's median where clocks ran it
+    # shorter, not one call's length.
+    if not timed["per_iter_ms"] >= min(TIMER_SLEEP_MS, sleep_ms):
+        raise AssertionError("StepTimer returned before the device finished")
+
+    dev = tracker.device
+    args = (tracker.model, tracker.cfg, tracker.mesh, tracker.K, tracker.mean,
+            tracker.std, torch.from_numpy(pose0).to(dev),
+            trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev))
+    step = prof.StepTimer(warmup=3, reps=20).measure(trk.track_step, *args)
+    ev_ms = cuda_ms(lambda: trk.track_step(*args))
+    print(f"StepTimer: track_step at the production shape per_iter_ms "
+          f"{step['per_iter_ms']:.4f} (best of 20, host clock to "
+          f"synchronize) beside {ev_ms:.4f} ms (CUDA events, median of "
+          f"{TIMING_RUNS}), {step['hz']:.2f} Hz {card}", flush=True)
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_trace_") as logdir:
+        with prof.trace(logdir):
+            tracker.track_video(pose0, np.stack([rgb] * TRACE_FRAMES),
+                                np.stack([depth] * TRACE_FRAMES))
+        files = list(pathlib.Path(logdir).rglob("*.json*"))
+        size = sum(f.stat().st_size for f in files)
+        text = "".join(f.read_text(errors="replace") for f in files)
+    named = {k: DEVICE_FN[k] in text for k in ("raster_pass1", "pass2_shade")}
+    print(f"trace: {len(files)} file(s), {size} bytes around "
+          f"{TRACE_FRAMES} track_video frames; kernels named {named} {card}",
+          flush=True)
+    if not files or not size or not all(named.values()):
+        raise AssertionError("trace wrote no trace naming K1 and "
+                             "pass2_shade")
+
+
+def check_render_at_bbox(tracker, pose0, net, card):
+    """Phase 13.4: ``render_at_bbox`` at the production pose, bit-equal to
+    ``render`` at ``window_from_bbox(compute_bbox(...))`` on the card, one
+    K1 and one ``pass2_shade`` launch, and against the CPU path: bbox equal,
+    and tests/test_torch_raster.py's bars for renders whose projections
+    round differently (its jitted-JAX case): coverage differing on under
+    0.1% of pixels, depth within 2e-3 relative where both cover, rgb more
+    than 1 level apart on under 0.1% of pixels. (The card's projection and
+    per-face forms round otherwise than the CPU's, so their depths differ
+    in the last bits; given the same pass-1 outputs, ``pass2_shade`` is
+    held to its plain version's bits by ``check_pass2``.) Returns its
+    launches."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    kw = {"out_hw": (RES, RES), "cull_backfaces": tracker.cfg.cull_backfaces}
+
+    def args(t):
+        return (t.mesh, torch.from_numpy(pose0).to(t.device), t.K,
+                t.cfg.object_width_mm)
+
+    zero_launches()
+    rgb, depth, bbox = rz.render_at_bbox(*args(tracker), **kw)
+    torch.cuda.synchronize()
+    launches = read_launches()
+    mesh, pose, K, width = args(tracker)
+    ref = rz.render(mesh, pose, K, rz.window_from_bbox(roi.compute_bbox(
+        pose, K, width, (1000.0, 1000.0, 1000.0))), **kw)
+    bit_equal = torch.equal(rgb, ref[0]) and torch.equal(depth, ref[1])
+    rgb_c, depth_c, bbox_c = (x.to(tracker.device) for x in rz.render_at_bbox(
+        *args(make_tracker(net, torch.device("cpu"))), **kw))
+    cov_off = float(((depth > 0) != (depth_c > 0)).float().mean())
+    both = (depth > 0) & (depth_c > 0)
+    rel = float(((depth - depth_c).abs() / depth_c.clamp(min=1e-6))[both]
+                .max()) if bool(both.any()) else float("inf")
+    depth_bits = int((depth.view(torch.int32) != depth_c.view(torch.int32))
+                     [both].sum())
+    d_rgb = (rgb - rgb_c).abs()
+    rgb_off = float((d_rgb.amax(-1) > 1.0).float().mean())
+    want = {"raster_pass1": 1, "gather_rows": 0, "raster_pass1_worklist": 0,
+            "pass2_shade": 1}
+    print(f"render_at_bbox: production pose at {RES}^2, cull="
+          f"{tracker.cfg.cull_backfaces}: bit-equal to render at its window "
+          f"{bit_equal}, launches {launches}; against the CPU path: bbox "
+          f"equal {torch.equal(bbox, bbox_c)}, coverage differs on "
+          f"{cov_off:.2e} of pixels, depth bits differ on {depth_bits} of "
+          f"{int(both.sum())} pixels both cover (max relative |d| "
+          f"{rel:.3e}), rgb max|d| {float(d_rgb.max()):.3e}, >1 level apart "
+          f"on {rgb_off:.2e} of pixels {card}", flush=True)
+    if not bit_equal or launches != want or not torch.equal(bbox, bbox_c) \
+            or cov_off >= 1e-3 or not rel <= 2e-3 or rgb_off >= 1e-3:
+        raise AssertionError("render_at_bbox disagrees")
+    return launches
+
+
+def demo_launches_predicted(steps, frames):
+    """The kernels' launches of ``apps/demo_train_and_track`` (clean, no
+    DR), from the code: ``train_object`` renders one batch of views (one K1
+    and one ``pass2_shade``) for each of its 4 mean/std batches and each
+    step; ``render_test_video`` one full frame (K3 and ``pass2_shade``) a
+    frame; ``evaluate_tracking`` one ROI (K1 and ``pass2_shade``) for each
+    frame after the first."""
+    return {"raster_pass1": 4 + steps + frames - 1, "gather_rows": 0,
+            "raster_pass1_worklist": frames,
+            "pass2_shade": 4 + steps + 2 * frames - 1}
+
+
+def run_apps(root, dev, card):
+    """Phase 13.5: the demo at DEMO_STEPS steps, batch DEMO_BATCH and
+    DEMO_FRAMES frames (launches as ``demo_launches_predicted``, finite
+    metrics, ``add_per_frame.txt`` with a value a frame, the ``DEMO``
+    line), the YCB-style fixture and the real-data dry run, all on
+    ``dev``. Returns each one's launches."""
+    import io
+
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.apps import (demo_train_and_track,
+                                                         make_ycb_fixture,
+                                                         realdata_dryrun)
+
+    class Tee(io.StringIO):
+        def write(self, s):
+            sys.__stdout__.write(s)
+            return super().write(s)
+
+    out, got, secs = Tee(), {}, {}
+    t0 = time.perf_counter()
+    zero_launches()
+    with contextlib.redirect_stdout(out):
+        rc = demo_train_and_track.main([
+            "--steps", str(DEMO_STEPS), "--batch", str(DEMO_BATCH),
+            "--frames", str(DEMO_FRAMES), "--device", str(dev),
+            "--outdir", str(root / "demo")])
+    torch.cuda.synchronize()
+    got["demo"] = read_launches()
+    secs["demo"] = time.perf_counter() - t0
+    want = demo_launches_predicted(DEMO_STEPS, DEMO_FRAMES)
+    add = np.loadtxt(root / "demo" / "add_per_frame.txt")
+    lines = out.getvalue().splitlines()
+    metrics = [float(v) for v in re.findall(
+        r"(?:mean|max|AUC|err)[=:] ?(-?[\d.]+|nan|inf)", out.getvalue())]
+    print(f"demo: {DEMO_STEPS} steps at batch {DEMO_BATCH}, {DEMO_FRAMES} "
+          f"frames: exit code {rc}, launches {got['demo']} (predicted "
+          f"{want}), {secs['demo']:.1f} s {card}", flush=True)
+    if got["demo"] != want:
+        raise AssertionError("the demo's launches differ from the prediction")
+    if add.shape != (DEMO_FRAMES,) or not np.isfinite(add).all() or \
+            len(metrics) != 6 or not np.isfinite(metrics).all():
+        raise AssertionError("the demo's metrics are not finite")
+    if not lines or lines[-1] not in ("DEMO clean PASS", "DEMO clean FAIL") \
+            or rc != (0 if lines[-1].endswith("PASS") else 1):
+        raise AssertionError("the demo printed no DEMO line")
+
+    t0 = time.perf_counter()
+    zero_launches()
+    make_ycb_fixture.main(["--root", str(root / "fixture"), "--frames",
+                           str(FIXTURE_FRAMES), "--device", str(dev)])
+    torch.cuda.synchronize()
+    got["fixture"] = read_launches()
+    secs["fixture"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zero_launches()
+    realdata_dryrun.main(["--frames", str(DRYRUN_FRAMES), "--device",
+                          str(dev), "--root", str(root / "dryrun")])
+    torch.cuda.synchronize()
+    got["dryrun"] = read_launches()
+    secs["dryrun"] = time.perf_counter() - t0
+    n = DRYRUN_FRAMES
+    # the fixture renders a full frame a frame (K3); the dry run renders
+    # the frames of two objects (K3) and tracks three videos (K1): the two
+    # ycbv_all runs from frame 1 (frame 0 holds the init), the ycbineoat
+    # run from frame 0
+    wants = {"fixture": {"raster_pass1": 0, "gather_rows": 0,
+                         "raster_pass1_worklist": FIXTURE_FRAMES,
+                         "pass2_shade": FIXTURE_FRAMES},
+             "dryrun": {"raster_pass1": 3 * n - 2, "gather_rows": 0,
+                        "raster_pass1_worklist": 2 * n,
+                        "pass2_shade": 5 * n - 2}}
+    for name, w in wants.items():
+        print(f"{name} on the card: launches {got[name]} (predicted {w}), "
+              f"{secs[name]:.1f} s {card}", flush=True)
+        if got[name] != w:
+            raise AssertionError(f"{name}: launches differ from the "
+                                 "prediction")
+    return got
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -4807,6 +5185,25 @@ def main() -> int:
     errs["raster_pass1"] = max(errs["raster_pass1"], ranks["k1_err"])
     errs["gather_rows"] = max(errs["gather_rows"], ranks["k2_err"])
     print(f"scale-out phase: {time.perf_counter() - t12:.1f} s", flush=True)
+
+    # 13. The last modules: the TF32 pin in a fresh process (F16) and the
+    # TF32 drift (F1), utils/profiling, render_at_bbox, and the demo, the
+    # fixture and the dry run through their main().
+    t13 = time.perf_counter()
+    print(f"last modules: F16 in a fresh process over {F16_FRAMES} frames, "
+          f"TF32 drift at batch {TF32_BATCHES}, StepTimer and trace, "
+          f"render_at_bbox at {RES}^2, the demo ({DEMO_STEPS} steps at batch "
+          f"{DEMO_BATCH}, {DEMO_FRAMES} frames), the fixture and the dry run",
+          flush=True)
+    check_f16(tracker, pose0, rgb, depth, card)
+    tf32_drift(tracker, card)
+    check_profiling(tracker, pose0, rgb, depth, card)
+    by_path["render_at_bbox"] = check_render_at_bbox(tracker, pose0, net,
+                                                     card)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_apps_") as tmp:
+        by_path.update(run_apps(pathlib.Path(tmp), dev, card))
+    print(f"last modules phase: {time.perf_counter() - t13:.1f} s {card}",
+          flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)

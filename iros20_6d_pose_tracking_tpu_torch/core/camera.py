@@ -2,14 +2,16 @@
 
 Counterpart of ``iros20_6d_pose_tracking_tpu/core/camera.py``: the
 ``Camera`` record and ``cam_K_from_dict`` (reference Utils.py:444-447),
-numpy only. The projection helpers (``project_points*``) are not ported
-yet (ROADMAP.md).
+and the pinhole projection of camera-frame points: ``project_points``
+(rounded int32 pixels, reference predict.py:81-86) and ``project_points_f``
+(float pixels).
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
 
 import numpy as np
+import torch
 
 
 @dataclass(frozen=True)
@@ -46,3 +48,17 @@ class Camera:
 def cam_K_from_dict(cam_cfg: dict) -> np.ndarray:
     """3x3 K from a dataset_info camera dict."""
     return Camera.from_dict(cam_cfg).K
+
+
+def project_points_f(points: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """Float (u, v) pixels of (..., 3) camera-frame points: u = x fx / z +
+    cx, v = y fy / z + cy, in that order of operations. Returns (..., 2)."""
+    us = points[..., 0] * K[0, 0] / points[..., 2] + K[0, 2]
+    vs = points[..., 1] * K[1, 1] / points[..., 2] + K[1, 2]
+    return torch.stack([us, vs], dim=-1)
+
+
+def project_points(points: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
+    """(..., 3) camera-frame points -> (..., 2) int32 (u, v) pixels,
+    rounded to the nearest (half to even, as ``jnp.round``)."""
+    return torch.round(project_points_f(points, K)).to(torch.int32)

@@ -13,7 +13,8 @@ The JAX module pins HIGHEST precision on every contraction, because pose
 math is tiny 3x3/4x4 algebra whose error compounds over thousands of
 tracked frames. The torch counterpart of that pin is to keep TF32 off:
 :func:`pin_full_fp32` sets it off for cuBLAS matmuls and cuDNN convolutions
-(the CNN's float32 parity needs the latter), and the tracker calls it.
+(the CNN's float32 parity needs the latter), and every
+``Se3TrackNet.forward`` calls it.
 """
 from __future__ import annotations
 
@@ -79,6 +80,45 @@ def pose_inv(T: torch.Tensor) -> torch.Tensor:
     """Inverse of a rigid transform (..., 4, 4)."""
     Rt = T[..., :3, :3].transpose(-1, -2)
     return make_pose(Rt, -(Rt @ T[..., :3, 3:4])[..., 0])
+
+
+def se3_exp(xi: torch.Tensor) -> torch.Tensor:
+    """se(3) exp: (..., 6) [rho (translation), w (rotation)] -> (..., 4, 4),
+    with the series blends of (1-cos t)/t^2 and (t-sin t)/t^3 near t = 0."""
+    rho, w = xi[..., :3], xi[..., 3:]
+    R = so3_exp(w)
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    b = torch.where(small, 0.5 - theta2 / 24.0,
+                    (1.0 - torch.cos(theta)) / theta2)
+    c = torch.where(small, 1.0 / 6.0 - theta2 / 120.0,
+                    (theta - torch.sin(theta)) / (theta2 * theta))
+    K = hat(w)
+    eye = torch.eye(3, dtype=xi.dtype, device=xi.device).expand(K.shape)
+    V = eye + b[..., None, None] * K + c[..., None, None] * (K @ K)
+    return make_pose(R, (V @ rho[..., None])[..., 0])
+
+
+def se3_log(T: torch.Tensor) -> torch.Tensor:
+    """se(3) log: (..., 4, 4) -> (..., 6) [rho, w], through
+    V^-1 = I - K/2 + (1 - (t/2) cos(t/2) / sin(t/2)) / t^2 K^2 (series
+    blend near t = 0, both divisions clamped at ``_EPS``)."""
+    w = so3_log(T[..., :3, :3])
+    theta2 = torch.sum(w * w, dim=-1)
+    theta = torch.sqrt(theta2 + _EPS * _EPS)
+    small = theta2 < 1e-8
+    half_theta = 0.5 * theta
+    cot_term = torch.where(
+        small, 1.0 / 12.0 + theta2 / 720.0,
+        (1.0 - half_theta * torch.cos(half_theta)
+         / torch.clamp(torch.sin(half_theta), min=_EPS))
+        / torch.clamp(theta2, min=_EPS))
+    K = hat(w)
+    eye = torch.eye(3, dtype=T.dtype, device=T.device).expand(K.shape)
+    Vinv = eye - 0.5 * K + cot_term[..., None, None] * (K @ K)
+    rho = (Vinv @ T[..., :3, 3:4])[..., 0]
+    return torch.cat([rho, w], dim=-1)
 
 
 def decode_delta(A_in_cam: torch.Tensor, trans_pred: torch.Tensor,

@@ -154,7 +154,6 @@ def train_object(
     from ``(7 + seed_offset, 10**6 + i)``, so a resumed run consumes the
     uninterrupted run's batches."""
     dev = torch.device(device)
-    se3.pin_full_fp32()
     mesh = rz.upload(tm, dev)
     width = tm.diameter * 1000 * 1.1
     cfg = tr.TrainConfig(
@@ -311,7 +310,6 @@ def train_objects_ensemble(
     from ..parallel import spmd
 
     dev = torch.device(device)
-    se3.pin_full_fp32()
     tms = [OBJECTS[n]() if isinstance(n, str) else n for n in names]
     names = [n if isinstance(n, str) else f"obj{i}"
              for i, n in enumerate(names)]

@@ -24,6 +24,10 @@ The public ``forward(A, B)`` takes NHWC ``(N, H, W, 4)`` like the JAX model
 and returns ``{"feature" (N, H/8, W/8, 256) NHWC, "trans" (N, 3),
 "rot" (N, 3)}``; inside, the convolutions run NCHW.
 
+Every forward pins float32 convolutions and matmuls (TF32 off, the JAX
+reference's HIGHEST precision; ``core/se3.pin_full_fp32``), whichever entry
+point calls it.
+
 ``dtype`` is the activations' type, the Flax model's ``dtype``: float32, or
 bfloat16 with the parameters and BatchNorm's running statistics kept
 float32 (the JAX package's TPU precision). In bfloat16 the convolutions and
@@ -41,7 +45,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from ..core.se3 import truncated_normal
+from ..core import se3
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -175,6 +179,10 @@ class Se3TrackNet(nn.Module):
         self.rot_out = nn.Sequential(Linear(512, 3), nn.Tanh())
 
     def forward(self, A: torch.Tensor, B: torch.Tensor) -> dict:
+        # Every entry point that runs the network passes here, so TF32 is
+        # pinned off here (the backward pass runs after it with the flags
+        # still set): two host-side stores, nothing on the device.
+        se3.pin_full_fp32()
         A = A.to(self.dtype).permute(0, 3, 1, 2)
         B = B.to(self.dtype).permute(0, 3, 1, 2)
         pool = nn.functional.max_pool2d
@@ -232,8 +240,8 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
         if isinstance(m, (nn.Conv2d, nn.Linear)):
             fan_in = m.weight[0].numel()
             std = math.sqrt(1.0 / fan_in) / _TRUNC_STD
-            z = truncated_normal(tuple(m.weight.shape), generator,
-                                 m.weight.device, -2.0, 2.0)
+            z = se3.truncated_normal(tuple(m.weight.shape), generator,
+                                     m.weight.device, -2.0, 2.0)
             m.weight.copy_(z * std)
             m.bias.zero_()
         elif isinstance(m, nn.BatchNorm2d):

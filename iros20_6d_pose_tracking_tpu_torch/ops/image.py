@@ -4,6 +4,9 @@ filling.
 
 Counterpart of ``iros20_6d_pose_tracking_tpu/ops/image.py``:
 
+  - ``resize_nearest``: cv2 INTER_NEAREST, source index
+    ``(dst * src_size) // dst_size`` (``ops/roi.crop_resize_nearest`` over
+    the whole image);
   - ``gaussian_blur``: the cv2.getGaussianKernel taps, BORDER_REFLECT_101
     padding, a horizontal then a vertical pass of shifted adds in the JAX
     module's order;
@@ -26,6 +29,16 @@ import math
 import numpy as np
 import torch
 from torch.nn import functional as F
+
+from .roi import crop_resize_nearest
+
+
+def resize_nearest(img: torch.Tensor, out_hw: tuple[int, int]) -> torch.Tensor:
+    """cv2 INTER_NEAREST resize of an (H, W) or (H, W, C) image to
+    ``out_hw``: the crop-resize of the whole image."""
+    zero = torch.zeros((), dtype=torch.int32, device=img.device)
+    return crop_resize_nearest(img, zero, zero, zero + img.shape[0],
+                               zero + img.shape[1], out_hw)
 
 
 def gaussian_kernel_1d(ksize: int, sigma: float,

@@ -42,6 +42,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..ops import roi
 from . import raster_kernels as rk
 from .mesh import TriMesh
 
@@ -340,3 +341,15 @@ def render(
     return rk.pass2_shade(attr_coef, iz, winner, R, t, out_hw, far,
                           texture=mesh.texture, lighting=lighting)
 
+
+def render_at_bbox(mesh: MeshArrays, pose: torch.Tensor, K: torch.Tensor,
+                   object_width_mm, out_hw: tuple[int, int] = (176, 176),
+                   **kw):
+    """Render the pose-conditioned ROI, the tracker's A branch: the square
+    ``object_width_mm`` window of the reference (``ops/roi.compute_bbox``
+    at scale 1000, reference predict.py:232), rendered directly. ``kw``
+    are :func:`render`'s keywords. Returns (rgb, depth, bbox)."""
+    bbox = roi.compute_bbox(pose, K, object_width_mm,
+                            (1000.0, 1000.0, 1000.0))
+    rgb, depth = render(mesh, pose, K, window_from_bbox(bbox), out_hw, **kw)
+    return rgb, depth, bbox

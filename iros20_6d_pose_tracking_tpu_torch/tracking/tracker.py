@@ -357,7 +357,6 @@ class Tracker:
         return t
 
     def _init_parts(self, model, cfg, mesh, K, mean, std):
-        se3.pin_full_fp32()
         self.model = model
         self.cfg = cfg
         self.mesh = mesh

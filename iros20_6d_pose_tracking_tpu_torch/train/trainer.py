@@ -223,7 +223,6 @@ class Trainer:
         self.cfg = cfg
         self.outdir = outdir
         os.makedirs(outdir, exist_ok=True)
-        se3.pin_full_fp32()
         tracknet.init_params(self.model,
                              torch.Generator().manual_seed(cfg.seed))
         self.opt, self.lr_at = make_optimizer(self.model, cfg,

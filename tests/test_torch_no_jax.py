@@ -8,7 +8,8 @@ one tracking step, one multi-hypothesis step, two windowed stream pushes, an
 adaptive three-frame video, a DR scene, a depth fill, a two-frame hard test
 video with its scores, one synthetic train step, the sensor model over two
 frames, one bf16 tracking step, a two-object batched ensemble step and a
-one-rank face-sharded step on the CPU, and look at
+one-rank face-sharded step, one ``render_at_bbox`` and one
+``StepTimer.measure`` of a tracking step on the CPU, and look at
 ``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
 port loads neither PyYAML nor Pillow (the CLIs and the file-backed dataset
@@ -126,6 +127,15 @@ p_sp = latency.sp_track_step(t.model, t.cfg, sp)(
     torch.from_numpy(pose), torch.from_numpy(rgb),
     trk.upload_depth(depth, "cpu"))
 assert torch.isfinite(p_sp).all()
+from iros20_6d_pose_tracking_tpu_torch.utils.profiling import StepTimer
+rgb_a, dep_a, bbox_a = rz.render_at_bbox(t.mesh, torch.from_numpy(pose), t.K,
+                                         110.0, out_hw=(64, 64))
+assert (dep_a > 0).any() and bbox_a.shape == (4, 2)
+timed = StepTimer(warmup=1, reps=1).measure(
+    trk.track_step, t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+    torch.from_numpy(pose), torch.from_numpy(rgb),
+    trk.upload_depth(depth, "cpu"))
+assert timed["per_iter_ms"] > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 pkg = sorted(m for m in sys.modules if m == "iros20_6d_pose_tracking_tpu"
@@ -157,7 +167,9 @@ def test_port_imports_and_runs_without_jax():
                       "datagen.blender_gen", "core.views",
                       "apps.datagen", "eval.domain_shift",
                       "apps.accuracy_suite", "parallel.spmd",
-                      "parallel.latency"}, walked
+                      "parallel.latency", "utils.profiling",
+                      "apps.demo_train_and_track", "apps.make_ycb_fixture",
+                      "apps.realdata_dryrun"}, walked
 
 
 def _imported_modules(path):
