@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch port on one CUDA card: the tracking step, the
 closed-loop synthetic evaluation, synthetic training, the serving path, the
 live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
-suite, the bf16 CNN, the scale-out layer, and the last modules (the TF32
-pin, profiling, ``render_at_bbox``, the demo, the fixture, the dry run).
+suite, the bf16 CNN, the scale-out layer, the last modules (the TF32
+pin, profiling, ``render_at_bbox``, the demo, the fixture, the dry run),
+and the tracking step where a track is lost, with F14's float64 witness.
 
     python3 chip_smoke.py
 
@@ -249,6 +250,21 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      (``apps/demo_train_and_track.main``, 100 steps at batch 32, 30 frames)
      with its launches predicted from the code; the fixture and the
      real-data dry run on the card.
+ 14. drives the tracking step where a track is lost: ``round_to_int32``,
+     ``project_points`` and ``compute_bbox`` on the card give XLA's ints
+     (NaN -> 0, saturating at the int32 limits) for infinite, NaN and
+     out-of-range pixel coordinates, as on the CPU (torch's own conversion
+     on the card printed beside them); one ``track_step`` on the card and
+     on the CPU path from each regime of tests/test_torch_lost_track.py at
+     the production scale (a window clipped by the frame border, one wholly
+     outside the frame, a pose inside the near plane, one behind the
+     camera, z = 0, a NaN translation, a window corner past 2^31 pixels):
+     each regime reached, bbox ints and B's crop equal, poses within 5e-4 m
+     and 5e-3 rad with NaN at the same entries, exactly one K1 and one
+     ``pass2_shade`` launch a step; and F14's witness, the "sampled" train
+     check's first step in float64 on the card, with the distance from it
+     of the first-step float32 gradients on the card (cuDNN default,
+     deterministic, off) and on the CPU (with and without oneDNN).
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -265,7 +281,7 @@ its times at phase 11's lighting, K1 and ``pass2_shade``
 ``scale_out_views``, their times at phase 12's 4 objects' and 8 videos'
 views, and K2 ``sharded_render``, its time at a shard's owned rows;
 phase 13 adds ``render_at_bbox``, ``demo``, ``fixture`` and ``dryrun`` to
-``launches_by_path``. The last is
+``launches_by_path``, phase 14 ``lost track``. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -362,7 +378,9 @@ BATCHED_VIEWS = 8
 # of two float32 implementations lie up to 1.0e-2 apart (L2, per tensor),
 # conv-bias gradients up to 8.9e-5 of their kernel's, and the step-2 loss
 # at lr 1e-3 4.1e-5 apart. Its "witness", the CPU path without oneDNN, is
-# held to the same bars beside the card.
+# held to the same bars beside the card. Against float64 (phase 14, F14) the
+# card's first-step gradients lie 1.5e-3 apart on an H100 and the CPU's
+# 7.0e-3: the CPU is the farther of the two.
 TRAIN_CHECKS = {
     "random": {"res": 48, "sampled": False, "witness": False,
                "runs": ((1e-5, 3, 3, 1e-5, None),
@@ -475,6 +493,23 @@ TIMER_SLEEP_MS = 5.0
 TRACE_FRAMES = 5
 DEMO_STEPS, DEMO_FRAMES, DEMO_BATCH = 100, 30, 32
 FIXTURE_FRAMES, DRYRUN_FRAMES = 8, 6
+# Phase 14, where a track is lost, and F14: pixel coordinates whose int32
+# conversion must be XLA's (NaN -> 0, saturating at the limits) and XLA's
+# ints for them; the distance of the centre of the clipped window from the
+# frame's left border (px) and of the off-frame window's from its right
+# border; the bars of F14's witness on the "sampled" batch: the card's
+# first-step gradients within F14_BAR of float64 (TRAIN_CHECKS's bar
+# against the CPU path) and no farther from it than F14_RATIO times the
+# CPU's (measured on an H100: 1.5e-3 and 0.22x), and float64 on the card
+# within F64_BAR of float64 on the CPU (measured 3.5e-6).
+INT32_INPUTS = (np.inf, -np.inf, np.nan, 3e9, -3e9, 1e12, 2147483647.0,
+                2147483648.0)
+INT32_XLA = (2147483647, -2147483648, 0, 2147483647, -2147483648,
+             2147483647, 2147483647, 2147483647)
+CLIPPED_PX, OUTSIDE_PX = 10, 300
+F14_BAR = TRAIN_CHECKS["sampled"]["grads"]["grad_rtol"]
+F14_RATIO = 2.0
+F64_BAR = 1e-4
 
 
 def production_mesh():
@@ -1740,6 +1775,23 @@ def sampled_on_both(synth_cpu, synth_dev, n, seed):
     return rc
 
 
+def sampled_check_batch(dev, res, n):
+    """The "sampled" train check's batch (``sampled_on_both``, seeded SEED
+    + 5), its augmentation config and its statistics: (raw, aug_cfg, mean,
+    std), on the CPU."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import augment as AUG
+
+    _, synth_cpu, _ = train_setup(torch.device("cpu"), res)
+    _, synth_dev, _ = train_setup(dev, res)
+    raw = sampled_on_both(synth_cpu, synth_dev, n, SEED + 5)
+    mean = torch.tensor([80, 80, 80, 0, 80, 80, 80, 0], dtype=torch.float32)
+    std = torch.tensor([60, 60, 60, 100, 60, 60, 60, 100],
+                       dtype=torch.float32)
+    return raw, AUG.AugmentConfig(), mean, std
+
+
 def train_run(base, raw, draws, mean, std, cfg, steps, device,
               onednn=True):
     """``steps`` train steps of a copy of ``base`` on ``device`` at
@@ -1793,14 +1845,7 @@ def compare_train_with_cpu(dev):
     for name, check in TRAIN_CHECKS.items():
         res = check["res"]
         if check["sampled"]:
-            _, synth_cpu, _ = train_setup(cpu, res)
-            _, synth_dev, _ = train_setup(dev, res)
-            raw = sampled_on_both(synth_cpu, synth_dev, n, SEED + 5)
-            aug_cfg = AUG.AugmentConfig()
-            mean = torch.tensor([80, 80, 80, 0, 80, 80, 80, 0],
-                                dtype=torch.float32)
-            std = torch.tensor([60, 60, 60, 100, 60, 60, 60, 100],
-                               dtype=torch.float32)
+            raw, aug_cfg, mean, std = sampled_check_batch(dev, res, n)
         else:
             raw = random_raw_batch(res, n, SEED + 5)
             aug_cfg = AUG.AugmentConfig(
@@ -4844,6 +4889,230 @@ def run_apps(root, dev, card):
     return got
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: where a track is lost (XLA's int32 conversion, the lost-track
+# regimes of tests/test_torch_lost_track.py on the card) and F14's float64
+# witness.
+# ---------------------------------------------------------------------------
+
+def check_int32_conversion(dev, card):
+    """Phase 14.1: ``core/camera.round_to_int32``, ``project_points`` and
+    ``compute_bbox`` give XLA's ints for INT32_INPUTS on the card and on the
+    CPU (unit intrinsics and z = 1 put each input on a pixel axis as it
+    is). torch's own conversion on the card is printed beside them (a
+    reading: the port does not use it)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import camera
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+
+    x = torch.tensor(INT32_INPUTS, dtype=torch.float32)
+    K1 = torch.eye(3)
+    pts = torch.stack([x, x.flip(0), torch.ones_like(x)], -1)
+    poses = torch.eye(4).repeat(len(x), 1, 1)
+    poses[:, 0, 3], poses[:, 1, 3] = x, x.flip(0)
+    want = torch.tensor(INT32_XLA, dtype=torch.int32)
+    got = {}
+    for d in (torch.device("cpu"), dev):
+        got[d.type] = [camera.round_to_int32(x.to(d)).cpu(),
+                       camera.project_points(pts.to(d), K1.to(d)).cpu(),
+                       roi.compute_bbox(poses.to(d), K1.to(d), 0.0).cpu()]
+    own = torch.round(x.to(dev)).to(torch.int32).cpu()
+    print(f"int32 conversion of {list(INT32_INPUTS)}: round_to_int32 on the "
+          f"card {got[dev.type][0].tolist()}, XLA {list(INT32_XLA)}; torch's "
+          f"own .to(torch.int32) on the card {own.tolist()} {card}",
+          flush=True)
+    for where, (conv, proj, bbox) in got.items():
+        for name, a, b in (("round_to_int32", conv, want),
+                           ("project_points u", proj[:, 0], want),
+                           ("project_points v", proj[:, 1], want.flip(0)),
+                           ("compute_bbox u", bbox[:, :, 1],
+                            want[:, None].expand(-1, 4)),
+                           ("compute_bbox v", bbox[:, :, 0],
+                            want.flip(0)[:, None].expand(-1, 4))):
+            if not torch.equal(a, b):
+                raise AssertionError(f"{name} on the {where}: {a.tolist()} "
+                                     f"is not XLA's {b.tolist()}")
+
+
+def lost_track_poses(width_mm):
+    """The prior poses of the lost-track regimes at the production camera,
+    name -> (4, 4) float32: the window clipped by the left border, wholly
+    right of the frame, inside the near plane, behind the camera, at z = 0,
+    a NaN translation, and one corner of the window on the principal point
+    with the others past 2^31 pixels."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+
+    fx, cx = float(K_PROD[0, 0]), float(K_PROD[0, 2])
+    z, half = 0.6, width_mm / 2000.0
+    regimes = {
+        "clipped": ((CLIPPED_PX - cx) * z / fx, 0.0, z),
+        "outside": ((FRAME_HW[1] + OUTSIDE_PX - cx) * z / fx, 0.05, z),
+        "near plane": (0.004, -0.003, 0.05),
+        "behind": (0.004, -0.003, -0.3),
+        "z0": (0.01, -0.005, 0.0),
+        "nan": (float("nan"), 0.0, 0.5),
+        "corner past int32": (half, half, 1e-9),
+    }
+    R = se3.so3_exp(torch.tensor([0.2, 0.4, 0.1])).numpy()
+    out = {}
+    for name, t in regimes.items():
+        p = np.eye(4, dtype=np.float32)
+        p[:3, :3], p[:3, 3] = R, t
+        out[name] = p
+    return out
+
+
+def check_regime(name, bbox, aux):
+    """The regime ``name`` was reached by a step with ``aux`` from a prior
+    pose whose bbox is ``bbox`` (numpy (4, 2) (v, u))."""
+    u, depth_a, depth_b = bbox[:, 1], aux["depthA"], aux["depthB"]
+    extreme = (bbox == 2147483647) | (bbox == -2147483648)
+    ok = {"clipped": u.min() < 0 < u.max() < FRAME_HW[1]
+          and bool((depth_a > 0).any()),
+          "outside": u.min() >= FRAME_HW[1] and not depth_b.any(),
+          "near plane": not depth_a.any(),
+          "behind": not depth_a.any(),
+          "z0": bool(extreme.all()) and not depth_a.any(),
+          "nan": bool((u == 0).all()) and not depth_a.any(),
+          "corner past int32": bool(extreme.any()) and bool(
+              (bbox == np.round([K_PROD[1, 2], K_PROD[0, 2]])).all(-1).any())
+          and not depth_a.any()}[name]
+    if not ok:
+        raise AssertionError(f"lost track {name}: regime not reached (bbox "
+                             f"{bbox.tolist()})")
+
+
+def run_lost_track(net, tracker, rgb, depth, card):
+    """Phase 14.2: one ``track_step`` on the card from each prior pose of
+    :func:`lost_track_poses` on phase 4's frame, and the same step on the
+    port's plain CPU path: each regime reached, the bbox ints and B's crop
+    equal, the poses within phase 4's bars (5e-4 m, 5e-3 rad) with NaN at
+    the same entries, and K1 and ``pass2_shade`` launched once a step
+    without error. Returns the launches."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    cpu = make_tracker(net, torch.device("cpu"))
+    poses = lost_track_poses(tracker.cfg.object_width_mm)
+    frames = {t.device.type: (trk.upload_rgb(rgb, t.device),
+                              trk.upload_depth(depth, t.device))
+              for t in (tracker, cpu)}
+    out = {}
+    zero_launches()
+    for name, prior in poses.items():
+        for t in (tracker, cpu):
+            p = torch.as_tensor(prior).to(t.device)
+            pose, aux = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean,
+                                       t.std, p, *frames[t.device.type])
+            bbox = roi.compute_bbox(p, t.K, t.cfg.object_width_mm,
+                                    (1000.0, 1000.0, 1000.0))
+            out[t.device.type] = (pose.cpu().numpy(), bbox.cpu().numpy(),
+                                  {k: v.cpu().numpy() for k, v in
+                                   aux.items()})
+        (pc, bc, ac), (pg, bg, ag) = out["cpu"], out[tracker.device.type]
+        check_regime(name, bg, ag)
+        dt = float(np.nanmax(np.abs(pg[:3, 3] - pc[:3, 3]), initial=0.0))
+        dr = (rot_angle(pg[:3, :3], pc[:3, :3])
+              if np.isfinite(pg[:3, :3]).all() else 0.0)
+        same_nan = np.array_equal(np.isnan(pg), np.isnan(pc))
+        print(f"lost track {name}: bbox {bg[:, 0].min()}..{bg[:, 0].max()} x "
+              f"{bg[:, 1].min()}..{bg[:, 1].max()} (CPU equal: "
+              f"{np.array_equal(bg, bc)}), rendered pixels "
+              f"{int((ag['depthA'] > 0).sum())}, observed "
+              f"{int((ag['depthB'] > 0).sum())}; card vs CPU |dt| {dt:.3e} m,"
+              f" rotation {dr:.3e} rad, NaN entries "
+              f"{int(np.isnan(pg).sum())} (same: {same_nan})", flush=True)
+        if not (np.array_equal(bg, bc) and same_nan and dt <= 5e-4
+                and dr <= 5e-3 and np.array_equal(ag["depthB"], ac["depthB"])
+                and np.array_equal(ag["rgbB"], ac["rgbB"])):
+            raise AssertionError(f"lost track {name}: card and CPU disagree")
+    sync(tracker.device)
+    launches = read_launches()
+    want = {"raster_pass1": len(poses), "gather_rows": 0,
+            "raster_pass1_worklist": 0, "pass2_shade": len(poses)}
+    print(f"lost track: {len(poses)} steps, launches {launches} {card}",
+          flush=True)
+    if launches != want:
+        raise AssertionError(f"lost-track launches {launches} != {want}")
+    return launches
+
+
+def f14_witness(dev, card):
+    """Phase 14.3, F14: the "sampled" train check's first step (its batch,
+    weights and augmentation draws, lr 1e-5) in float64 on the card
+    (``tracknet.as_float64``), and the distance from it of the first-step
+    gradients in float32 (``train/compare.distances``: per tensor, conv
+    biases apart, ||g - g64|| / ||g64||) on the card under cuDNN's default,
+    deterministic and off, and on the CPU with and without oneDNN. Fails
+    if float64 on the card and on the CPU lie more than F64_BAR apart, or
+    the card's default more than F14_BAR from float64 or more than
+    F14_RATIO times the CPU's distance."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import augment as AUG
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+    from iros20_6d_pose_tracking_tpu_torch.train import compare
+    from iros20_6d_pose_tracking_tpu_torch.train import trainer as tr
+
+    t0 = time.perf_counter()
+    cpu = torch.device("cpu")
+    n = CPU_TRAIN_BATCH
+    raw, aug_cfg, mean, std = sampled_check_batch(dev, RES, n)
+    base = tracknet.init_params(tracknet.Se3TrackNet(image_size=RES),
+                                torch.Generator().manual_seed(SEED + 6))
+    lr = TRAIN_CHECKS["sampled"]["runs"][0][0]
+    cfg = tr.TrainConfig(resolution=RES, batch_size=n, learning_rate=lr,
+                         aug=aug_cfg)
+    draws = [AUG.draw_augment(torch.Generator().manual_seed(SEED + 10), n,
+                              (RES, RES), cfg.aug, cpu)]
+
+    def first_grads(model, device, onednn=True, cudnn=None):
+        ctx = (torch.backends.cudnn.flags(**cudnn, allow_tf32=False)
+               if cudnn is not None else contextlib.nullcontext())
+        with ctx:
+            return train_run(model, raw, draws, mean, std, cfg, 1, device,
+                             onednn)[1][0]
+
+    base64 = tracknet.as_float64(base)
+    ref = first_grads(base64, dev)
+    f64_gap = max(compare.distances(base, first_grads(base64, cpu),
+                                    ref).values())
+    sides = {
+        "card, cuDNN default": (dev, True, None),
+        "card, cuDNN deterministic": (dev, True, dict(
+            enabled=True, benchmark=False, deterministic=True)),
+        "card, cuDNN off": (dev, True, dict(enabled=False)),
+        "CPU, oneDNN": (cpu, True, None),
+        "CPU without oneDNN": (cpu, False, None),
+    }
+    worst = {}
+    for side, (device, onednn, cudnn) in sides.items():
+        d = compare.distances(base, first_grads(base, device, onednn, cudnn),
+                              ref)
+        worst[side] = max(d.values())
+        print(f"F14 {side}: first-step gradients from float64 on the card, "
+              f"worst {worst[side]:.3e} ({max(d, key=d.get)}), median "
+              f"{float(np.median(list(d.values()))):.3e} over {len(d)} "
+              f"tensors {card}", flush=True)
+    ratio = worst["card, cuDNN default"] / worst["CPU, oneDNN"]
+    print(f"F14: sampled batch of {n} at {RES}^2, lr {lr}: float64 card vs "
+          f"CPU {f64_gap:.3e} (bar {F64_BAR}); card (cuDNN default) / CPU "
+          f"(oneDNN) worst distance from float64 {ratio:.2f}; "
+          f"{time.perf_counter() - t0:.1f} s {card}", flush=True)
+    if f64_gap > F64_BAR or worst["card, cuDNN default"] > F14_BAR \
+            or ratio > F14_RATIO:
+        raise AssertionError(
+            f"F14: the card's float32 gradients lie beyond {F14_BAR} of "
+            f"float64 or beyond {F14_RATIO}x the CPU's distance, or float64 "
+            f"differs between the card and the CPU by more than {F64_BAR}")
+    return worst, f64_gap
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -5204,6 +5473,20 @@ def main() -> int:
         by_path.update(run_apps(pathlib.Path(tmp), dev, card))
     print(f"last modules phase: {time.perf_counter() - t13:.1f} s {card}",
           flush=True)
+
+    # 14. Where a track is lost: XLA's int32 conversion on the card, one
+    # step in each lost-track regime against the CPU path, and F14's
+    # float64 witness.
+    t14 = time.perf_counter()
+    print(f"lost track and F14: int32 conversion, {len(lost_track_poses(1.0))}"
+          f" lost-track steps at {RES}^2 on {FRAME_HW[0]}x{FRAME_HW[1]} "
+          f"frames, first-step gradients against float64 at {RES}^2",
+          flush=True)
+    check_int32_conversion(dev, card)
+    by_path["lost track"] = run_lost_track(net, tracker, rgb, depth, card)
+    f14_witness(dev, card)
+    print(f"lost track and F14 phase: {time.perf_counter() - t14:.1f} s "
+          f"{card}", flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)

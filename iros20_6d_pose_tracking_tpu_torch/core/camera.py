@@ -4,7 +4,9 @@ Counterpart of ``iros20_6d_pose_tracking_tpu/core/camera.py``: the
 ``Camera`` record and ``cam_K_from_dict`` (reference Utils.py:444-447),
 and the pinhole projection of camera-frame points: ``project_points``
 (rounded int32 pixels, reference predict.py:81-86) and ``project_points_f``
-(float pixels).
+(float pixels), and :func:`round_to_int32`, the rounding of pixel
+coordinates to int32 that both ``project_points`` and ``ops/roi.compute_bbox``
+use.
 """
 from __future__ import annotations
 
@@ -58,7 +60,24 @@ def project_points_f(points: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     return torch.stack([us, vs], dim=-1)
 
 
+def round_to_int32(x: torch.Tensor) -> torch.Tensor:
+    """Round half to even (``jnp.round``) and convert to int32 as XLA
+    converts: NaN -> 0, values at or beyond +-2^31 saturate to 2147483647 or
+    -2147483648. torch leaves its own conversion undefined there (on the
+    CPU each of them becomes -2^31; an H100 gives XLA's ints), and a pose at
+    z = 0, a NaN pose or one near the camera plane projects to them. The
+    limits are compared in float and written as ints: float32(2147483647)
+    is 2^31, which would overflow again. Elementwise ops with scalar
+    operands only, so nothing is copied from the host and nothing waits."""
+    r = torch.round(x)
+    limit = 2147483648.0  # 2^31, exact in float32 and float64
+    i = torch.where(r.abs() < limit, r, 0.0).to(torch.int32)  # NaN fails <
+    i = torch.where(r >= limit, 2147483647, i)
+    return torch.where(r <= -limit, -2147483648, i)
+
+
 def project_points(points: torch.Tensor, K: torch.Tensor) -> torch.Tensor:
     """(..., 3) camera-frame points -> (..., 2) int32 (u, v) pixels,
-    rounded to the nearest (half to even, as ``jnp.round``)."""
-    return torch.round(project_points_f(points, K)).to(torch.int32)
+    rounded to the nearest (half to even, as ``jnp.round``) and converted
+    by :func:`round_to_int32`."""
+    return round_to_int32(project_points_f(points, K))

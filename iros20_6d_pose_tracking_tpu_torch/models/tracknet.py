@@ -36,9 +36,12 @@ the same call (one rounding; Flax adds it as a second bfloat16 op);
 BatchNorm computes in float32 and rounds to bfloat16 once, as Flax's
 ``_normalize`` does; SELU, ReLU, max-pool and the spatial mean run in
 bfloat16; ``trans`` and ``rot`` come out float32, ``feature`` bfloat16.
+:func:`as_float64` makes a float64 copy, the reference float32 gradients
+are held against (no entry point runs it).
 """
 from __future__ import annotations
 
+import copy
 import math
 
 import torch
@@ -46,6 +49,11 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core import se3
+
+
+def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or in float64 where it is float64."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -76,7 +84,7 @@ class BatchNorm2d(nn.BatchNorm2d):
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                          self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.to(torch.float32), dim=(0, 2, 3),
+            var, mean = torch.var_mean(_at_least_f32(x), dim=(0, 2, 3),
                                        correction=0)
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
@@ -193,8 +201,8 @@ class Se3TrackNet(nn.Module):
         r = self.rot_conv2(self.rot_conv1(ab)).mean(dim=(2, 3))
         return {
             "feature": ab.permute(0, 2, 3, 1),
-            "trans": self.trans_out(t).to(torch.float32),
-            "rot": self.rot_out(r).to(torch.float32),
+            "trans": _at_least_f32(self.trans_out(t)),
+            "rot": _at_least_f32(self.rot_out(r)),
         }
 
 
@@ -204,8 +212,8 @@ def loss_fn(pred_trans, pred_rot, target_trans, target_rot,
     """MSE(trans) + MSE(rot) (reference se3_tracknet.py:114-121), weighted
     per reference problems.py:91. ``sample_weight`` (N,) turns the means
     over samples into weighted means. Returns (total, {"trans", "rot"})."""
-    se_t = torch.mean((pred_trans.float() - target_trans) ** 2, dim=-1)
-    se_r = torch.mean((pred_rot.float() - target_rot) ** 2, dim=-1)
+    se_t = torch.mean((_at_least_f32(pred_trans) - target_trans) ** 2, dim=-1)
+    se_r = torch.mean((_at_least_f32(pred_rot) - target_rot) ** 2, dim=-1)
     if sample_weight is None:
         trans_loss = se_t.mean()
         rot_loss = se_r.mean()
@@ -216,6 +224,19 @@ def loss_fn(pred_trans, pred_rot, target_trans, target_rot,
         rot_loss = (se_r * w).sum() / denom
     total = trans_weight * trans_loss + rot_weight * rot_loss
     return total, {"trans": trans_loss, "rot": rot_loss}
+
+
+def as_float64(model: Se3TrackNet) -> Se3TrackNet:
+    """A float64 copy of a float32 ``model``: parameters, BatchNorm
+    statistics, activations, outputs and loss in float64, on the same
+    inputs: the reference the float32 gradients of the card and of the
+    CPU are held against (``chip_smoke.py``,
+    tests/test_torch_train_parity.py)."""
+    if model.dtype != torch.float32:
+        raise ValueError(f"a {model.dtype} model has no float32 reference")
+    m = copy.deepcopy(model).double()
+    m.dtype = torch.float64
+    return m
 
 
 def create_model(image_size: int = 176,

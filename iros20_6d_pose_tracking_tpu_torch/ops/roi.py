@@ -20,6 +20,8 @@ from __future__ import annotations
 
 import torch
 
+from ..core.camera import round_to_int32
+
 
 def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
                  scale_size: float | torch.Tensor,
@@ -28,9 +30,11 @@ def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
     """Square ``scale_size`` window centred on the projected object origin,
     as a (4, 2) int32 tensor of (v, u) = (row, col) corners; a batch of
     poses (..., 4, 4) gives (..., 4, 2). ``scale`` multiplies the pose
-    translation ((1000, 1000, 1000) for metres -> mm). ``torch.round``
-    rounds half to even, like ``jnp.round``. ``scale_size`` may be a tensor
-    of one size per pose (...,)."""
+    translation ((1000, 1000, 1000) for metres -> mm). The corners are
+    rounded half to even and converted as XLA converts
+    (``core/camera.round_to_int32``: NaN -> 0, saturating at the int32
+    limits), so a pose at z = 0 or a NaN pose gets JAX's window.
+    ``scale_size`` may be a tensor of one size per pose (...,)."""
     # Constants come from device kernels, not torch.tensor(): a copy from
     # pageable host memory would make the host wait for the stream.
     obj = [pose[..., i, 3, None] * scale[i] for i in range(3)]
@@ -45,7 +49,7 @@ def compute_bbox(pose: torch.Tensor, K: torch.Tensor,
     zs = obj[2].expand(xs.shape)
     us = xs * K[0, 0] / zs + K[0, 2]
     vs = ys * K[1, 1] / zs + K[1, 2]
-    return torch.round(torch.stack([vs, us], dim=-1)).to(torch.int32)
+    return round_to_int32(torch.stack([vs, us], dim=-1))
 
 
 def bbox_window(bbox: torch.Tensor):

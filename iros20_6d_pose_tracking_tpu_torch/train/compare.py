@@ -30,6 +30,9 @@ compared before Adam, and the trained states after it:
 
 Each report maps a bar to (tensors under it, worst value / bar, the tensor
 that gave it); a bar holds while the worst ratio is <= 1.
+
+:func:`distances` measures one set of gradients against a float64
+reference (``models/tracknet.as_float64``), tensor by tensor.
 """
 from __future__ import annotations
 
@@ -101,6 +104,20 @@ def compare_grads(net: nn.Module, g_a: dict, g_b: dict,
             ratio = float((a - b).norm()) / (grad_rtol * float(b.norm()))
             _worst(report, "grad", k, ratio)
     return report
+
+
+def distances(net: nn.Module, g: dict, g_ref: dict) -> dict:
+    """{name: ||g - g_ref|| / ||g_ref||} over every parameter but the conv
+    biases, whose exact gradient is 0 (module docstring), in float64."""
+    biases = conv_biases(net)
+    out = {}
+    for k, ref in g_ref.items():
+        if k in biases:
+            continue
+        ref = ref.detach().double().cpu()
+        out[k] = float((g[k].detach().double().cpu() - ref).norm()
+                       / ref.norm())
+    return out
 
 
 def compare_states(net: nn.Module, sd_a: dict, sd_b: dict, noise: dict,

@@ -8,8 +8,16 @@ bit for bit in the installed JAX), the directions of ``noisy_init_pose``,
 and the re-init draws of ``long_horizon_eval`` keyed by frame index. The
 JAX side runs op by op (``jax.disable_jit``; ROADMAP F9). The observed
 videos are rendered once by the port and handed to both packages.
+
+``tests/data/jax_sweep_init_draws.json`` holds the initialization draws of
+JAX's severity sweep of the cube, for the card machine, which has no JAX
+(``accuracy_f17.py``); a test regenerates them here and compares. To write
+the file again: ``JAX_PLATFORMS=cpu PYTHONPATH=. python
+tests/test_torch_domain_shift.py``.
 """
 import dataclasses
+import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -36,6 +44,9 @@ from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
 torch.set_num_threads(2)
 
+SWEEP_DRAWS = os.path.join(os.path.dirname(os.path.abspath(__file__)), "data",
+                           "jax_sweep_init_draws.json")
+SWEEP_SEVERITIES = (0.5, 1.0, 2.0, 3.0, 4.0)
 HW = (96, 128)
 K = np.array([[200.0, 0, 64.0], [0, 200.0, 48.0], [0, 0, 1.0]], np.float32)
 RES = 48
@@ -68,6 +79,27 @@ def jax_init_draws(key):
         out[name] = {"u_theta": torch.tensor(float(jax.random.uniform(ka))),
                      "u_phi": torch.tensor(float(jax.random.uniform(kb)))}
     return out
+
+
+def jax_sweep_init_draws():
+    """JAX's noisy initializations of the cube's severity sweep (the suite's
+    object 0, so its seed is 0): severity s draws ``noisy_init_pose(
+    PRNGKey(700 + int(100 s)), gt[0], SensorModel().scaled(s))`` (JAX
+    ``shift_severity_sweep``). Per severity: the key, the four uniforms of
+    the two directions and the pose they give, as JSON numbers (each a
+    float32 value)."""
+    gt0 = SB.make_gt_trajectory(1)[0]  # gt[0] for every length
+    rows = {}
+    for s in SWEEP_SEVERITIES:
+        seed = 700 + int(s * 100)
+        key = jax.random.PRNGKey(seed)
+        draws = {name: {k: float(v) for k, v in d.items()}
+                 for name, d in jax_init_draws(key).items()}
+        pose = JDS.noisy_init_pose(key, jnp.asarray(gt0),
+                                   JDS.SensorModel().scaled(s))
+        rows[str(s)] = {"key": seed, **draws,
+                        "init_pose": np.asarray(pose).tolist()}
+    return {"object": "cube", "gt0": gt0.tolist(), "severities": rows}
 
 
 def jax_reinit_draws(seed):
@@ -112,9 +144,10 @@ def hard_video():
     return (gt,) + _video(M.make_cube(0.08), gt, hard=True)
 
 
-@pytest.mark.parametrize("severity", [1.0, 4.0])
+@pytest.mark.parametrize("severity", [1.0, 2.0, 3.0, 4.0])
 def test_shift_video_matches_jax(hard_video, severity):
-    """The default model (x1) and x4 (negative ambient, gamma 1.15^4) on
+    """The default model (x1), x2, x3 (the sweep's cliff on the card) and
+    x4 (negative ambient, gamma 1.15^4) on
     JAX's draws: rgb within 1e-3 of 255 everywhere (measured 3.1e-5); the
     blur offsets equal; depth differs on at most 0.1% of pixels, each by
     one quantization step or by dropout (measured: none, bit-equal)."""
@@ -208,6 +241,23 @@ def test_noisy_init_pose_matches_jax():
     gen_a, gen_b = (torch.Generator().manual_seed(4) for _ in range(2))
     torch.testing.assert_close(DS.noisy_init_pose(gen_a, pose),
                                DS.noisy_init_pose(gen_b, pose))
+
+
+def test_jax_sweep_init_draws_file_is_jaxs():
+    """The committed draws are JAX's, regenerated here exactly, and the
+    port's ``noisy_init_pose`` of them lies within 1e-6 of JAX's pose."""
+    with open(SWEEP_DRAWS) as f:
+        saved = json.load(f)
+    assert saved == jax_sweep_init_draws()
+    gt0 = np.asarray(saved["gt0"], np.float32)
+    for s, row in saved["severities"].items():
+        draws = {name: {k: torch.tensor(v, dtype=torch.float32)
+                        for k, v in row[name].items()}
+                 for name in ("dir_t", "dir_r")}
+        pose = DS.noisy_init_pose(draws, gt0,
+                                  DS.SensorModel().scaled(float(s)))
+        np.testing.assert_allclose(pose.numpy(), row["init_pose"], atol=1e-6,
+                                   rtol=0)
 
 
 @pytest.fixture(scope="module")
@@ -366,3 +416,11 @@ def test_live_recovery_eval(zero_head, case):
         assert r["post_recovery_add_auc"] is None
         assert r["post_recovery_adi_auc"] is None
         assert "not recovered" in SB.recovery_auc_text(r)
+
+
+if __name__ == "__main__":
+    jax.config.update("jax_platforms", "cpu")
+    os.makedirs(os.path.dirname(SWEEP_DRAWS), exist_ok=True)
+    with open(SWEEP_DRAWS, "w") as f:
+        json.dump(jax_sweep_init_draws(), f, indent=1)
+        f.write("\n")

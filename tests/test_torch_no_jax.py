@@ -8,9 +8,10 @@ one tracking step, one multi-hypothesis step, two windowed stream pushes, an
 adaptive three-frame video, a DR scene, a depth fill, a two-frame hard test
 video with its scores, one synthetic train step, the sensor model over two
 frames, one bf16 tracking step, a two-object batched ensemble step and a
-one-rank face-sharded step, one ``render_at_bbox`` and one
-``StepTimer.measure`` of a tracking step on the CPU, and look at
-``sys.modules``. Every source
+one-rank face-sharded step, one ``render_at_bbox``, one
+``StepTimer.measure`` of a tracking step, ``compute_bbox`` of a NaN pose,
+a float64 copy of the network and ``accuracy_f17.py``'s readers of JAX's
+saved draws and record on the CPU, and look at ``sys.modules``. Every source
 file of the port is also parsed, and its imports read. Importing the
 port loads neither PyYAML nor Pillow (the CLIs and the file-backed dataset
 import them when they read a file). ``chip_smoke.py`` imports only
@@ -136,6 +137,17 @@ timed = StepTimer(warmup=1, reps=1).measure(
     torch.from_numpy(pose), torch.from_numpy(rgb),
     trk.upload_depth(depth, "cpu"))
 assert timed["per_iter_ms"] > 0
+from iros20_6d_pose_tracking_tpu_torch.ops import roi
+nan_pose = torch.from_numpy(pose).clone()
+nan_pose[0, 3] = float("nan")
+bb = roi.compute_bbox(nan_pose, t.K, 110.0, (1000.0, 1000.0, 1000.0))
+assert (bb[:, 1] == 0).all() and (bb[:, 0] > 0).all(), bb
+m64 = tracknet.as_float64(t.model)
+assert next(m64.parameters()).dtype == torch.float64
+import accuracy_f17
+assert sorted(accuracy_f17.jax_inits(SB.make_gt_trajectory(1)[0])) == [
+    2.0, 3.0, 4.0]
+assert accuracy_f17.jax_record()[3.0]["add_auc"] > 0
 bad = sorted(m for m in sys.modules if m == "jax" or m.startswith(("jax.", "jaxlib", "flax")))
 print("JAX_MODULES", bad)
 pkg = sorted(m for m in sys.modules if m == "iros20_6d_pose_tracking_tpu"
@@ -169,7 +181,8 @@ def test_port_imports_and_runs_without_jax():
                       "apps.accuracy_suite", "parallel.spmd",
                       "parallel.latency", "utils.profiling",
                       "apps.demo_train_and_track", "apps.make_ycb_fixture",
-                      "apps.realdata_dryrun"}, walked
+                      "apps.realdata_dryrun", "ops.roi", "models.tracknet",
+                      "train.compare"}, walked
 
 
 def _imported_modules(path):
@@ -210,6 +223,14 @@ def test_chip_smoke_imports_only_the_port():
     assert "iros20_6d_pose_tracking_tpu_torch.render" in mods
     bad = sorted(m for m in mods if m.split(".")[0] in _JAX_SIDE + (
         "yaml", "PIL"))
+    assert not bad, bad
+
+
+def test_accuracy_f17_imports_only_the_port():
+    """The card machine's F17 script reads JAX's draws from a file."""
+    mods = _imported_modules(os.path.join(REPO, "accuracy_f17.py"))
+    assert "iros20_6d_pose_tracking_tpu_torch.eval" in mods
+    bad = sorted(m for m in mods if m.split(".")[0] in _JAX_SIDE)
     assert not bad, bad
 
 

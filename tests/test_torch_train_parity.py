@@ -395,3 +395,36 @@ def test_one_step_at_reference_lr_matches_jax(flax_vars):
         net, *states[0], compare.noisy(grads[0][:1], grads[1][:1]), lr, 1,
         noisy_share=0.1)
     assert not compare.failed(report), report
+
+
+def test_float32_gradients_against_float64(flax_vars):
+    """The first step's gradients of the float32 network, with the CPU's
+    convolutions in oneDNN and out of it (two summation orders), against
+    the same step in float64 (``tracknet.as_float64``) on the parity
+    batch: every tensor but the conv biases within 1e-4 relative (L2) of
+    float64's (``compare.GRAD_RTOL``; measured 4.9e-6 and 3.5e-6 at 48^2).
+    ``chip_smoke.py`` holds the card's float32 gradients against float64
+    at 176^2 the same way (ROADMAP F14)."""
+    _, variables = flax_vars
+    _, cfg = _cfgs()
+    raw = _raw_batch(0)
+    mean = torch.tensor([120, 110, 100, 0, 120, 110, 100, 0],
+                        dtype=torch.float32)
+    std = torch.tensor([70, 70, 70, 300, 70, 70, 70, 300],
+                       dtype=torch.float32)
+
+    def first_grads(net, onednn=True):
+        with torch.backends.mkldnn.flags(enabled=onednn):
+            opt, lr_at = tr.make_optimizer(net, cfg, steps_per_epoch=1000)
+            m = tr.train_step(net, opt, lr_at(0), cfg,
+                              torch.Generator().manual_seed(0), raw, mean,
+                              std)
+        assert m["loss"].dtype == next(net.parameters()).dtype
+        return compare.grads_of(net)
+
+    net = _net(variables)
+    ref = first_grads(tracknet.as_float64(net))
+    for onednn in (True, False):
+        d = compare.distances(net, first_grads(_net(variables), onednn), ref)
+        assert len(d) == 55
+        assert max(d.values()) < compare.GRAD_RTOL, (onednn, d)
