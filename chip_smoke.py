@@ -4,7 +4,8 @@ closed-loop synthetic evaluation, synthetic training, the serving path, the
 live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
 suite, the bf16 CNN, the scale-out layer, the last modules (the TF32
 pin, profiling, ``render_at_bbox``, the demo, the fixture, the dry run),
-and the tracking step where a track is lost, with F14's float64 witness.
+the tracking step where a track is lost, with F14's float64 witness, and
+the compiled step (one CUDA graph a key, replayed).
 
     python3 chip_smoke.py
 
@@ -76,7 +77,8 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      memory, then ``shade_rows``); the parts of one step and the whole step
      (CUDA events, median of 50), and the steady ``on_track`` and
      ``track_video`` rates (host clock around work that ends with the pose
-     on the host), ``track_video`` in turns with the earlier pass 2, and the
+     on the host), the eager step loop in turns with the earlier pass 2 (a
+     captured program replays the pass 2 it was captured with), and the
      device's busy share over a ``torch.profiler`` window of 20 frames;
      then K3, K1 and plain K3 at 480x640 on both full-frame meshes, with
      each wrapper's host time and device operations per call (from the
@@ -238,12 +240,14 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      ``train_step``, with the sharded render's and K2's times.
  13. drives the last modules of the port: F16, a fresh process that leaves
      TF32 at torch's default calls the module-level ``track_video`` (no
-     ``Tracker``) over 50 production frames, every convolution must see
-     ``cudnn.allow_tf32`` False and the poses must be the pinned main
-     process's bits; the TF32 drift of the heads at batch 1 and 200 (F1,
-     printed, gates nothing); ``utils/profiling``: ``StepTimer`` not
-     returning before a device sleep ends, and beside the CUDA-event step
-     time, ``trace`` around 5 ``track_video`` frames naming K1 and
+     ``Tracker``) over 50 production frames, every convolution run in
+     Python (the program's eager warm-up and its capture, which its
+     replays run) must see ``cudnn.allow_tf32`` False and the poses must be
+     the pinned main process's bits; the TF32 drift of the heads at batch
+     1 and 200 (F1, printed, gates nothing); ``utils/profiling``:
+     ``StepTimer`` not returning before a device sleep ends, and beside the
+     CUDA-event step time, ``trace`` around 5 ``track_video`` frames naming
+     K1 and
      ``pass2_shade``; ``render_at_bbox`` bit-equal to ``render`` at its
      window, one K1 and one ``pass2_shade``, and against the CPU path at
      tests/test_torch_raster.py's bars; the demo
@@ -265,6 +269,21 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      check's first step in float64 on the card, with the distance from it
      of the first-step float32 gradients on the card (cuDNN default,
      deterministic, off) and on the CPU (with and without oneDNN).
+ 15. drives the compiled step (``tracking/compiled.py``) on the production
+     configuration, float32 and bf16, its programs captured anew: the
+     module-level ``track_video`` over 100 frames twice (3 eager warm-up
+     frames, the capture and 97 replays, then 100 replays), bit-equal to
+     the eager step loop, with 100 K1 and 100 ``pass2_shade`` launches a
+     run (a replay adds the launches its capture recorded: 1 and 1);
+     ``on_track`` over 24 frames (20 replayed) and a windowed stream over
+     100 pushes, both bit-equal to the eager step, one K1 and one
+     ``pass2_shade`` a frame; 100 replayed pushes and a replayed
+     ``track_video`` under ``torch.cuda.set_sync_debug_mode("error")``;
+     then eager and replayed in turns (``track_video`` float32 and bf16,
+     ``on_track`` with its host ms a call, stream pushes with their host ms
+     a push), each program's capture time, and the device's busy share in
+     20-frame profiler windows of the eager and the replayed
+     ``track_video`` and the replayed stream.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -281,7 +300,8 @@ its times at phase 11's lighting, K1 and ``pass2_shade``
 ``scale_out_views``, their times at phase 12's 4 objects' and 8 videos'
 views, and K2 ``sharded_render``, its time at a shard's owned rows;
 phase 13 adds ``render_at_bbox``, ``demo``, ``fixture`` and ``dryrun`` to
-``launches_by_path``, phase 14 ``lost track``. The last is
+``launches_by_path``, phase 14 ``lost track``, phase 15 its ``compiled``
+paths. The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -510,6 +530,13 @@ CLIPPED_PX, OUTSIDE_PX = 10, 300
 F14_BAR = TRAIN_CHECKS["sampled"]["grads"]["grad_rtol"]
 F14_RATIO = 2.0
 F64_BAR = 1e-4
+# Phase 15, the compiled step: phase 4's frames through track_video and the
+# stream, on_track's replayed frames, the replayed pushes under sync debug
+# mode "error", and the frames of each profiler window.
+COMPILED_FRAMES = 100
+COMPILED_ON_TRACK = 20
+COMPILED_SYNC_PUSHES = 100
+COMPILED_PROFILE_FRAMES = 20
 
 
 def production_mesh():
@@ -2032,20 +2059,29 @@ def time_train(synth, cfg, model, opt, mean, std, batched_cases, card):
 
 
 def time_video_in_turns(tracker, pose0, rgb, depth, n, card):
-    """``Tracker.track_video`` over ``n`` frames with pass 2 fused and with
-    the earlier unfused pass 2, in turns (fused, unfused, unfused, fused),
-    host clock around work that ends with the poses on the host."""
-    rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
+    """The eager step over ``n`` frames (``eager_video``: a captured
+    program would replay whichever pass 2 it was captured with) with pass 2
+    fused and with the earlier unfused pass 2, in turns (fused, unfused,
+    unfused, fused), host clock around work that ends with the poses on the
+    host."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev = tracker.device
+    rgb_t = trk.upload_rgb(np.stack([rgb] * n), dev)
+    depth_t = trk.upload_depth(np.stack([depth] * n), dev)
+    p0 = torch.as_tensor(pose0).to(dev)
     hz = {}
     for which in ("fused", "unfused", "unfused", "fused"):
         with unfused_pass2() if which == "unfused" else \
                 contextlib.nullcontext():
-            tracker.track_video(pose0, rgbs[:3], depths[:3])  # warm
+            eager_video(tracker, p0, rgb_t[:3], depth_t[:3]).cpu()  # warm
             t0 = time.perf_counter()
-            tracker.track_video(pose0, rgbs, depths)
+            eager_video(tracker, p0, rgb_t, depth_t).cpu()
             hz.setdefault(which, []).append(n / (time.perf_counter() - t0))
-    print(f"timing track_video in turns ({n} frames each): pass 2 fused "
-          f"{[round(h, 2) for h in hz['fused']]} Hz, unfused (K2 + "
+    print(f"timing the eager step loop in turns ({n} frames each): pass 2 "
+          f"fused {[round(h, 2) for h in hz['fused']]} Hz, unfused (K2 + "
           f"shade_rows) {[round(h, 2) for h in hz['unfused']]} Hz {card}",
           flush=True)
 
@@ -2653,16 +2689,21 @@ def check_push_syncs(tracker, pose0, rgb, depth):
     """Phase 9.2: SYNC_PUSHES windowed pushes (refetches every 8) under
     ``torch.cuda.set_sync_debug_mode``: first "warn", every warning
     recorded with its thread and Python stack (all are printed, and any
-    fails the run), then "error" (a synchronizing call raises)."""
+    fails the run), then "error" (a synchronizing call raises). The pushes
+    before them warm the window side's program up and capture it, so the
+    checked pushes are replays."""
     import threading
     import traceback
     import warnings
 
     import torch
 
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
+
     s = live_stream(tracker)
     s.begin(pose0)
-    s.push(rgb, depth)
+    for _ in range(compiled.WARMUP_CALLS + 1):  # the side's program captured
+        s.push(rgb, depth)
     drain(s)
     hits = []
 
@@ -2729,9 +2770,11 @@ def check_push_behind_sleep(tracker, pose0, rgb, depth, card):
     the sleep; the queue must take the sleep's length to drain."""
     import torch
 
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
+
     s = live_stream(tracker)
     s.begin(pose0)
-    for _ in range(3):
+    for _ in range(compiled.WARMUP_CALLS + 1):  # the program captured
         s.push(rgb, depth)
     s.current_pose()
     prof = profile_share(lambda: ([s.push(rgb, depth) for _ in range(5)],
@@ -3057,7 +3100,7 @@ def time_live(tracker, pose0, rgb, depth, multi_s, card):
     mv = moving_stream(tracker)
     t_on = serving_tracker(tracker)
     rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
-    for st in (s, mv):  # warm (eager PyTorch compiles no window size)
+    for st in (s, mv):  # warm: the window side's program captured
         st.begin(pose0)
         for _ in range(10):
             st.push(rgb, depth)
@@ -3179,8 +3222,10 @@ def run_adaptive(tracker, pose0, rgb, depth, card):
     ADAPTIVE_PROBE) over ``adaptive_video``'s frames in chunks of
     ADAPTIVE_CHUNK from callables: bit-equal to ``track_video`` over the
     same frames; exactly one K1 and one ``pass2_shade`` a tracked frame, and
-    one of each a candidate in ``warmup`` (counted apart). Returns the
-    tracked run's launches."""
+    ``compiled.WARMUP_CALLS`` + 1 of each a candidate in ``warmup`` (counted
+    apart: it runs each candidate's program until it is captured). Returns
+    the tracked run's launches."""
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
     from iros20_6d_pose_tracking_tpu_torch.tracking.dispatch import (
         AdaptiveVideoTracker)
 
@@ -3198,7 +3243,7 @@ def run_adaptive(tracker, pose0, rgb, depth, card):
                             lambda a, b: depths[a:b], n_frames=n,
                             chunk_size=ADAPTIVE_CHUNK)
     launches = read_launches()
-    nc = len(ADAPTIVE_CANDIDATES)
+    nc = len(ADAPTIVE_CANDIDATES) * (compiled.WARMUP_CALLS + 1)
     want, want_warm = k_launches(n, 0, n), k_launches(nc, 0, nc)
     n_diff = int((poses != whole).sum())
     print(f"adaptive: {n} frames (phase 4's {ADAPTIVE_CHUNK}, then reversed) "
@@ -3267,13 +3312,16 @@ def run_adaptive_multi(tracker, pose0, rgb_r, depth_r):
 def run_predict_adaptive(root, ckpt, dev):
     """Phase 10.3: ``apps/predict.main --track_mode adaptive`` at chunk
     PREDICT_CHUNK on phase 8's tree: pose files equal to the scan run's of
-    phase 8, 1 K1 + 1 ``pass2_shade`` a tracked frame plus one of each a
-    candidate's warm-up. Returns the launches."""
+    phase 8, 1 K1 + 1 ``pass2_shade`` a tracked frame plus
+    ``compiled.WARMUP_CALLS`` + 1 of each a candidate's warm-up. Returns the
+    launches."""
     from iros20_6d_pose_tracking_tpu_torch.apps import predict
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
 
     n = PREDICT_FRAMES - 1
-    cands = 1 + len([c for c in (PREDICT_CHUNK, 8, 1)
-                     if PREDICT_CHUNK % c == 0])  # and the stream
+    cands = (1 + len([c for c in (PREDICT_CHUNK, 8, 1)
+                      if PREDICT_CHUNK % c == 0])  # and the stream
+             ) * (compiled.WARMUP_CALLS + 1)
     want = k_launches(n + cands, 0, n + cands)
     out = root / "out_adaptive"
     sync(dev)
@@ -4547,10 +4595,13 @@ def _f16_child(rank, tmp):
     """Phase 13.1's fresh process: TF32 left at torch's default, the
     module-level ``track_video`` over F16_FRAMES production frames with no
     ``Tracker`` built; every convolution's ``cudnn.allow_tf32`` recorded by
-    a forward pre-hook."""
+    a forward pre-hook (the hooks run where the forward runs in Python: the
+    program's eager warm-up calls and its capture; a replay runs the
+    convolutions the capture recorded)."""
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
     from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
     default = [torch.backends.cuda.matmul.allow_tf32,
@@ -4573,14 +4624,18 @@ def _f16_child(rank, tmp):
         torch.from_numpy(pose0).to(dev),
         trk.upload_rgb(np.stack([rgb] * F16_FRAMES), dev),
         trk.upload_depth(np.stack([depth] * F16_FRAMES), dev))
-    torch.save({"default": default, "seen": seen, "poses": poses.cpu()},
-               f"{tmp}/f16.pt")
+    prog, = compiled.programs.programs()
+    torch.save({"default": default, "seen": seen, "poses": poses.cpu(),
+                "eager_calls": prog.eager_calls, "replays": prog.replays,
+                "captured": prog.graph is not None}, f"{tmp}/f16.pt")
 
 
 def check_f16(tracker, pose0, rgb, depth, card):
     """Phase 13.1, F16 on the card: ``_f16_child`` in a spawned process; its
-    convolutions all ran with TF32 off, and its poses are the bits of this
-    (pinned) process's module-level ``track_video`` on the same inputs."""
+    convolutions all ran with TF32 off (each Python-side forward: the
+    program's eager calls and its capture, which every replay runs), and
+    its poses are the bits of this (pinned) process's module-level
+    ``track_video`` on the same inputs."""
     import torch
     import torch.multiprocessing as mp
 
@@ -4613,7 +4668,9 @@ def check_f16(tracker, pose0, rgb, depth, card):
     equal = torch.equal(child["poses"], pinned)
     print(f"F16: a fresh process with TF32 at torch's default (matmul, "
           f"cudnn allow_tf32 = {child['default']}) ran the module-level "
-          f"track_video over {F16_FRAMES} production frames, no Tracker: "
+          f"track_video over {F16_FRAMES} production frames, no Tracker "
+          f"({child['eager_calls']} eager calls, captured "
+          f"{child['captured']}, {child['replays']} replays): "
           f"{len(seen)} convolution calls, {n_on} with cudnn.allow_tf32 on; "
           f"poses bit-equal to the pinned process's: {equal} (max |d| "
           f"{diff:.3e}); {child_s:.1f} s with the process's start {card}",
@@ -4623,9 +4680,12 @@ def check_f16(tracker, pose0, rgb, depth, card):
                              "default cudnn.allow_tf32")
     n_conv = sum(isinstance(m, torch.nn.Conv2d)
                  for m in tracker.model.modules())
-    if len(seen) != n_conv * F16_FRAMES or n_on:
+    forwards = child["eager_calls"] + child["captured"]
+    if len(seen) != n_conv * forwards or n_on or not child["captured"] or \
+            child["eager_calls"] + child["replays"] != F16_FRAMES:
         raise AssertionError(f"F16: {n_on} of {len(seen)} convolution calls "
-                             "ran with TF32 allowed")
+                             f"ran with TF32 allowed ({forwards} forwards "
+                             "in Python)")
     if not equal:
         raise AssertionError("F16: the unpinned process's poses differ from "
                              "the pinned process's")
@@ -5113,6 +5173,321 @@ def f14_witness(dev, card):
     return worst, f64_gap
 
 
+# ---------------------------------------------------------------------------
+# Phase 15: the compiled step (tracking/compiled.py): one CUDA graph a key,
+# replayed by track_video, on_track, the dispatcher and the stream.
+# ---------------------------------------------------------------------------
+
+
+def eager_video(tracker, pose, rgb_t, depth_t):
+    """The eager step frame by frame over device frames, the pose carried
+    on the device: the port's ``track_video`` before its steps were
+    compiled. Returns (T, 4, 4) poses on the device."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    t = tracker
+    out = torch.empty((rgb_t.shape[0], 4, 4), dtype=torch.float32,
+                      device=t.device)
+    for i in range(rgb_t.shape[0]):
+        pose, _ = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+                                 pose, rgb_t[i], depth_t[i])
+        out[i] = pose
+    return out
+
+
+def eager_on_track(tracker, pose, rgb, depth):
+    """``Tracker.on_track`` at samples 1 as the port ran it before its step
+    was compiled: upload, the eager step, the pose to the host."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    t, dev = tracker, tracker.device
+    new, _ = trk.track_step(
+        t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+        torch.as_tensor(np.asarray(pose), dtype=torch.float32).to(dev),
+        trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev))
+    return new.cpu().numpy()
+
+
+class EagerPrograms:
+    """For timing only: stands in for a ``StreamTracker``'s program cache,
+    so that every push runs the eager step (the stream before its steps
+    were compiled)."""
+
+    def __len__(self):
+        return 0
+
+    def step(self, model, cfg, mesh, K, mean, std, prev_pose, rgb, depth,
+             object_width_mm=None, frame_offset_vu=None):
+        from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+        pose, _ = trk.track_step(model, cfg, mesh, K, mean, std, prev_pose,
+                                 rgb, depth, object_width_mm, frame_offset_vu)
+        return pose
+
+
+def program_line(prog):
+    """One program's key in brief, its capture time and its counts."""
+    frame = tuple(prog.rgb.shape[1:3])
+    return (f"frame {frame[0]}x{frame[1]} {str(prog.rgb.dtype)[6:]}/"
+            f"{str(prog.depth.dtype)[6:]}, slots {prog.slots}, offset "
+            f"{prog.offset is not None}, capture "
+            + ("none" if prog.capture_ms is None
+               else f"{prog.capture_ms:.3f} ms")
+            + f", {prog.eager_calls} eager calls, {prog.replays} replays, "
+            f"launches a replay {prog.replay_launches}")
+
+
+def check_replays_sync_free(tracker, pose0, rgb, depth, rgb_t, depth_t):
+    """Phase 15.4: COMPILED_SYNC_PUSHES windowed pushes (a warmed stream)
+    and a replayed ``track_video`` over the phase's frames under
+    ``torch.cuda.set_sync_debug_mode("error")``: a synchronizing call
+    raises."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    t = tracker
+    s = live_stream(tracker)
+    s.begin(pose0)
+    for _ in range(compiled.WARMUP_CALLS + 1):
+        s.push(rgb, depth)
+    drain(s)
+    p0 = torch.as_tensor(pose0).to(t.device)
+    sync(t.device)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for _ in range(COMPILED_SYNC_PUSHES):
+            s.push(rgb, depth)
+        trk.track_video(t.model, t.cfg, t.mesh, t.K, t.mean, t.std, p0,
+                        rgb_t, depth_t)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    s.close()
+    replays = sum(p.replays for p in s._programs.programs())
+    print(f"compiled: {COMPILED_SYNC_PUSHES} replayed pushes ({replays} "
+          f"replays in the stream) and a replayed track_video over "
+          f"{rgb_t.shape[0]} frames under sync debug mode 'error': none "
+          "raised", flush=True)
+
+
+def run_compiled(net, tracker, pose0, rgb, depth, card):
+    """Phase 15, the compiled step on the production configuration (phase
+    4's tracker, float32 and bf16): the module's programs captured anew;
+    ``track_video`` over COMPILED_FRAMES frames twice (the first warms up,
+    captures and replays, the second only replays) bit-equal to the eager
+    loop; ``on_track`` over COMPILED_ON_TRACK frames after its warm-up and
+    a windowed stream over COMPILED_FRAMES pushes, both bit-equal to the
+    eager step; exactly one K1 and one ``pass2_shade`` launch a frame,
+    replayed or not; no synchronizing call in the replays; then eager and
+    replayed rates in turns, the capture time of each key and the device's
+    busy share in a profiler window. Returns the launches by path."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev, n = tracker.device, COMPILED_FRAMES
+    rgbs, depths = np.stack([rgb] * n), np.stack([depth] * n)
+    rgb_t, depth_t = trk.upload_rgb(rgbs, dev), trk.upload_depth(depths, dev)
+    p0 = torch.as_tensor(pose0).to(dev)
+    compiled.programs.clear()
+    trackers = {"float32": tracker,
+                "bf16": make_tracker(net, dev, torch.bfloat16)}
+    by_path, eager = {}, {}
+    for name, t in trackers.items():
+        parts = (t.model, t.cfg, t.mesh, t.K, t.mean, t.std)
+        eager[name] = eager_video(t, p0, rgb_t, depth_t).cpu().numpy()
+        for run in ("first", "replayed"):
+            sync(dev)
+            zero_launches()
+            got = trk.track_video(*parts, p0, rgb_t, depth_t).cpu().numpy()
+            launches = read_launches()
+            prog = compiled.programs.programs()[-1]
+            n_diff = int((got != eager[name]).sum())
+            print(f"compiled track_video {name}, {run} run of {n} frames: "
+                  f"pose entries different from the eager loop {n_diff}, "
+                  f"launches {launches}; program: {program_line(prog)}",
+                  flush=True)
+            if n_diff or launches != k_launches(n, 0, n):
+                raise AssertionError(f"compiled track_video {name} ({run}) "
+                                     "is not the eager loop's bits, or its "
+                                     "launches are wrong")
+            by_path[f"compiled track_video {name} {run}"] = launches
+        if prog.graph is None or prog.replays != 2 * n - \
+                compiled.WARMUP_CALLS or prog.replay_launches != {
+                    "pass1_winners": 1, "pass2_shade": 1}:
+            raise AssertionError(f"the {name} video program did not replay "
+                                 f"as it should: {program_line(prog)}")
+
+    # 15.2: on_track, from a fresh tracker on the phase-4 parts
+    m = compiled.WARMUP_CALLS + 1 + COMPILED_ON_TRACK
+    t_on, pose, want, got = serving_tracker(tracker), pose0, [], []
+    for _ in range(m):
+        pose = eager_on_track(tracker, pose, rgb, depth)
+        want.append(pose)
+    pose = pose0
+    sync(dev)
+    zero_launches()
+    for _ in range(m):
+        pose = t_on.on_track(pose, rgb, depth)
+        got.append(pose)
+    launches = read_launches()
+    prog = compiled.programs.programs()[-1]
+    n_diff = int((np.stack(got) != np.stack(want)).sum())
+    print(f"compiled on_track: {m} frames ({compiled.WARMUP_CALLS} eager, "
+          f"the capture, {COMPILED_ON_TRACK} replays after it): pose entries "
+          f"different from the eager step {n_diff}, launches {launches}; "
+          f"program: {program_line(prog)}", flush=True)
+    if n_diff or launches != k_launches(m, 0, m) or \
+            prog.replays != m - compiled.WARMUP_CALLS:
+        raise AssertionError("compiled on_track is not the eager step's bits")
+    by_path["compiled on_track"] = launches
+
+    # 15.3: the windowed stream, against the eager loop over full frames
+    s = live_stream(tracker)
+    s.begin(pose0)
+    sync(dev)
+    zero_launches()
+    for _ in range(n):
+        s.push(rgb, depth)
+    got = s.poses()
+    launches = read_launches()
+    s.close()
+    stats = s.stats()
+    n_diff = int((got != eager["float32"]).sum())
+    print(f"compiled stream: {n} windowed pushes, pose entries different "
+          f"from the eager loop {n_diff}, launches {launches}, stats "
+          f"{stats}; programs: "
+          + "; ".join(program_line(p) for p in s._programs.programs()),
+          flush=True)
+    progs = s._programs.programs()
+    if n_diff or launches != k_launches(n, 0, n) or \
+            stats["compiled_programs"] != len(progs) or \
+            sum(p.eager_calls + p.replays for p in progs) != n or \
+            not any(p.graph is not None for p in progs):
+        raise AssertionError("the compiled stream is not the eager bits")
+    by_path["compiled stream"] = launches
+
+    check_replays_sync_free(tracker, pose0, rgb, depth, rgb_t, depth_t)
+    time_compiled(tracker, trackers["bf16"], pose0, rgb, depth, rgb_t,
+                  depth_t, card)
+    for p in compiled.programs.programs():
+        print(f"compiled program: {program_line(p)} {card}", flush=True)
+    return by_path
+
+
+def time_compiled(tracker, t16, pose0, rgb, depth, rgb_t, depth_t, card):
+    """Phase 15.5: eager and replayed in turns (eager, replayed, replayed,
+    eager), host clock around work that ends with the poses on the host:
+    ``track_video`` float32 and bf16 over the phase's frames, ``on_track``
+    over COMPILED_ON_TRACK frames (and its host ms a call), windowed
+    stream pushes (host ms a push, from the pushes alone); then the
+    device's busy share over COMPILED_PROFILE_FRAMES frames of each."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev, n = tracker.device, rgb_t.shape[0]
+    p0 = torch.as_tensor(pose0).to(dev)
+    t_on = serving_tracker(tracker)
+    s_rep, s_eag = live_stream(tracker), live_stream(tracker)
+    s_eag._programs = EagerPrograms()
+    for st in (s_rep, s_eag):  # warm: each side's program captured
+        st.begin(pose0)
+        for _ in range(compiled.WARMUP_CALLS + 2):
+            st.push(rgb, depth)
+        st.current_pose()
+
+    def video(t, compiled_):
+        def run():
+            if compiled_:
+                return trk.track_video(t.model, t.cfg, t.mesh, t.K, t.mean,
+                                       t.std, p0, rgb_t, depth_t)
+            return eager_video(t, p0, rgb_t, depth_t)
+        return run, n
+
+    def on_track(compiled_):
+        def run():
+            pose = pose0
+            for _ in range(COMPILED_ON_TRACK):
+                pose = (t_on.on_track(pose, rgb, depth) if compiled_ else
+                        eager_on_track(tracker, pose, rgb, depth))
+            return pose
+        return run, COMPILED_ON_TRACK
+
+    def stream(s):
+        def run():
+            s.begin(pose0)
+            t0 = time.perf_counter()
+            for _ in range(n):
+                s.push(rgb, depth)
+            push_ms.setdefault(id(s), []).append(
+                (time.perf_counter() - t0) * 1e3 / n)
+            return s.current_pose()
+        return run, n
+
+    push_ms = {}
+    runs = {"track_video float32": (video(tracker, False),
+                                    video(tracker, True)),
+            "track_video bf16": (video(t16, False), video(t16, True)),
+            "on_track": (on_track(False), on_track(True)),
+            "stream push": (stream(s_eag), stream(s_rep))}
+    for what, (eag, rep) in runs.items():
+        hz = {"eager": [], "replayed": []}
+        for which in ("eager", "replayed", "replayed", "eager"):
+            fn, frames = eag if which == "eager" else rep
+            sync(dev)
+            t0 = time.perf_counter()
+            out = fn()
+            if torch.is_tensor(out):
+                out.cpu()
+            hz[which].append(frames / (time.perf_counter() - t0))
+        extra = ""
+        if what == "stream push":
+            extra = (f"; host ms a push eager "
+                     f"{[round(v, 4) for v in push_ms[id(s_eag)]]}, "
+                     f"replayed {[round(v, 4) for v in push_ms[id(s_rep)]]}")
+        elif what == "on_track":
+            extra = (f"; host ms a call eager "
+                     f"{[round(1e3 / h, 4) for h in hz['eager']]}, replayed "
+                     f"{[round(1e3 / h, 4) for h in hz['replayed']]}")
+        print(f"timing compiled {what} in turns (eager, replayed, replayed, "
+              f"eager): eager {[round(h, 2) for h in hz['eager']]} Hz, "
+              f"replayed {[round(h, 2) for h in hz['replayed']]} Hz{extra} "
+              f"{card}", flush=True)
+    k = COMPILED_PROFILE_FRAMES
+    windows = {
+        "eager track_video": lambda: eager_video(tracker, p0, rgb_t[:k],
+                                                 depth_t[:k]),
+        "replayed track_video": lambda: trk.track_video(
+            tracker.model, tracker.cfg, tracker.mesh, tracker.K, tracker.mean,
+            tracker.std, p0, rgb_t[:k], depth_t[:k]),
+        "replayed stream": lambda: ([s_rep.push(rgb, depth)
+                                     for _ in range(k)],
+                                    s_rep.current_pose())}
+    for what, fn in windows.items():
+        prof = profile_share(fn)
+        if prof is None:
+            print(f"profile: compiled {what}: torch.profiler recorded no "
+                  "device time; busy share not measured", flush=True)
+            continue
+        busy_us, wall_us, n_ops, rows = prof
+        print(f"profile: compiled {what} over {k} frames: device busy "
+              f"{busy_us / 1e3:.3f} ms of {wall_us / 1e3:.3f} ms wall "
+              f"({100 * busy_us / wall_us:.1f}%), {n_ops / k:.0f} device "
+              f"operations a frame {card}", flush=True)
+        for key, us, count in rows[:4]:
+            print(f"profile:   {us / 1e3:8.3f} ms  x{count:<5d} {key[:90]}")
+    s_rep.close()
+    s_eag.close()
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -5487,6 +5862,20 @@ def main() -> int:
     f14_witness(dev, card)
     print(f"lost track and F14 phase: {time.perf_counter() - t14:.1f} s "
           f"{card}", flush=True)
+
+    # 15. The compiled step: captured once per key as a CUDA graph and
+    # replayed by track_video, on_track and the stream, bit-equal to the
+    # eager step, sync-free, its launches counted per replay; the rates in
+    # turns, the capture times and the busy share.
+    t15 = time.perf_counter()
+    print(f"compiled step: CUDA graphs of track_step on the production "
+          f"configuration (float32 and bf16), {COMPILED_FRAMES} track_video "
+          f"frames twice, {COMPILED_ON_TRACK} on_track frames, "
+          f"{COMPILED_FRAMES} stream pushes at {RES}^2 on {FRAME_HW[0]}x"
+          f"{FRAME_HW[1]} frames", flush=True)
+    by_path.update(run_compiled(net, tracker, pose0, rgb, depth, card))
+    print(f"compiled step phase: {time.perf_counter() - t15:.1f} s {card}",
+          flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)

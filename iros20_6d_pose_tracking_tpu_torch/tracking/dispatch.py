@@ -3,13 +3,15 @@
 Counterpart of ``iros20_6d_pose_tracking_tpu/tracking/dispatch.py``. The JAX
 package probes dispatch granularities because a long fused scan collapsed on
 a shared TPU while per-frame dispatch of the same step did not. Here every
-candidate runs the same eager step, so the modes differ only in how the
-host drives it:
+candidate runs the same step, so the modes differ only in how the host
+drives it:
 
   - ``c > 1``: ``tracker.track_video`` over ``c`` frames of the chunk on the
-    device at a time (``hypotheses.track_video_multi`` at samples > 1);
-  - ``c == 1``: ``tracker.track_step`` frame by frame into a preallocated
-    (L, 4, 4) tensor (``hypotheses.track_step_multi``);
+    device at a time, replays of the compiled video program
+    (``hypotheses.track_video_multi``, eager, at samples > 1);
+  - ``c == 1``: ``compiled.track_step`` frame by frame into a preallocated
+    (L, 4, 4) tensor, replays of the compiled one-frame program, as JAX
+    dispatches its jitted step (``hypotheses.track_step_multi``);
   - ``0`` (``STREAM``): the port's ``StreamTracker`` pushed the host chunk's
     frames (windowed packed uploads).
 
@@ -29,15 +31,16 @@ runs the rest, each steady segment timed; one slower than
 candidate, the stream included. Unlike JAX, a reprobe keeps the other
 modes' earlier samples in ``probe_ms_per_frame`` until each is measured
 again. Every segment's time ends with its last pose fetched to the host: an
-eager enqueue returns long before the card has run it.
+enqueue, eager or a replay, returns long before the card has run it.
 
 Host chunks are loaded on one background thread while the device tracks the
 previous chunk. The last chunk is not padded: it tracks exactly its own
 frames, and a tail that fits no program of the mode runs per frame
 (``fill``). Sources already on the device (tensors) are tracked as one
-chunk with no upload. ``warmup`` / the first chunk run every candidate once
-on one frame, so no probe segment times an nvcc build or cuDNN's first
-call.
+chunk with no upload. ``warmup`` / the first chunk run every candidate on
+one frame until its program is captured (``compiled.WARMUP_CALLS`` + 1
+calls), so no probe segment times an nvcc build, cuDNN's first call or a
+capture.
 
 Consumers: ``Tracker.track_video_adaptive`` and ``apps/predict.py
 --track_mode adaptive``.
@@ -50,6 +53,7 @@ import time
 import numpy as np
 import torch
 
+from . import compiled
 from . import hypotheses as hy
 from . import tracker as trk
 
@@ -130,7 +134,8 @@ class AdaptiveVideoTracker:
                     *self._args(), pose, rgb[i], dep[i], gen,
                     samples=self.samples)
             else:
-                pose, _ = trk.track_step(*self._args(), pose, rgb[i], dep[i])
+                pose = compiled.track_step(*self._args(), pose, rgb[i],
+                                           dep[i])
             buf[i] = pose
         return pose
 
@@ -185,32 +190,39 @@ class AdaptiveVideoTracker:
         return buf, sbuf
 
     def _ensure_warm(self, pose, rgb, dep, rgb_np=None, dep_np=None):
-        """Run every candidate once on the chunk's first frame (the stream
-        where host frames are given) into scratch buffers, so that no probe
-        segment times a kernel build or cuDNN's first call. Eager PyTorch
-        compiles no program per segment length: one frame warms a mode.
+        """Run every candidate on the chunk's first frame (the stream where
+        host frames are given) into scratch buffers until its program is
+        captured, so that no probe segment times a kernel build, cuDNN's
+        first call or a capture. Every ``c > 1`` shares one video program
+        whatever its segment length, so a one-frame video warms them all.
         Once per frame shape and dtypes."""
         key = (tuple(rgb.shape[1:]), rgb.dtype, dep.dtype, rgb_np is not None)
         if key in self._warmed:
             return
-        buf, sbuf = self._buffers(1)
+        n = compiled.WARMUP_CALLS + 1
+        buf, sbuf = self._buffers(n)
         for c in self.candidates:
             if c == self.STREAM:
                 if rgb_np is not None:
-                    self._run_stream(pose, buf, sbuf, rgb_np, dep_np, 0, 1, 0)
-            elif c == 1:
-                self._run_per_frame(pose, buf, sbuf, rgb, dep, 0, 1, 0)
+                    self._run_stream(pose, buf, sbuf, rgb_np[:1].repeat(n, 0),
+                                     dep_np[:1].repeat(n, 0), 0, n, 0)
             else:
-                self._run_scan(pose, buf, sbuf, rgb, dep, 0, 1, 1, 0)
+                for _ in range(n):
+                    if c == 1:
+                        self._run_per_frame(pose, buf, sbuf, rgb, dep, 0, 1,
+                                            0)
+                    else:
+                        self._run_scan(pose, buf, sbuf, rgb, dep, 0, 1, 1, 0)
         buf.cpu()
         self._warmed.add(key)
 
     def warmup(self, rgb_u8: np.ndarray, depth_u16: np.ndarray,
                init_pose: np.ndarray, chunk_size: int = 100):
-        """Run every candidate once on one frame, so that the first real
-        ``track`` measures execution, not kernel builds. ``chunk_size`` is
-        kept from the JAX signature (whose programs are specialised to the
-        chunk); eager steps do not depend on it."""
+        """Run every candidate on one frame until its program is captured,
+        so that the first real ``track`` measures execution, not kernel
+        builds or captures. ``chunk_size`` is kept from the JAX signature
+        (whose programs are specialised to the chunk); the port's video
+        program does not depend on it."""
         dev = self.t.device
         pose = torch.as_tensor(np.asarray(init_pose),
                                dtype=torch.float32).to(dev)

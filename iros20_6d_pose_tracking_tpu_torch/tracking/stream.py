@@ -38,7 +38,12 @@ wait for the card:
      windowed poses are the full-frame path's bits while the ROI lies inside
      the window.
 
-``samples > 1`` refines N hypotheses a push (``hypotheses.track_step_multi``),
+At samples 1 a push replays a compiled program (``tracking/compiled.py``):
+the stream keeps one program per window side (the full frame is one side),
+as the JAX package keeps one jitted step per side, each captured as a CUDA
+graph after its warm-up pushes; the unpacked window, its offset and the
+device pose are copied into the program's static buffers. ``samples > 1``
+refines N hypotheses a push (``hypotheses.track_step_multi``, eager),
 their perturbations drawn from a ``torch.Generator`` on the device seeded
 with the stream's frame index plus ``begin``'s ``first_frame``
 (``Tracker.on_track`` seeds with its frame count: the two give the same bits
@@ -55,6 +60,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from . import compiled
 from . import hypotheses as hy
 from . import tracker as trk
 
@@ -150,7 +156,8 @@ class StreamTracker:
         self._first_frame = 0             # draws' seed of push 0 (samples > 1)
         self._center_frame = 0            # frame the centre estimate is of
         self._offset_cache = {}           # (top, left) -> device int32 pair
-        self._sides = set()               # window sides used ("full": none)
+        # one program a window side; big enough never to drop one
+        self._programs = compiled.ProgramCache(size=64)
         self._fetcher = None              # lazy 1-thread executor
         self._fetch_future = None
         self._fetch_stream = None         # CUDA stream of the pose copies
@@ -239,9 +246,9 @@ class StreamTracker:
                 rgb, depth, gen, samples=self.samples,
                 frame_offset_vu=offset)
             return pose, score
-        pose, _ = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
-                                 self._pose_dev, rgb, depth,
-                                 frame_offset_vu=offset)
+        pose = self._programs.step(t.model, t.cfg, t.mesh, t.K, t.mean,
+                                   t.std, self._pose_dev, rgb, depth,
+                                   frame_offset_vu=offset)
         return pose, None
 
     def _start_fetch(self, pose: torch.Tensor, score):
@@ -353,15 +360,16 @@ class StreamTracker:
 
     def stats(self) -> dict:
         """Live-loop health counters (cumulative). ``compiled_programs``
-        keeps the JAX key: eager PyTorch compiles nothing, and it counts the
-        distinct window sides used so far (the JAX package compiles one
-        program for each)."""
+        counts the stream's compiled programs, one per window side used so
+        far at samples 1 (each captured as a CUDA graph once warm on a CUDA
+        device), as the JAX package counts its jitted steps; the eager
+        samples > 1 step makes none."""
         return {
             "containment_violations": self.containment_violations,
             "pad_boost_px": self._pad_boost,
             "refetches": self.refetches,
             "bucket": self._cur_bucket,
-            "compiled_programs": len(self._sides),
+            "compiled_programs": len(self._programs),
             "track_lost_events": self.track_lost_events,
         }
 
@@ -400,7 +408,7 @@ class StreamTracker:
             if rgen == self._gen:  # not already superseded by set_pose()
                 self.set_pose(rpose)
         if not self.window:
-            key, offset = "full", None
+            offset = None
         else:
             self._update_center()
             H, W = self._hw
@@ -415,8 +423,7 @@ class StreamTracker:
                 cut = self._frame_idx - 256
                 self._rect_hist = {k: v for k, v in self._rect_hist.items()
                                    if k >= cut}
-            key, offset = side, self._offset_dev(top, left)
-        self._sides.add(key)
+            offset = self._offset_dev(top, left)
         buf = trk.staging_buffer(rgb_u8.shape[:2] + (5,), torch.uint8,
                                  self._device)
         pack_window_into(buf.numpy(), rgb_u8, depth_u16)

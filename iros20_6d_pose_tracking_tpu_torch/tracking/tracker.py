@@ -14,10 +14,15 @@ step (reference predict.py:217-296 ``Tracker.on_track``):
 
 Every step stays on the device of its tensors: the pose is fetched to the
 host only where a caller asks for it (``Tracker.on_track`` returns numpy).
-``track_video`` is a Python loop over frames that carries the pose on the
-device; the JAX package's nested ``lax.scan`` has no counterpart.
-``Tracker.track_video_chunked`` feeds it a long video in chunks, decoded on
-a background thread, with the pose carried on the device across chunks.
+:func:`track_step` is the eager step. ``track_video`` and
+``Tracker.on_track`` run it through ``tracking/compiled.py``, the
+counterpart of the JAX ``jit`` and nested ``lax.scan``: on a CUDA device
+the step is captured once per static key as a CUDA graph and replayed every
+frame, reading frame ``idx`` of a static video buffer and carrying the pose
+in the program's buffer; on the CPU the same bookkeeping runs the eager
+step. ``Tracker.track_video_chunked`` feeds ``track_video`` a long video in
+chunks, decoded on a background thread, with the pose carried on the device
+across chunks.
 
 :func:`track_step` also takes N prior poses (N, 4, 4): one batched step over
 them (the JAX ``vmap`` of ``track_step`` over hypotheses), whose crop, culled
@@ -211,16 +216,15 @@ def track_video(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
                 mesh: rz.MeshArrays, K, mean, std, init_pose, frames_rgb,
                 frames_depth_mm, object_width_mm=None) -> torch.Tensor:
     """Track preloaded frames ((T, H, W, 3), (T, H, W) on the device) one
-    step per frame, carrying the pose on the device. Returns (T, 4, 4)."""
-    poses = torch.empty((frames_rgb.shape[0], 4, 4), dtype=torch.float32,
-                        device=init_pose.device)
-    pose = init_pose
-    for i in range(frames_rgb.shape[0]):
-        pose, _ = track_step(model, cfg, mesh, K, mean, std, pose,
-                             frames_rgb[i], frames_depth_mm[i],
-                             object_width_mm)
-        poses[i] = pose
-    return poses
+    step per frame, carrying the pose on the device. Returns (T, 4, 4), a
+    tensor no later call writes. The steps run through the module's
+    compiled programs (``tracking/compiled.py``): replays of one captured
+    :func:`track_step` on a CUDA device, the same step eagerly on the
+    CPU."""
+    from . import compiled
+
+    return compiled.track_video(model, cfg, mesh, K, mean, std, init_pose,
+                                frames_rgb, frames_depth_mm, object_width_mm)
 
 
 def _load_checkpoint(path: str) -> dict:
@@ -379,6 +383,12 @@ class Tracker:
         (uint16), auto-detected like the reference's mm convention.
         Returns the new (4, 4) pose as float32 numpy.
 
+        At ``samples == 1`` the step runs through the module's compiled
+        programs (``tracking/compiled.py``: the upload is copied into the
+        program's static buffers and, on a CUDA device, the captured step
+        replayed); ``debug=True`` runs the eager :func:`track_step`, whose
+        intermediates it keeps in ``self.last_aux``.
+
         ``samples > 1`` runs the multi-hypothesis step
         (:func:`~.hypotheses.track_step_multi`): the prior and ``samples -
         1`` perturbations of it, drawn from a ``torch.Generator`` on the
@@ -402,8 +412,12 @@ class Tracker:
             new_pose, score, aux = hy.track_step_multi(*args, gen,
                                                        samples=samples)
             self.last_score = float(score)
-        else:
+        elif debug:
             new_pose, aux = track_step(*args)
+        else:
+            from . import compiled
+
+            new_pose = compiled.track_step(*args)
         self.prev_rgb = current_rgb
         self.prev_depth = depth
         self.frame_cnt += 1
@@ -468,7 +482,9 @@ class Tracker:
         over the whole video: the step of every frame is the same. The last
         chunk is not padded and tracks only its own frames (the JAX package
         pads it with copies of its last frame so that one program compiles
-        once; eager PyTorch compiles nothing).
+        once; here every chunk replays the same program, whose static
+        buffers hold ``compiled.VIDEO_SLOTS`` frames whatever the chunk's
+        length).
         """
         import concurrent.futures as cf
 

@@ -4,7 +4,8 @@ one.
 
 The test process itself has jax loaded (tests/conftest.py imports it), so
 the check runs in a fresh interpreter: import every module of the port, run
-one tracking step, one multi-hypothesis step, two windowed stream pushes, an
+one tracking step (through ``tracking/compiled.py``'s program), one
+multi-hypothesis step, two windowed stream pushes, an
 adaptive three-frame video, a DR scene, a depth fill, a two-frame hard test
 video with its scores, one synthetic train step, the sensor model over two
 frames, one bf16 tracking step, a two-object batched ensemble step and a
@@ -182,7 +183,7 @@ def test_port_imports_and_runs_without_jax():
                       "parallel.latency", "utils.profiling",
                       "apps.demo_train_and_track", "apps.make_ycb_fixture",
                       "apps.realdata_dryrun", "ops.roi", "models.tracknet",
-                      "train.compare"}, walked
+                      "train.compare", "tracking.compiled"}, walked
 
 
 def _imported_modules(path):
