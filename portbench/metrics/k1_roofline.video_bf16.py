@@ -1,0 +1,7 @@
+"""The reading of ``k1_roofline.video``, in the bf16 video cell (whose
+end-to-end rate is ``video_fps_bf16``)."""
+import os
+import runpy
+
+read = runpy.run_path(os.path.join(os.path.dirname(__file__),
+                                   "k1_roofline.video.py"))["read"]
