@@ -32,13 +32,15 @@ Each wrapper runs its plain version (``*_ref``, beside it) when its tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a CUDA
 device; anything else raises. Each counts its kernel launches in a plain
 integer attribute (``pass1_winners.launches``, ``pass2_shade.launches``,
-``gather_rows.launches``, ``pass1_worklist.launches``).
+``gather_rows.launches``, ``pass1_worklist.launches``), which
+``utils.profiling.counters()`` reports as ``launches.<wrapper>``.
 """
 from __future__ import annotations
 
 import torch
 
 from ..kernels import build as kbuild
+from ..utils import profiling
 
 # Coefficient row layout in the (12, F) matrix.
 ROW_A0, ROW_B0, ROW_C0 = 0, 1, 2
@@ -838,3 +840,10 @@ def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
 
 
 pass1_worklist.launches = 0
+
+
+for _name in ("pass1_winners", "pass2_shade", "gather_rows",
+              "pass1_worklist"):
+    # read through the module, where a caller may have swapped the wrapper
+    profiling.register(f"launches.{_name}", lambda n=_name: getattr(
+        globals()[n], "launches", 0))

@@ -44,6 +44,17 @@ replays it on every later frame:
     a replay runs no Python: the capture's own counts are taken back, and
     every replay adds the launches it recorded, so a replayed frame counts
     what an eager frame counts.
+  - **Spans and counters** (``utils/profiling.py``). A call records
+    ``compiled.key`` (the key and the cache's lookup), ``compiled.load``
+    (K, mean, std, the pose and one frame copied in) or, for a video,
+    ``compiled.fill`` (a block of ``slots`` frames copied in) and
+    ``compiled.gather`` (its poses copied out), and a frame exactly one of
+    ``compiled.eager``, ``compiled.capture`` (the capture and its first
+    replay) or ``compiled.replay``. Nothing is recorded inside the
+    captured body: it runs once, at the capture. The counter
+    ``compiled.captures`` counts captures (each stalls its caller for
+    12-26 ms on the card); ``compiled.replays`` and
+    ``compiled.eager_calls`` read the live programs' own counts.
 
 On the CPU the same bookkeeping runs the body eagerly on every call: the
 tests hold it against the eager loop bit for bit.
@@ -64,6 +75,7 @@ from collections import OrderedDict
 import torch
 
 from ..render import raster_kernels as rk
+from ..utils import profiling
 from . import tracker as trk
 
 WARMUP_CALLS = 3
@@ -73,6 +85,12 @@ CACHE_SIZE = 16
 COUNTED = ("pass1_winners", "pass2_shade", "gather_rows", "pass1_worklist")
 
 _module_lists = weakref.WeakKeyDictionary()
+_live = weakref.WeakSet()  # every StepProgram not yet collected
+profiling.count("compiled.captures", 0)  # listed before the first capture
+profiling.register("compiled.replays",
+                   lambda: sum(p.replays for p in list(_live)))
+profiling.register("compiled.eager_calls",
+                   lambda: sum(p.eager_calls for p in list(_live)))
 
 
 def _tensor_key(t):
@@ -152,6 +170,7 @@ class StepProgram:
         self.replays = 0
         self.replay_launches = {}  # kernel wrapper -> launches a replay
         self._side = None         # the warm-up's and the capture's stream
+        _live.add(self)
 
     # -- the body: one frame, the same ops eager and captured --
     def _body(self, model, cfg, mesh):
@@ -186,6 +205,7 @@ class StepProgram:
                     getattr(rk, n).launches = c
         cur.wait_stream(self._side)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
+        profiling.count("compiled.captures")
         self.replay_launches = {n: after[n] - c for n, c in before.items()
                                 if c is not None and after[n] != c}
         self.graph = graph
@@ -195,23 +215,27 @@ class StepProgram:
         the CPU), else a replay, capturing first if this is the call after
         the warm-up."""
         if self.device.type != "cuda":
-            self._body(model, cfg, mesh)
+            with profiling.span("compiled.eager"):
+                self._body(model, cfg, mesh)
             self.eager_calls += 1
         else:
             with torch.cuda.device(self.device):
                 if self.graph is None and self.eager_calls < WARMUP_CALLS:
-                    if self._side is None:
-                        self._side = torch.cuda.Stream(self.device)
-                    cur = torch.cuda.current_stream(self.device)
-                    self._side.wait_stream(cur)
-                    with torch.cuda.stream(self._side):
-                        self._body(model, cfg, mesh)
-                    cur.wait_stream(self._side)
+                    with profiling.span("compiled.eager"):
+                        if self._side is None:
+                            self._side = torch.cuda.Stream(self.device)
+                        cur = torch.cuda.current_stream(self.device)
+                        self._side.wait_stream(cur)
+                        with torch.cuda.stream(self._side):
+                            self._body(model, cfg, mesh)
+                        cur.wait_stream(self._side)
                     self.eager_calls += 1
                 else:
-                    if self.graph is None:
-                        self._capture(model, cfg, mesh)
-                    self.graph.replay()
+                    with profiling.span("compiled.replay" if self.graph
+                                        is not None else "compiled.capture"):
+                        if self.graph is None:
+                            self._capture(model, cfg, mesh)
+                        self.graph.replay()
                     self.replays += 1
                     for n, c in self.replay_launches.items():
                         getattr(rk, n).launches += c
@@ -234,20 +258,22 @@ class StepProgram:
              frame_depth_mm, object_width_mm=None, frame_offset_vu=None):
         """One tracking update, :func:`~.tracker.track_step`'s arguments.
         Returns the new pose in a tensor of its own."""
-        self._check(step_key(model, cfg, mesh, K, mean, std, prev_pose,
-                             frame_rgb, frame_depth_mm, object_width_mm,
-                             frame_offset_vu, self.slots))
+        with profiling.span("compiled.key"):
+            self._check(step_key(model, cfg, mesh, K, mean, std, prev_pose,
+                                 frame_rgb, frame_depth_mm, object_width_mm,
+                                 frame_offset_vu, self.slots))
         return self._step(model, cfg, mesh, K, mean, std, prev_pose,
                           frame_rgb, frame_depth_mm, frame_offset_vu)
 
     def _step(self, model, cfg, mesh, K, mean, std, prev_pose, frame_rgb,
               frame_depth_mm, frame_offset_vu):
-        self._load(K, mean, std, prev_pose)
         slot = self._slot
-        self.rgb[slot].copy_(frame_rgb)
-        self.depth[slot].copy_(frame_depth_mm)
-        if self.offset is not None:
-            self.offset.copy_(frame_offset_vu)
+        with profiling.span("compiled.load"):
+            self._load(K, mean, std, prev_pose)
+            self.rgb[slot].copy_(frame_rgb)
+            self.depth[slot].copy_(frame_depth_mm)
+            if self.offset is not None:
+                self.offset.copy_(frame_offset_vu)
         self._run(model, cfg, mesh)
         return self.poses[slot].clone()
 
@@ -256,9 +282,10 @@ class StepProgram:
         """:func:`~.tracker.track_video`'s arguments: T frames, ``slots``
         at a time, the pose carried in the program's buffer. Returns (T,
         ...) poses in a tensor of their own."""
-        self._check(step_key(model, cfg, mesh, K, mean, std, init_pose,
-                             frames_rgb[0], frames_depth_mm[0],
-                             object_width_mm, None, self.slots))
+        with profiling.span("compiled.key"):
+            self._check(step_key(model, cfg, mesh, K, mean, std, init_pose,
+                                 frames_rgb[0], frames_depth_mm[0],
+                                 object_width_mm, None, self.slots))
         return self._video(model, cfg, mesh, K, mean, std, init_pose,
                            frames_rgb, frames_depth_mm)
 
@@ -267,17 +294,20 @@ class StepProgram:
         T = frames_rgb.shape[0]
         out = torch.empty((T,) + tuple(self.pose.shape), dtype=torch.float32,
                           device=self.device)
-        self._load(K, mean, std, init_pose)
+        with profiling.span("compiled.load"):
+            self._load(K, mean, std, init_pose)
         for a in range(0, T, self.slots):
             n = min(self.slots, T - a)
-            if self._slot:
-                self.idx.zero_()
-                self._slot = 0
-            self.rgb[:n].copy_(frames_rgb[a:a + n])
-            self.depth[:n].copy_(frames_depth_mm[a:a + n])
+            with profiling.span("compiled.fill"):
+                if self._slot:
+                    self.idx.zero_()
+                    self._slot = 0
+                self.rgb[:n].copy_(frames_rgb[a:a + n])
+                self.depth[:n].copy_(frames_depth_mm[a:a + n])
             for _ in range(n):
                 self._run(model, cfg, mesh)
-            out[a:a + n] = self.poses[:n]
+            with profiling.span("compiled.gather"):
+                out[a:a + n] = self.poses[:n]
         return out
 
 
@@ -302,19 +332,20 @@ class ProgramCache:
     def _get(self, args, frame_rgb, frame_depth_mm, object_width_mm,
              frame_offset_vu, slots) -> StepProgram:
         model, cfg, mesh, K, mean, std, pose = args
-        key = step_key(model, cfg, mesh, K, mean, std, pose, frame_rgb,
-                       frame_depth_mm, object_width_mm, frame_offset_vu,
-                       slots)
-        prog = self._programs.get(key)
-        if prog is None:
-            prog = StepProgram(model, cfg, mesh, K, mean, std, pose,
-                               frame_rgb, frame_depth_mm, object_width_mm,
-                               frame_offset_vu, slots)
-            self._programs[key] = prog
-            while len(self._programs) > self.size:
-                self._programs.popitem(last=False)
-        else:
-            self._programs.move_to_end(key)
+        with profiling.span("compiled.key"):
+            key = step_key(model, cfg, mesh, K, mean, std, pose, frame_rgb,
+                           frame_depth_mm, object_width_mm, frame_offset_vu,
+                           slots)
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+                return prog
+        prog = StepProgram(model, cfg, mesh, K, mean, std, pose, frame_rgb,
+                           frame_depth_mm, object_width_mm, frame_offset_vu,
+                           slots)
+        self._programs[key] = prog
+        while len(self._programs) > self.size:
+            self._programs.popitem(last=False)
         return prog
 
     def step(self, model, cfg, mesh, K, mean, std, prev_pose, frame_rgb,

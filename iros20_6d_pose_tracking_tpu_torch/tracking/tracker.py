@@ -44,6 +44,7 @@ the render and the pose stay float32.
 from __future__ import annotations
 
 import dataclasses
+import itertools
 from dataclasses import dataclass
 
 import numpy as np
@@ -57,6 +58,7 @@ from ..ops import roi as roi_ops
 from ..render import mesh as mesh_mod
 from ..render import rasterizer as rz
 from ..render.mesh import TriMesh
+from ..utils import profiling
 
 @dataclass(frozen=True)
 class TrackerConfig:
@@ -80,10 +82,23 @@ class TrackerConfig:
             raise ValueError(f"dtype {self.dtype}: float32 or bfloat16")
 
 
+def _pageable_to(host: torch.Tensor, device) -> torch.Tensor:
+    """``host.to(device)`` from pageable memory, counted as
+    ``upload.pageable_bytes`` when it crosses to a CUDA device."""
+    out = host.to(device)
+    if out.is_cuda:
+        profiling.count("upload.pageable_bytes", host.nbytes)
+    return out
+
+
+for _name in ("upload.pageable_bytes", "upload.pinned_bytes"):
+    profiling.count(_name, 0)  # listed before the first upload
+
+
 def upload_rgb(rgb, device) -> torch.Tensor:
     """Host RGB frame(s) -> device tensor, keeping the dtype (uint8 frames
     cross the bus as uint8)."""
-    return torch.from_numpy(np.ascontiguousarray(rgb)).to(device)
+    return _pageable_to(torch.from_numpy(np.ascontiguousarray(rgb)), device)
 
 
 def upload_depth(depth, device) -> torch.Tensor:
@@ -93,10 +108,10 @@ def upload_depth(depth, device) -> torch.Tensor:
     depth = np.asarray(depth)
     if depth.dtype == np.uint16:
         d16 = torch.from_numpy(np.ascontiguousarray(depth).view(np.int16))
-        return d16.to(device).to(torch.int32) & 0xFFFF
+        return _pageable_to(d16, device).to(torch.int32) & 0xFFFF
     if np.issubdtype(depth.dtype, np.floating):
         depth = depth.astype(np.float32, copy=False)
-    return torch.from_numpy(np.ascontiguousarray(depth)).to(device)
+    return _pageable_to(torch.from_numpy(np.ascontiguousarray(depth)), device)
 
 
 def upload_async(host, device) -> torch.Tensor:
@@ -115,6 +130,7 @@ def upload_async(host, device) -> torch.Tensor:
         return host
     if not host.is_pinned():
         host = host.pin_memory()
+    profiling.count("upload.pinned_bytes", host.nbytes)
     return host.to(device, non_blocking=True)
 
 
@@ -220,11 +236,17 @@ def track_video(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
     tensor no later call writes. The steps run through the module's
     compiled programs (``tracking/compiled.py``): replays of one captured
     :func:`track_step` on a CUDA device, the same step eagerly on the
-    CPU."""
+    CPU. Recorded as the span ``tracker.track_video``, its request the
+    call's number in the process."""
     from . import compiled
 
-    return compiled.track_video(model, cfg, mesh, K, mean, std, init_pose,
-                                frames_rgb, frames_depth_mm, object_width_mm)
+    with profiling.span("tracker.track_video", request=next(_video_calls)):
+        return compiled.track_video(model, cfg, mesh, K, mean, std,
+                                    init_pose, frames_rgb, frames_depth_mm,
+                                    object_width_mm)
+
+
+_video_calls = itertools.count()
 
 
 def _load_checkpoint(path: str) -> dict:
@@ -395,35 +417,46 @@ class Tracker:
         tracker's device seeded with ``frame_cnt`` (the JAX
         ``PRNGKey(frame_cnt)``), refined in one batched step; the
         depth-agreement winner is kept and its score lands in
-        ``self.last_score``."""
-        depth = np.asarray(current_depth)
-        if np.issubdtype(depth.dtype, np.floating) and depth.size and \
-                float(depth.max()) < 100.0:
-            depth = (depth * 1000.0).astype(np.float32)  # metres -> mm
-        args = (self.model, self.cfg, self.mesh, self.K, self.mean, self.std,
-                torch.as_tensor(np.asarray(prev_pose), dtype=torch.float32).to(
-                    self.device),
-                upload_rgb(current_rgb, self.device),
-                upload_depth(depth, self.device))
-        if samples > 1:
-            from . import hypotheses as hy
+        ``self.last_score``.
 
-            gen = torch.Generator(self.device).manual_seed(self.frame_cnt)
-            new_pose, score, aux = hy.track_step_multi(*args, gen,
-                                                       samples=samples)
-            self.last_score = float(score)
-        elif debug:
-            new_pose, aux = track_step(*args)
-        else:
-            from . import compiled
+        Recorded as the span ``tracker.on_track`` (request ``frame_cnt``):
+        ``tracker.prepare`` (depth units, the prior pose to the device),
+        ``tracker.upload`` (the frame), the step's spans, ``tracker.fetch``
+        (the pose to the host)."""
+        with profiling.span("tracker.on_track", request=self.frame_cnt):
+            with profiling.span("tracker.prepare"):
+                depth = np.asarray(current_depth)
+                if np.issubdtype(depth.dtype, np.floating) and depth.size \
+                        and float(depth.max()) < 100.0:
+                    depth = (depth * 1000.0).astype(np.float32)  # m -> mm
+                prior = _pageable_to(torch.as_tensor(
+                    np.asarray(prev_pose), dtype=torch.float32), self.device)
+            with profiling.span("tracker.upload"):
+                frame = (upload_rgb(current_rgb, self.device),
+                         upload_depth(depth, self.device))
+            args = (self.model, self.cfg, self.mesh, self.K, self.mean,
+                    self.std, prior) + frame
+            if samples > 1:
+                from . import hypotheses as hy
 
-            new_pose = compiled.track_step(*args)
-        self.prev_rgb = current_rgb
-        self.prev_depth = depth
-        self.frame_cnt += 1
-        if debug:
-            self.last_aux = {k: v.cpu().numpy() for k, v in aux.items()}
-        return new_pose.cpu().numpy()
+                gen = torch.Generator(self.device).manual_seed(self.frame_cnt)
+                new_pose, score, aux = hy.track_step_multi(*args, gen,
+                                                           samples=samples)
+                self.last_score = float(score)
+            elif debug:
+                new_pose, aux = track_step(*args)
+            else:
+                from . import compiled
+
+                new_pose = compiled.track_step(*args)
+            self.prev_rgb = current_rgb
+            self.prev_depth = depth
+            self.frame_cnt += 1
+            with profiling.span("tracker.fetch"):
+                if debug:
+                    self.last_aux = {k: v.cpu().numpy()
+                                     for k, v in aux.items()}
+                return new_pose.cpu().numpy()
 
     def track_video(self, init_pose, frames_rgb, frames_depth_mm
                     ) -> np.ndarray:

@@ -24,6 +24,7 @@ model's device, or of numpy arrays, which are moved there.
 from __future__ import annotations
 
 import hashlib
+import itertools
 import os
 import time
 from dataclasses import dataclass
@@ -37,6 +38,7 @@ from ..data import augment as aug
 from ..data.dataset import SyntheticPairs
 from ..models import tracknet
 from ..tracking.tracker import normalize_pair
+from ..utils import profiling
 from . import checkpoint as ckpt
 
 
@@ -124,21 +126,36 @@ def train_step(model: tracknet.Se3TrackNet, opt: torch.optim.Optimizer,
                aug_draws: dict | None = None) -> dict:
     """One update of ``model`` and ``opt`` in place at learning rate
     ``lr``, BatchNorm in train mode. Returns {"loss", "trans", "rot"} as
-    0-d tensors on the device (not synchronised)."""
-    bufA, bufB, t_label, r_label = preprocess_batch(
-        gen, raw, mean, std, cfg, train=True, aug_draws=aug_draws)
-    model.train()
-    out = model(bufA, bufB)
-    loss, parts = tracknet.loss_fn(out["trans"], out["rot"], t_label,
-                                   r_label, cfg.trans_loss_weight,
-                                   cfg.rot_loss_weight)
-    opt.zero_grad(set_to_none=True)
-    loss.backward()
-    for group in opt.param_groups:
-        group["lr"] = lr
-    opt.step()
+    0-d tensors on the device (not synchronised).
+
+    Recorded as the span ``trainer.train_step`` (request: the call's
+    number in the process) over ``trainer.augment``, ``trainer.forward``
+    (with the loss), ``trainer.backward`` and ``trainer.adam``, each timed
+    on the card's stream too."""
+    dev = mean.device.type == "cuda"
+    with profiling.span("trainer.train_step", device=dev,
+                        request=next(_step_calls)):
+        with profiling.span("trainer.augment", device=dev):
+            bufA, bufB, t_label, r_label = preprocess_batch(
+                gen, raw, mean, std, cfg, train=True, aug_draws=aug_draws)
+        with profiling.span("trainer.forward", device=dev):
+            model.train()
+            out = model(bufA, bufB)
+            loss, parts = tracknet.loss_fn(out["trans"], out["rot"], t_label,
+                                           r_label, cfg.trans_loss_weight,
+                                           cfg.rot_loss_weight)
+        with profiling.span("trainer.backward", device=dev):
+            opt.zero_grad(set_to_none=True)
+            loss.backward()
+        with profiling.span("trainer.adam", device=dev):
+            for group in opt.param_groups:
+                group["lr"] = lr
+            opt.step()
     return {"loss": loss.detach(), "trans": parts["trans"].detach(),
             "rot": parts["rot"].detach()}
+
+
+_step_calls = itertools.count()
 
 
 def train_step_synth(model, opt, lr: float, cfg: TrainConfig,
