@@ -4,8 +4,9 @@ closed-loop synthetic evaluation, synthetic training, the serving path, the
 live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
 suite, the bf16 CNN, the scale-out layer, the last modules (the TF32
 pin, profiling, ``render_at_bbox``, the demo, the fixture, the dry run),
-the tracking step where a track is lost, with F14's float64 witness, and
-the compiled step (one CUDA graph a key, replayed).
+the tracking step where a track is lost, with F14's float64 witness, the
+compiled step (one CUDA graph a key, replayed), and the render set-up
+kernel.
 
     python3 chip_smoke.py
 
@@ -274,7 +275,8 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      module-level ``track_video`` over 100 frames twice (3 eager warm-up
      frames, the capture and 97 replays, then 100 replays), bit-equal to
      the eager step loop, with 100 K1 and 100 ``pass2_shade`` launches a
-     run (a replay adds the launches its capture recorded: 1 and 1);
+     run (a replay adds the launches its capture recorded: one
+     ``render_setup``, one K1 and one ``pass2_shade``);
      ``on_track`` over 24 frames (20 replayed) and a windowed stream over
      100 pushes, both bit-equal to the eager step, one K1 and one
      ``pass2_shade`` a frame; 100 replayed pushes and a replayed
@@ -284,6 +286,21 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      a push), each program's capture time, and the device's busy share in
      20-frame profiler windows of the eager and the replayed
      ``track_video`` and the replayed stream.
+ 16. holds the render set-up kernel (``render_setup``) to its plain
+     version (``render_setup_ref``) on the card: the tracking step's culled
+     ROI view (and unculled), 8 culled hypotheses, the sampler's 400
+     unculled views of one train batch, the textured box, 4 stacked
+     icospheres, a full frame whose window is four numbers and a pose
+     across the near plane; per table (coef, block bboxes, attribute forms)
+     the entries whose bits differ and the largest gap in ulps, and no row
+     of another face (the compaction order). Then K1's winners through the
+     kernel and through its plain version over 256 culled ROI poses, one
+     ``render_setup`` launch a render on every render path (compiled
+     ``track_video``, ``on_track`` at samples 1 and 4, an eager
+     ``track_step``, ``render_pairs``, ``render_at_bbox``, a K3 full
+     frame), the device operations of one eager tracking step with the
+     kernel and with its plain version, and its times beside its plain
+     version and bound.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -301,7 +318,9 @@ its times at phase 11's lighting, K1 and ``pass2_shade``
 views, and K2 ``sharded_render``, its time at a shard's owned rows;
 phase 13 adds ``render_at_bbox``, ``demo``, ``fixture`` and ``dryrun`` to
 ``launches_by_path``, phase 14 ``lost track``, phase 15 its ``compiled``
-paths. The last is
+paths; phase 16 appends ``render_setup``'s entry (its ulp gaps, K1's
+differing pixels, a step's device operations with and without it, its
+launches by render path and its times at each shape). The last is
 ``{"ok": true, "device": {...}}``, printed only when every phase passed.
 Any failure raises, so the exit code is nonzero.
 """
@@ -350,6 +369,7 @@ WRAPPERS = {"raster_pass1": "pass1_winners", "gather_rows": "gather_rows",
             "raster_pass1_worklist": "pass1_worklist",
             "pass2_shade": "pass2_shade"}
 DEVICE_FN = {"raster_pass1": "raster_pass1_kernel",
+             "render_setup": "render_setup_kernel",
              "gather_rows": "gather_rows_kernel",
              "raster_pass1_worklist": "raster_pass1_worklist_kernel",
              "pass2_shade": "pass2_shade_kernel"}
@@ -537,6 +557,19 @@ COMPILED_FRAMES = 100
 COMPILED_ON_TRACK = 20
 COMPILED_SYNC_PUSHES = 100
 COMPILED_PROFILE_FRAMES = 20
+# Phase 16, the render set-up kernel: the hypotheses and stacked meshes of
+# its cases, the pose draws whose K1 winners are compared through the kernel
+# and through its plain version, and the frames of the launch-count paths.
+# ROW_FAR: a table row farther from the plain version's than this share of
+# the row's largest entry holds another face (the compaction order differs);
+# rounding keeps rows within a few ulps.
+SETUP_HYPOTHESES, SETUP_STACKED = 8, 4
+SETUP_AGREEMENT_POSES = 256
+SETUP_FRAMES = 20
+ROW_FAR = 1e-3
+# The set-up's float32 operations a face (projection, coefficient rows,
+# attribute forms; the bound is its bytes by far).
+SETUP_OPS_PER_FACE = 300
 
 
 def production_mesh():
@@ -5320,7 +5353,7 @@ def run_compiled(net, tracker, pose0, rgb, depth, card):
             by_path[f"compiled track_video {name} {run}"] = launches
         if prog.graph is None or prog.replays != 2 * n - \
                 compiled.WARMUP_CALLS or prog.replay_launches != {
-                    "pass1_winners": 1, "pass2_shade": 1}:
+                    "render_setup": 1, "pass1_winners": 1, "pass2_shade": 1}:
             raise AssertionError(f"the {name} video program did not replay "
                                  f"as it should: {program_line(prog)}")
 
@@ -5488,6 +5521,332 @@ def time_compiled(tracker, t16, pose0, rgb, depth, rgb_t, depth_t, card):
     s_eag.close()
 
 
+def setup_cases(tracker, pose0):
+    """Phase 16's render set-up inputs on the tracker's card, each a dict
+    of render's arguments (mesh, pose, K, window, hw, cull): the tracking
+    step's culled ROI view of the production mesh (and unculled), its
+    SETUP_HYPOTHESES culled hypotheses, the sampler's unculled views of one
+    train batch (A then B views in A's windows), the textured box culled,
+    SETUP_STACKED stacked icospheres culled (one mesh a view), a full frame
+    of the production mesh unculled with the window as four numbers, and a
+    pose whose corners straddle the near plane, culled."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
+    from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    dev, K = tracker.device, tracker.K
+    width = tracker.cfg.object_width_mm
+
+    def roi_window(poses, w=width):
+        return rz.window_from_bbox(roi.compute_bbox(
+            poses, K, w, (1000.0, 1000.0, 1000.0)))
+
+    def case(mesh, pose, cull, window=None, hw=(RES, RES)):
+        return {"mesh": mesh, "pose": pose, "K": K, "cull": cull, "hw": hw,
+                "near": tracker.cfg.near,
+                "window": roi_window(pose) if window is None else window}
+
+    p0 = torch.as_tensor(pose0).to(dev)
+    hyp = serve_poses(pose0, SETUP_HYPOTHESES, SEED + 16)[0].to(dev)
+    d = DS.draw_synth(torch.Generator().manual_seed(SEED + 3), TRAIN_BATCH,
+                      RES, None, dev)
+    A, B = DS.sample_poses(d, TRAIN_XYZ, 0.02, 15.0)
+    box = M.make_textured_box()
+    box_pose = se3.make_pose(se3.so3_exp(torch.tensor([0.5, 0.3, -0.2])),
+                             torch.tensor([0.01, -0.01, 0.55])).to(dev)
+    spheres = [M.make_icosphere(subdiv=3, radius=r)
+               for r in (0.04, 0.05, 0.06, 0.07)][:SETUP_STACKED]
+    st_poses = serve_poses(pose0, SETUP_STACKED, SEED + 17)[0].to(dev)
+    near_pose = p0.clone()
+    near_pose[2, 3] = 0.12  # radius 0.05 m: corners from 0.07 to 0.17 m
+    return {
+        "tracking ROI culled": case(tracker.mesh, p0, True),
+        "tracking ROI unculled": case(tracker.mesh, p0, False),
+        f"{SETUP_HYPOTHESES} hypotheses culled": case(tracker.mesh, hyp,
+                                                      True),
+        f"{2 * TRAIN_BATCH} sampler views unculled": case(
+            tracker.mesh, torch.cat([A, B]), False,
+            torch.cat([roi_window(A)] * 2)),
+        "textured box culled": case(
+            rz.upload(box, dev), box_pose, True,
+            roi_window(box_pose, box.diameter * 1000 * 1.1)),
+        f"{SETUP_STACKED} stacked icospheres culled": case(
+            spmd.stack_meshes(spheres, dev), st_poses, True,
+            roi_window(st_poses, 0.14 * 1000 * 1.1)),
+        "full frame unculled, window as numbers": case(
+            tracker.mesh, p0, False, rz.full_frame_window(*FRAME_HW[::-1]),
+            FRAME_HW),
+        "near plane crossing culled": case(tracker.mesh, near_pose, True),
+    }
+
+
+def ordered_ints(x):
+    """float32 tensor -> int64 in the floats' order (the ulp distance of
+    two floats is the difference of theirs)."""
+    import torch
+
+    b = x.contiguous().view(torch.int32)
+    return torch.where(b >= 0, b, b ^ 0x7FFFFFFF).to(torch.int64)
+
+
+def setup_call(case, plain=False):
+    """``render_setup`` (or its plain version) on one case."""
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    fn = rk.render_setup_ref if plain else rk.render_setup
+    return fn(case["mesh"], case["pose"], case["K"], case["window"],
+              case["hw"], case["near"], case["cull"])
+
+
+def check_render_setup(name, case):
+    """``render_setup`` against ``render_setup_ref`` on the card: one
+    launch; the same face block and shapes; per table (coef, block_bbox,
+    attr) the entries whose bits differ and the largest gap in ulps; and
+    the rows (faces) of coef and attr farther apart than ROW_FAR of the
+    row's largest entry, which would be another face at that rank. Raises
+    on a far row, a differing bit or a launch count off. Returns {table:
+    (differing, max ulp)}."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+
+    n0 = rk.render_setup.launches
+    coef, bbox, fb, attr = setup_call(case)
+    if rk.render_setup.launches != n0 + 1:
+        raise AssertionError(f"render_setup {name}: not one launch")
+    r_coef, r_bbox, r_fb, r_attr = setup_call(case, plain=True)
+    if fb != r_fb or [t.shape for t in (coef, bbox, attr)] != \
+            [t.shape for t in (r_coef, r_bbox, r_attr)]:
+        raise AssertionError(f"render_setup {name}: face block or shapes "
+                             "differ from the plain version's")
+    gaps = {}
+    for table, a, b in (("coef", coef, r_coef), ("block_bbox", bbox, r_bbox),
+                        ("attr", attr, r_attr)):
+        d = (ordered_ints(a) - ordered_ints(b)).abs()
+        both_nan = torch.isnan(a) & torch.isnan(b)
+        d = torch.where(both_nan, 0, d)
+        gaps[table] = (int((d > 0).sum()), int(d.max()) if d.numel() else 0)
+    far = 0
+    for a, b in ((coef.transpose(-1, -2), r_coef.transpose(-1, -2)),
+                 (attr, r_attr)):
+        scale = b.abs().nan_to_num(0.0).amax(-1).clamp(min=1e-30)
+        diff = (a - b).abs().nan_to_num(0.0).amax(-1)
+        far += int((diff > ROW_FAR * scale).sum())
+    views = coef.shape[0] if coef.dim() == 3 else 1
+    print(f"render_setup {name}: views={views} F={coef.shape[-1]} fb={fb} "
+          f"C={attr.shape[-1]} hw={case['hw']} cull={case['cull']}: "
+          + ", ".join(f"{t} {n} entries differ (max {u} ulp)"
+                      for t, (n, u) in gaps.items())
+          + f"; rows farther than {ROW_FAR:g} of their scale: {far}",
+          flush=True)
+    if far:
+        raise AssertionError(f"render_setup {name}: rows of another face "
+                             "(compaction order or poisoning differs)")
+    if any(n for n, _ in gaps.values()):
+        raise AssertionError(f"render_setup {name}: tables not bit-equal to "
+                             "the plain version's")
+    return gaps
+
+
+def setup_agreement(tracker, pose0, n=SETUP_AGREEMENT_POSES):
+    """K1's winners through ``render_setup`` and through its plain version
+    on the culled tracking ROI of ``n`` poses drawn around ``pose0``
+    (``serve_poses``): pixels whose winner or iz differ, which must be none.
+    Returns (pixels differing, pixels)."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.ops import roi
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    diff = 0
+    for p in serve_poses(pose0, n, SEED + 18)[0].to(tracker.device):
+        c = {"mesh": tracker.mesh, "pose": p, "K": tracker.K, "cull": True,
+             "hw": (RES, RES), "near": tracker.cfg.near,
+             "window": rz.window_from_bbox(roi.compute_bbox(
+                 p, tracker.K, tracker.cfg.object_width_mm,
+                 (1000.0, 1000.0, 1000.0)))}
+        outs = []
+        for plain in (False, True):
+            coef, bbox, fb, _ = setup_call(c, plain)
+            outs.append(rk.pass1_winners(coef, bbox, c["hw"], fb))
+        (iz, win), (iz_r, win_r) = outs
+        diff += int(((win != win_r)
+                     | (iz.view(torch.int32) != iz_r.view(torch.int32)))
+                    .sum())
+    total = n * RES * RES
+    print(f"render_setup: K1 through the kernel and through its plain "
+          f"version over {n} culled ROI poses: {diff} of {total} pixels "
+          f"differ in winner or iz", flush=True)
+    if diff:
+        raise AssertionError("K1 differs through render_setup")
+    return diff, total
+
+
+def run_setup_paths(tracker, pose0, rgb, depth):
+    """Phase 16.3: the render paths launch ``render_setup`` once a render
+    call. Over each path (``track_video`` over SETUP_FRAMES frames, its
+    warm-up, capture and replays; ``on_track`` over SETUP_FRAMES frames; one
+    eager ``track_step``; the samples-4 step; one ``render_pairs`` batch;
+    ``render_at_bbox``; a full-frame render through K3) the set-up's
+    launches equal the pass-1 launches (K1 and K3), one of each a render.
+    Returns the launches by path."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev, K, n = tracker.device, tracker.K, SETUP_FRAMES
+    p0 = torch.as_tensor(pose0).to(dev)
+    rgb_t, depth_t = trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev)
+    d = DS.draw_synth(torch.Generator().manual_seed(SEED + 19), 4, RES, None,
+                      dev)
+    A, B = DS.sample_poses(d, TRAIN_XYZ, 0.02, 15.0)
+
+    def on_track(t, samples=1):
+        pose = pose0
+        for _ in range(n):
+            pose = t.on_track(pose, rgb, depth, samples=samples)
+
+    paths = {
+        "track_video": lambda: tracker.track_video(
+            pose0, np.stack([rgb] * n), np.stack([depth] * n)),
+        "on_track": lambda: on_track(serving_tracker(tracker)),
+        "on_track samples=4": lambda: on_track(serving_tracker(tracker), 4),
+        "track_step eager": lambda: trk.track_step(
+            tracker.model, tracker.cfg, tracker.mesh, K, tracker.mean,
+            tracker.std, p0, rgb_t, depth_t),
+        "render_pairs": lambda: DS.render_pairs(
+            tracker.mesh, K, A, B, RES, tracker.cfg.object_width_mm),
+        "render_at_bbox": lambda: rz.render_at_bbox(
+            tracker.mesh, p0, K, tracker.cfg.object_width_mm, (RES, RES),
+            cull_backfaces=True),
+        "full frame through K3": lambda: rz.render(
+            tracker.mesh, p0, K, rz.full_frame_window(*FRAME_HW[::-1]),
+            FRAME_HW, worklist=True),
+    }
+    out = {}
+    for name, fn in paths.items():
+        zero_launches()
+        rk.render_setup.launches = 0
+        fn()
+        sync(dev)
+        got = dict(read_launches(), render_setup=rk.render_setup.launches)
+        renders = got["raster_pass1"] + got["raster_pass1_worklist"]
+        print(f"render_setup launches, {name}: {got['render_setup']} for "
+              f"{renders} renders (K1 {got['raster_pass1']}, K3 "
+              f"{got['raster_pass1_worklist']})", flush=True)
+        if got["render_setup"] != renders or not renders:
+            raise AssertionError(f"render_setup is not one launch a render "
+                                 f"({name})")
+        out[name] = got
+    return out
+
+
+def setup_step_ops(tracker, pose0, rgb, depth):
+    """Device operations of one eager tracking step (the profiler's count)
+    with the render set-up through ``render_setup`` and through its plain
+    version on the card. Returns (ops with the kernel, ops with the plain
+    set-up), None for a window the profiler recorded nothing in."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    dev = tracker.device
+    p0 = torch.as_tensor(pose0).to(dev)
+    rgb_t, depth_t = trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev)
+
+    def step():
+        trk.track_step(tracker.model, tracker.cfg, tracker.mesh, tracker.K,
+                       tracker.mean, tracker.std, p0, rgb_t, depth_t)
+
+    kernel = rk.render_setup
+    counts = []
+    for fn in (kernel, rk.render_setup_ref):
+        rk.render_setup = fn
+        try:
+            step()
+            prof = profile_share(step)
+        finally:
+            rk.render_setup = kernel
+        counts.append(None if prof is None else prof[2])
+    print(f"render_setup: device operations of one eager tracking step: "
+          f"{counts[0]} with the kernel, {counts[1]} with the plain set-up",
+          flush=True)
+    return tuple(counts)
+
+
+def setup_bound(case, out):
+    """render_setup's bound on one case: the mesh read once (shared by the
+    views, or one a view when stacked), the pose, window and K, and the
+    tables written once; SETUP_OPS_PER_FACE a face and view."""
+    mesh = case["mesh"]
+    n_bytes = nbytes(*[f for f in (mesh.fverts, mesh.fnormals, mesh.fcolors,
+                                   mesh.fmask, mesh.fuvs) if f is not None],
+                     case["pose"], case["K"], *out[:2], out[3])
+    if hasattr(case["window"], "numel"):
+        n_bytes += nbytes(case["window"])
+    views_faces = out[3].shape[:-1].numel()
+    return bound(n_bytes, SETUP_OPS_PER_FACE * views_faces)
+
+
+def time_render_setup(cases, card):
+    """Phase 16.4: ``render_setup`` timed as the other kernels (``run_ms``,
+    its profiler device time, the plain version, the bound) on the cases
+    of the kernel table. Returns {case: kernels-line numbers}."""
+    rows = {}
+    for name in ("tracking ROI culled",
+                 f"{SETUP_HYPOTHESES} hypotheses culled",
+                 f"{2 * TRAIN_BATCH} sampler views unculled",
+                 "textured box culled",
+                 f"{SETUP_STACKED} stacked icospheres culled"):
+        c = cases[name]
+        rows[name] = report_kernel(
+            "render_setup", f"({name})", lambda c=c: setup_call(c),
+            lambda c=c: setup_call(c, plain=True),
+            setup_bound(c, setup_call(c)), card,
+            runs=10 if c["pose"].dim() == 3 and c["pose"].shape[0] > 100
+            else TIMING_RUNS)
+    return rows
+
+
+def run_render_setup(tracker, pose0, rgb, depth, card):
+    """Phase 16, the render set-up kernel: ``render_setup`` against its
+    plain version on every case of ``setup_cases``, K1's winners through
+    both over SETUP_AGREEMENT_POSES poses, one launch a render on every
+    render path, a tracking step's device operations with and without it,
+    and its times. Returns its kernels-line entry."""
+    cases = setup_cases(tracker, pose0)
+    gaps = {name: check_render_setup(name, c) for name, c in cases.items()}
+    agree = setup_agreement(tracker, pose0)
+    by_path = run_setup_paths(tracker, pose0, rgb, depth)
+    ops = setup_step_ops(tracker, pose0, rgb, depth)
+    rows = time_render_setup(cases, card)
+    prod = rows["tracking ROI culled"]
+    return {"name": "render_setup", "route": "cuda",
+            "source": f"{PORT}/csrc/render_setup.cu",
+            "replaces": None, "launches": by_path["track_video"][
+                "render_setup"],
+            "max_ulp": {name: {t: g[1] for t, g in tables.items()}
+                        for name, tables in gaps.items()},
+            "k1_pixels_differing": list(agree), "step_device_ops": list(ops),
+            **{k: prod[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "launches_by_path": {p: c["render_setup"]
+                                 for p, c in by_path.items()},
+            "shapes": {name: {k: r[k] for k in ("ms", "device_ms",
+                                                "plain_ms", "bound_ms")}
+                       for name, r in rows.items()}}
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -5529,8 +5888,9 @@ def main() -> int:
         return path, log, time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(REPLACES)) as pool:
-        builds = dict(zip(REPLACES, pool.map(timed_build, REPLACES)))
+    sources = (*REPLACES, "render_setup")
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as pool:
+        builds = dict(zip(sources, pool.map(timed_build, sources)))
     for name, (path, log, secs) in builds.items():
         kbuild.load(name)
         print(f"built csrc/{name}.cu in {secs:.2f} s -> {path}")
@@ -5877,6 +6237,18 @@ def main() -> int:
     print(f"compiled step phase: {time.perf_counter() - t15:.1f} s {card}",
           flush=True)
 
+    # 16. The render set-up kernel: against its plain version on the
+    # render paths' shapes, K1's winners through both, one launch a render
+    # on every path, a step's device operations with it and without, and
+    # its times.
+    t16 = time.perf_counter()
+    print(f"render set-up: render_setup against its plain version, K1 over "
+          f"{SETUP_AGREEMENT_POSES} poses, the render paths' launches, the "
+          f"step's device operations, timings at {RES}^2", flush=True)
+    setup_entry = run_render_setup(tracker, pose0, rgb, depth, card)
+    print(f"render set-up phase: {time.perf_counter() - t16:.1f} s {card}",
+          flush=True)
+
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "
           f"the result lines, kernel builds included {card}", flush=True)
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
@@ -5899,7 +6271,7 @@ def main() -> int:
          **({"scale_out_views": [ens_views[name], video_views[name]]}
             if name in ens_views else {}),
          **({"sharded_render": ranks["k2"]} if name == "gather_rows" else {})}
-        for name in REPLACES]
+        for name in REPLACES] + [setup_entry]
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

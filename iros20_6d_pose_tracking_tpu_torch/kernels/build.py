@@ -41,6 +41,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 
 # C signature of each kernel entry point: (argtypes, restype).
 SIGNATURES = {
@@ -64,6 +65,13 @@ SIGNATURES = {
         # face_block, H, W, pix_tile, stream
         "raster_pass1_worklist": (
             [_P, _P, _P, _L, _P, _P, _I, _I, _I, _I, _I, _I, _P], _I),
+    },
+    "render_setup": {
+        # fverts, fnormals, fcolors, fuvs, fmask, pose, K, window, w_left,
+        # w_right, w_top, w_bottom, coef, block_bbox, attr, B, F, face_block,
+        # H, W, near, cull, stacked, stream
+        "render_setup": ([_P] * 8 + [_F] * 4 + [_P] * 3 + [_I] * 5
+                         + [_F, _I, _I, _P], _I),
     },
 }
 

@@ -28,11 +28,19 @@ Counterpart of ``iros20_6d_pose_tracking_tpu/render/pallas_raster.py``:
 with one-hot bf16 matmuls and needs the 3-term split to stay exact, while
 Hopper loads the rows directly.
 
+:func:`render_setup`, the render's front end before pass 1 (the face
+corners in the camera, the window's pixel coordinates, the coefficient
+rows, the attribute forms, the back-face cull with its compaction and the
+face blocks' bboxes), CUDA source ``csrc/render_setup.cu``, replaces no
+TPU kernel: it takes the place of the ~230 small torch launches of its
+plain version, the rasterizer's composition.
+
 Each wrapper runs its plain version (``*_ref``, beside it) when its tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a CUDA
 device; anything else raises. Each counts its kernel launches in a plain
-integer attribute (``pass1_winners.launches``, ``pass2_shade.launches``,
-``gather_rows.launches``, ``pass1_worklist.launches``), which
+integer attribute (``render_setup.launches``, ``pass1_winners.launches``,
+``pass2_shade.launches``, ``gather_rows.launches``,
+``pass1_worklist.launches``), which
 ``utils.profiling.counters()`` reports as ``launches.<wrapper>``.
 """
 from __future__ import annotations
@@ -149,6 +157,124 @@ def _check_cuda(*named, strided=()):
         if t.dtype != dtype or not (name in strided or t.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous {dtype} tensor, "
                              f"got {t.dtype}")
+
+
+# ---------------------------------------------------------------------------
+# Render set-up: the front end from the pose to pass 1's inputs.
+# ---------------------------------------------------------------------------
+
+def render_setup_ref(mesh, pose, K, window, out_hw: tuple[int, int],
+                     near: float, cull_backfaces: bool):
+    """Plain version of :func:`render_setup`: the rasterizer's composition,
+    ``_project``, ``_face_attr_coefficients``, then ``culled_pass1_inputs``
+    or, without the cull, :func:`build_face_coefficients` and
+    :func:`build_block_bboxes` at ``pick_face_block(F)``."""
+    from . import rasterizer as rz
+
+    fx, fy, fiz, fvalid, R, t = rz._project(mesh, pose, K, window, out_hw,
+                                            near)
+    attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    if cull_backfaces:
+        return rz.culled_pass1_inputs(mesh, fx, fy, fiz, fvalid, R, t, attr)
+    coef, _ = build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = rz.pick_face_block(fx.shape[-2])
+    return coef, build_block_bboxes(fx, fy, fvalid, fb), fb, attr
+
+
+def _window_arg(window, B: int):
+    """(tensor or None, four floats) of a render's window: four numbers go
+    by value, a tensor as one contiguous float32 (B, 4) tensor."""
+    if not torch.is_tensor(window):
+        if len(window) != 4:
+            raise ValueError(f"window must be four numbers, got {window}")
+        return None, [float(w) for w in window]
+    window = window.to(torch.float32).contiguous()
+    if window.numel() != 4 * B or window.shape[-1] != 4:
+        raise ValueError(f"window must be (4,) or ({B}, 4) for {B} view(s), "
+                         f"got {tuple(window.shape)}")
+    return window, [0.0] * 4
+
+
+def render_setup(mesh, pose, K, window, out_hw: tuple[int, int],
+                 near: float, cull_backfaces: bool):
+    """The front end of a render: pass 1's and pass 2's inputs from the
+    mesh, the pose and the window. Returns (coef (12, F), block_bbox
+    (F / face_block, 4), face_block, attr (F, 30), or (F, 36) with UV
+    forms): the face corners in the camera, the near test, the window's
+    pixel coordinates, the coefficient rows, the attribute forms and the
+    face blocks' bboxes, and with ``cull_backfaces`` the back faces
+    poisoned and every table stable-partitioned with the kept faces first.
+    B poses (B, 4, 4) and windows (B, 4) give (B, ...) tables, view b the
+    same bits as pose b alone; a stacked mesh (``rasterizer.is_stacked``)
+    gives view b from mesh b.
+
+    CPU tensors run :func:`render_setup_ref`; CUDA tensors launch
+    ``csrc/render_setup.cu`` on the current stream, one launch for the B
+    views: the plain version's tables, rounded op for op as torch's
+    kernels and cuBLAS round them on the card."""
+    from . import rasterizer as rz
+
+    mesh_fields = [(name, getattr(mesh, name), dtype) for name, dtype in (
+        ("fverts", torch.float32), ("fnormals", torch.float32),
+        ("fcolors", torch.float32), ("fmask", torch.bool),
+        ("fuvs", torch.float32)) if getattr(mesh, name) is not None]
+    tensors = [t for _, t, _ in mesh_fields] + [pose] + [
+        x for x in (K, window) if torch.is_tensor(x)]
+    if all(t.device.type == "cpu" for t in tensors):
+        return render_setup_ref(mesh, pose, K, window, out_hw, near,
+                                cull_backfaces)
+    stacked = rz.is_stacked(mesh)
+    lead = pose.shape[:-2]
+    B = lead[0] if lead else 1
+    F = mesh.fverts.shape[-3]
+    if tuple(pose.shape[-2:]) != (4, 4) or len(lead) > 1 or \
+            (stacked and not lead):
+        raise ValueError(f"pose must be (4, 4) or (B, 4, 4) (B poses for a "
+                         f"stacked mesh), got {tuple(pose.shape)}")
+    tails = {"fverts": (F, 3, 3), "fnormals": (F, 3, 3),
+             "fcolors": (F, 3, 3), "fmask": (F,), "fuvs": (F, 3, 2)}
+    for name, t, _ in mesh_fields:
+        want = ((B,) if stacked else ()) + tails[name]
+        if tuple(t.shape) != want:
+            raise ValueError(f"mesh {name} must be {want}, got "
+                             f"{tuple(t.shape)}")
+    H, W = out_hw
+    if H <= 0 or W <= 0:
+        raise ValueError(f"bad window size {out_hw}")
+    K = torch.as_tensor(K).to(torch.float32).contiguous()
+    if tuple(K.shape) != (3, 3):
+        raise ValueError(f"K must be (3, 3), got {tuple(K.shape)}")
+    dev = mesh.fverts.device
+    pose = pose.contiguous()
+    win, numbers = _window_arg(window, B)
+    _check_cuda(*mesh_fields, ("pose", pose, torch.float32),
+                ("K", K, torch.float32),
+                *([("window", win, torch.float32)] if win is not None else []))
+    fb = rz.pick_face_block(F)
+    C = 30 if mesh.fuvs is None else 36
+    coef = torch.empty(lead + (12, F), dtype=torch.float32, device=dev)
+    block_bbox = torch.empty(lead + (F // fb, 4), dtype=torch.float32,
+                             device=dev)
+    attr = torch.empty(lead + (F, C), dtype=torch.float32, device=dev)
+    if B == 0 or F == 0:
+        return coef, block_bbox, fb, attr
+    lib = kbuild.load("render_setup")
+    with torch.cuda.device(dev):
+        err = lib.render_setup(
+            mesh.fverts.data_ptr(), mesh.fnormals.data_ptr(),
+            mesh.fcolors.data_ptr(),
+            mesh.fuvs.data_ptr() if mesh.fuvs is not None else None,
+            mesh.fmask.data_ptr(), pose.data_ptr(), K.data_ptr(),
+            win.data_ptr() if win is not None else None, *numbers,
+            coef.data_ptr(), block_bbox.data_ptr(), attr.data_ptr(), B, F, fb,
+            H, W, float(near), int(bool(cull_backfaces)), int(stacked),
+            torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(lib, "render_setup", err)
+    render_setup.launches += 1
+    return coef, block_bbox, fb, attr
+
+
+render_setup.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -842,7 +968,7 @@ def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
 pass1_worklist.launches = 0
 
 
-for _name in ("pass1_winners", "pass2_shade", "gather_rows",
+for _name in ("render_setup", "pass1_winners", "pass2_shade", "gather_rows",
               "pass1_worklist"):
     # read through the module, where a caller may have swapped the wrapper
     profiling.register(f"launches.{_name}", lambda n=_name: getattr(

@@ -8,6 +8,14 @@ face and pass 2 shades it from the winner's forms.
 
 The port follows the JAX package's Pallas path (``impl='pallas'``):
 
+  - the front end, from the pose to pass 1's and pass 2's tables (the
+    corners in the camera, the near test, the window's pixel coordinates,
+    the coefficient rows, the attribute forms, the back-face cull and its
+    compaction, the face blocks' bboxes), is one launch on the card,
+    :func:`~.raster_kernels.render_setup`; on the CPU it is the
+    composition of this module's :func:`_project`,
+    :func:`_face_attr_coefficients` and :func:`culled_pass1_inputs` (or
+    the unculled builders), which stay as its plain version;
   - pass 1 is the packed-key winner search of
     :func:`~.raster_kernels.pass1_winners` (a CUDA kernel on the card, its
     plain version on the CPU), or with ``worklist=True`` the same search
@@ -239,20 +247,15 @@ def _pass1_kernel(worklist: bool):
     return rk.pass1_worklist if worklist else rk.pass1_winners
 
 
-def _pass1_iz(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
-    """(iz, winner) of :func:`pass1`, without the metric depth."""
-    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = pick_face_block(fx.shape[-2])
-    bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
-    return _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
-
-
 def pass1(fx, fy, fiz, fvalid, out_hw, worklist: bool = False):
     """Pass-1 winner search over projected faces, without cull compaction,
     through K1 or, with ``worklist``, K3. Returns (zmin, iz, winner): metric
     depth (inf where no face), the best inverse depth (-1 where none) and
     the winning face index. A batch of views (B, F, 3) is one K1 launch."""
-    iz, winner = _pass1_iz(fx, fy, fiz, fvalid, out_hw, worklist)
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = pick_face_block(fx.shape[-2])
+    bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
+    iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
     return rk.zmin_from_iz(iz), iz, winner
 
 
@@ -327,19 +330,15 @@ def render(
     if pose.dim() == 3 and worklist:
         raise ValueError("a batch of poses renders through K1: worklist "
                          "takes one pose")
-    fx, fy, fiz, fvalid, R, t = _project(mesh, pose, K, window, out_hw, near)
     # On the culled path the attribute forms are compacted together with
     # the pass-1 tables, so winner ids index the permuted space throughout.
-    attr_coef = _face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
-    if cull_backfaces:
-        coef, bbox, fb, attr_coef = culled_pass1_inputs(
-            mesh, fx, fy, fiz, fvalid, R, t, attr_coef)
-        iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
-    else:
-        iz, winner = _pass1_iz(fx, fy, fiz, fvalid, out_hw, worklist)
+    coef, bbox, fb, attr_coef = rk.render_setup(mesh, pose, K, window, out_hw,
+                                                near, cull_backfaces)
+    iz, winner = _pass1_kernel(worklist)(coef, bbox, out_hw, fb)
     # zmin, coverage, hit (zmin < far) and the winner clamp are pass 2's.
-    return rk.pass2_shade(attr_coef, iz, winner, R, t, out_hw, far,
-                          texture=mesh.texture, lighting=lighting)
+    return rk.pass2_shade(attr_coef, iz, winner, pose[..., :3, :3],
+                          pose[..., :3, 3], out_hw, far, texture=mesh.texture,
+                          lighting=lighting)
 
 
 def render_at_bbox(mesh: MeshArrays, pose: torch.Tensor, K: torch.Tensor,

@@ -82,7 +82,8 @@ WARMUP_CALLS = 3
 VIDEO_SLOTS = 32
 CACHE_SIZE = 16
 # The kernel wrappers whose ``launches`` a replay advances.
-COUNTED = ("pass1_winners", "pass2_shade", "gather_rows", "pass1_worklist")
+COUNTED = ("render_setup", "pass1_winners", "pass2_shade", "gather_rows",
+           "pass1_worklist")
 
 _module_lists = weakref.WeakKeyDictionary()
 _live = weakref.WeakSet()  # every StepProgram not yet collected
