@@ -5,10 +5,12 @@ live path, the adaptive dispatcher, the synthetic pair factory, the accuracy
 suite, the bf16 CNN, the scale-out layer, the last modules (the TF32
 pin, profiling, ``render_at_bbox``, the demo, the fixture, the dry run),
 the tracking step where a track is lost, with F14's float64 witness, the
-compiled step (one CUDA graph a key, replayed), and the render set-up
-kernel.
+compiled step (one CUDA graph a key, replayed), the render set-up kernel,
+and FoundationPose's refiner through the compiled step.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--refiner]
+
+``--refiner`` runs steps 1, 2 and 17 alone.
 
 Run from the root of the repository, on a machine with one CUDA card,
 nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
@@ -301,6 +303,17 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      frame), the device operations of one eager tracking step with the
      kernel and with its plain version, and its times beside its plain
      version and bound.
+ 17. drives FoundationPose's refiner (``models/refinenet.py``) at its
+     published widths through the compiled step, float32 and bf16, on 48
+     frames of the production mesh rendered on the card along a slow path:
+     the replayed ``track_video`` (one capture, a graph that holds both
+     rounds; each replay adds 2 to ``refine.rounds`` and 1600 to
+     ``refine.attn_tokens``) bit-equal to the eager two-round step, 6
+     frames held to the CPU path from the card's own priors (float32 within
+     1e-4, bf16 within 3e-3, in the refiner's units: translation over d/2,
+     rotation over 20 degrees), the network on one frame's inputs against
+     ``models/refinenet_reference.py`` (1e-4; bf16 3e-2), and the replayed
+     rate.
 
 Every timing line carries the card's name and power limit. The line before
 the last is ``{"kernels": [...]}``: per kernel its route, source, the TPU
@@ -570,6 +583,19 @@ ROW_FAR = 1e-3
 # The set-up's float32 operations a face (projection, coefficient rows,
 # attribute forms; the bound is its bytes by far).
 SETUP_OPS_PER_FACE = 300
+# Phase 17, FoundationPose's refiner: its frames (the production mesh
+# rendered on the card along a slow path), the frames held to the CPU
+# path, and the bars, in the refiner's own units (translation over d / 2,
+# rotation over its 20 degrees): the card's float32 step against the CPU's
+# (render rounding and cuDNN's summation order), its bf16 step against the
+# CPU's float32, and the card's network against its plain reference on one
+# frame's inputs (float32; bf16).
+REFINER_RES = 160
+REFINER_HEAD_SCALE = 0.005
+REFINER_FRAMES = 48
+REFINER_CPU_FRAMES = 6
+REFINER_STEP_BAR = {"float32": 1e-4, "bfloat16": 3e-3}
+REFINER_NET_BAR = {"float32": 1e-4, "bfloat16": 3e-2}
 
 
 def production_mesh():
@@ -5847,6 +5873,170 @@ def run_render_setup(tracker, pose0, rgb, depth, card):
                        for name, r in rows.items()}}
 
 
+# Phase 17: FoundationPose's refiner (models/refinenet.py) through the
+# compiled step.
+def refiner_net(seed):
+    """The refiner at its published widths with seeded random weights,
+    BatchNorm statistics randomised and the two Linear(512, 3) heads scaled
+    by REFINER_HEAD_SCALE (the benchmark's: at HEAD_SCALE a random refiner
+    runs ~5 mm a frame off the object), on the CPU in eval mode."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.models import refinenet
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.random.fork_rng(devices=[]):
+        torch.manual_seed(seed)
+        net = refinenet.RefineNet()
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.uniform_(-0.5, 0.5, generator=gen)
+                m.running_var.uniform_(0.5, 2.0, generator=gen)
+        for head in (net.trans_head[1], net.rot_head[1]):
+            head.weight.mul_(REFINER_HEAD_SCALE)
+            head.bias.zero_()
+    return net.eval()
+
+
+def refiner_tracker(net, device, dtype):
+    """The refiner's tracker on ``device``: the production mesh, a 160^2
+    ROI of 1.2 x its diameter (the published crop_ratio)."""
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+
+    tm, cull = production_mesh()
+    cfg = trk.TrackerConfig(
+        resolution=REFINER_RES, cull_backfaces=cull, dtype=dtype,
+        object_width_mm=float(tm.diameter) * 1000 * net.crop_ratio)
+    return trk.Tracker.from_parts(
+        copy.deepcopy(net).to(device), cfg, rz.upload(tm, device), K_PROD,
+        np.zeros(8, np.float32), np.ones(8, np.float32), dtype=dtype)
+
+
+def refiner_frames(tracker, n):
+    """n 480x640 frames of the production mesh rendered on the card, the
+    object 0.6 m away moving 0.4 mm and 0.3 degrees a frame: (poses, rgb
+    uint8, depth int32 mm) on the card."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.core import se3
+    from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+
+    dev = tracker.device
+    k = torch.arange(n, dtype=torch.float32, device=dev)[:, None]
+    t = torch.tensor([0.0, 0.0, 0.6], device=dev) + k * torch.tensor(
+        [4e-4, -2e-4, 1e-4], device=dev)
+    w = k * torch.tensor([0.004, 0.003, -0.002], device=dev)
+    poses = se3.make_pose(se3.so3_exp(w), t)
+    rgb, depth = rz.render(tracker.mesh, poses, tracker.K,
+                           torch.tensor(rz.full_frame_window(*FRAME_HW[::-1]),
+                                        device=dev).expand(n, 4),
+                           out_hw=FRAME_HW, cull_backfaces=True)
+    return poses, rgb.round().to(torch.uint8), depth.round().to(torch.int32)
+
+
+def refiner_gaps(a, b, radius):
+    """(translation over radius, rotation angle over 20 degrees) of each
+    pose pair, the larger of the two, as numpy."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.models import refinenet
+
+    a, b = a.double().cpu(), b.double().cpu()
+    dt = (a[:, :3, 3] - b[:, :3, 3]).norm(dim=1) / radius
+    m = a[:, :3, :3] @ b[:, :3, :3].transpose(1, 2)
+    vee = torch.stack([m[:, 2, 1] - m[:, 1, 2], m[:, 0, 2] - m[:, 2, 0],
+                       m[:, 1, 0] - m[:, 0, 1]], 1)
+    ang = torch.asin((vee.norm(dim=1) / 2).clamp(max=1.0))
+    return torch.maximum(dt, ang / refinenet.ROT_NORMALIZER).numpy()
+
+
+def run_refiner(card):
+    """FoundationPose's refiner on the card, float32 and bf16: the replayed
+    ``track_video`` over REFINER_FRAMES frames (one capture of a graph that
+    holds both rounds, each replay adding 2 rounds and 1600 attention
+    tokens) bit-equal to the eager two-round step, held to the CPU path
+    from the card's own priors, and the card's network against the plain
+    reference (``models/refinenet_reference.py``); the replayed rate."""
+    import torch
+
+    from iros20_6d_pose_tracking_tpu_torch.models import refinenet_reference
+    from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
+    from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+    from iros20_6d_pose_tracking_tpu_torch.utils import profiling
+
+    dev = torch.device("cuda", 0)
+    net = refiner_net(SEED + 17)
+    cpu = refiner_tracker(net, torch.device("cpu"), torch.float32)
+    for name, dtype in (("float32", torch.float32),
+                        ("bfloat16", torch.bfloat16)):
+        t = refiner_tracker(net, dev, dtype)
+        gt, rgb, depth = refiner_frames(t, REFINER_FRAMES)
+        radius = t.model.radius_m(t.cfg.object_width_mm)
+        init = gt[0] @ torch.tensor(
+            [[1, 0, 0, 0.003], [0, 1, 0, -0.002], [0, 0, 1, 0.004],
+             [0, 0, 0, 1.0]], device=dev)
+        compiled.programs.clear()
+        before = profiling.counters()
+        poses = trk.track_video(t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+                                init, rgb, depth)
+        torch.cuda.synchronize()
+        after = profiling.counters()
+        (prog,) = compiled.programs.programs()
+        assert prog.graph is not None and \
+            after["compiled.captures"] - before["compiled.captures"] == 1
+        assert prog.replay_counts == {"refine.rounds": 2,
+                                      "refine.attn_tokens": 1600}, \
+            prog.replay_counts
+        assert after["refine.rounds"] - before["refine.rounds"] == \
+            2 * REFINER_FRAMES
+        eager = eager_video(t, init, rgb, depth)
+        same = bool(torch.equal(eager, poses))
+        assert same, "replayed refiner poses differ from the eager step's"
+        # the CPU path, float32, from the card's own priors
+        priors = torch.cat([init[None], poses[:-1]])
+        idx = np.linspace(0, REFINER_FRAMES - 1, REFINER_CPU_FRAMES).astype(
+            int)
+        ref = torch.stack([trk.track_step(
+            cpu.model, cpu.cfg, cpu.mesh, cpu.K, cpu.mean, cpu.std,
+            priors[i].cpu(), rgb[i].cpu(), depth[i].cpu())[0] for i in idx])
+        step_gap = float(refiner_gaps(poses[idx], ref, radius).max())
+        # the network on one frame's inputs against its plain reference
+        v = trk.roi_geometry(t.cfg, t.mesh, t.K, init, rgb[0], depth[0])
+        A, B = t.model.build_pair(v, init, t.K, t.mean, t.std,
+                                  t.cfg.object_width_mm)
+        with torch.no_grad():
+            out = t.model(A, B)
+        want = refinenet_reference.forward(
+            {k: x.float() for k, x in t.model.state_dict().items()}, A, B)
+        net_gap = max(float((out[k] - want[k]).abs().max())
+                      for k in ("trans", "rot"))
+        drift = float((poses[-1, :3, 3] - gt[-1, :3, 3]).norm()) * 1e3
+        print(f"refiner {name}: replayed track_video over {REFINER_FRAMES} "
+              f"frames at {REFINER_RES}^2 bit-equal to the eager 2-round "
+              f"step ({same}), 1 capture, 2 rounds and 1600 attention "
+              f"tokens a replay; step against the CPU path over "
+              f"{REFINER_CPU_FRAMES} frames {step_gap:.3e} (bar "
+              f"{REFINER_STEP_BAR[name]:g}), network against its reference "
+              f"{net_gap:.3e} (bar {REFINER_NET_BAR[name]:g}); last frame "
+              f"{drift:.2f} mm from the rendered pose", flush=True)
+        assert step_gap < REFINER_STEP_BAR[name], step_gap
+        assert net_gap < REFINER_NET_BAR[name], net_gap
+        hz = []
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trk.track_video(t.model, t.cfg, t.mesh, t.K, t.mean, t.std,
+                            init, rgb, depth)
+            torch.cuda.synchronize()
+            hz.append(REFINER_FRAMES / (time.perf_counter() - t0))
+        print(f"refiner {name}: replayed track_video "
+              f"{', '.join(f'{h:.1f}' for h in hz)} Hz (2 rounds a frame) "
+              f"{card}", flush=True)
+        compiled.programs.clear()
+
+
 def main() -> int:
     t_main = time.perf_counter()
     import torch
@@ -5898,6 +6088,12 @@ def main() -> int:
             if "registers" in line or "bytes stack" in line:
                 print(f"  ptxas: {line.strip()}")
     print(f"all kernels built in {time.perf_counter() - t0:.2f} s", flush=True)
+    if "--refiner" in sys.argv[1:]:
+        run_refiner(card)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}), flush=True)
+        return 0
 
     # 3. Each kernel against its plain version, on the card.
     net = build_model(SEED)
@@ -6247,6 +6443,14 @@ def main() -> int:
           f"step's device operations, timings at {RES}^2", flush=True)
     setup_entry = run_render_setup(tracker, pose0, rgb, depth, card)
     print(f"render set-up phase: {time.perf_counter() - t16:.1f} s {card}",
+          flush=True)
+
+    # 17. FoundationPose's refiner: both rounds in one graph, bit-equal to
+    # the eager step, against the CPU path and the plain reference, float32
+    # and bf16.
+    t17 = time.perf_counter()
+    run_refiner(card)
+    print(f"refiner phase: {time.perf_counter() - t17:.1f} s {card}",
           flush=True)
 
     print(f"chip_smoke: {time.perf_counter() - t_main:.1f} s from start to "

@@ -49,6 +49,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from ..core import se3
+from ..ops import depthproc
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -158,12 +159,36 @@ class ResnetBasicBlock(nn.Module):
         return torch.relu(y + x)
 
 
+def pack_channels(rgb, depth):
+    """RGB (H, W, 3) + depth (H, W) -> (H, W, 4) float32 (reference
+    data_augmentation.py:175-196 ToTensor, NHWC)."""
+    return torch.cat([rgb, depth[..., None]], dim=-1).to(torch.float32)
+
+
+def normalize_pair(rgbA, depthA, rgbB, depthB, poseA, mean, std):
+    """OffsetDepth + NormalizeChannels + pack, both branches. ``mean`` and
+    ``std`` are the 8-channel training statistics (A rgbd, B rgbd) on the
+    last axis: (8,), or one pair a view broadcast against the images."""
+    bufA = pack_channels(rgbA, depthproc.offset_depth(depthA, poseA))
+    bufB = pack_channels(rgbB, depthproc.offset_depth(depthB, poseA))
+    bufA = (bufA - mean[..., :4]) / std[..., :4]
+    bufB = (bufB - mean[..., 4:]) / std[..., 4:]
+    return bufA, bufB
+
+
 class Se3TrackNet(nn.Module):
     """Two-branch relative-pose regressor (reference se3_tracknet.py:52-112).
 
     ``image_size`` is kept for parity with the JAX model's signature; the
     network is fully convolutional up to the global pool. ``dtype``: the
-    activations' type, float32 or bfloat16 (module docstring)."""
+    activations' type, float32 or bfloat16 (module docstring).
+
+    The tracking step (``tracking/tracker.py::track_step``) asks the model
+    for its rounds a frame (``refine_iterations``: one), its inputs
+    (:meth:`build_pair`) and its decode (:meth:`decode`)."""
+
+    refine_iterations = 1
+    round_span = None
 
     def __init__(self, image_size: int = 176,
                  dtype: torch.dtype = torch.float32):
@@ -204,6 +229,22 @@ class Se3TrackNet(nn.Module):
             "trans": _at_least_f32(self.trans_out(t)),
             "rot": _at_least_f32(self.rot_out(r)),
         }
+
+    def build_pair(self, views: dict, pose, K, mean, std, width_mm):
+        """OffsetDepth and the 8-channel normalisation of one round's ROI
+        views (``tracker.roi_geometry``) at ``pose`` ((4, 4) or (N, 4,
+        4)): the batched (A, B) inputs."""
+        batched = pose.dim() == 3
+        bufA, bufB = normalize_pair(
+            views["rgbA"], views["depthA"], views["rgbB"], views["depthB"],
+            pose[:, None, None] if batched else pose, mean, std)
+        return (bufA, bufB) if batched else (bufA[None], bufB[None])
+
+    def decode(self, pose, trans, rot, cfg, width_mm):
+        """The tanh outputs times the tracker's normalisers, composed onto
+        ``pose`` (``se3.decode_delta``)."""
+        return se3.decode_delta(pose, trans, rot, cfg.trans_normalizer,
+                                cfg.rot_normalizer)
 
 
 def loss_fn(pred_trans, pred_rot, target_trans, target_rot,

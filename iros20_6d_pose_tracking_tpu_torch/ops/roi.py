@@ -59,6 +59,24 @@ def bbox_window(bbox: torch.Tensor):
             bbox[..., 0].amin(-1), bbox[..., 0].amax(-1))
 
 
+def _source_index(start, size, n: int) -> torch.Tensor:
+    """(..., n) int32 source indices of n output pixels resampling
+    ``size`` pixels from ``start``: start + (o size) // n."""
+    o = torch.arange(n, dtype=torch.int32, device=start.device)
+    return start.to(torch.int32)[..., None] + (
+        o * size.to(torch.int32)[..., None]) // n
+
+
+def source_pixels(bbox: torch.Tensor, out_hw: tuple[int, int]):
+    """(rows (..., H), cols (..., W)) int32: the image pixel each output row
+    and column of :func:`crop_bbox`'s crop of ``bbox`` reads, in the
+    coordinates of ``bbox`` (possibly outside the image, where the crop
+    reads 0)."""
+    left, right, top, bottom = bbox_window(bbox)
+    return (_source_index(top, bottom - top, out_hw[0]),
+            _source_index(left, right - left, out_hw[1]))
+
+
 def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
                         left: torch.Tensor, crop_h: torch.Tensor,
                         crop_w: torch.Tensor, out_hw: tuple[int, int],
@@ -73,15 +91,8 @@ def crop_resize_nearest(img: torch.Tensor, top: torch.Tensor,
     lead = 1 if per_view else 0
     h, w = img.shape[lead], img.shape[lead + 1]
     dev = img.device
-    oi = torch.arange(H_out, dtype=torch.int32, device=dev)
-    oj = torch.arange(W_out, dtype=torch.int32, device=dev)
-
-    def src(start, size, o, n):  # (..., n) source indices
-        return start.to(torch.int32)[..., None] + (
-            o * size.to(torch.int32)[..., None]) // n
-
-    src_r = src(top, crop_h, oi, H_out)
-    src_c = src(left, crop_w, oj, W_out)
+    src_r = _source_index(top, crop_h, H_out)
+    src_c = _source_index(left, crop_w, W_out)
     valid_r = (src_r >= 0) & (src_r < h)
     valid_c = (src_c >= 0) & (src_c < w)
     rr = src_r.clamp(0, h - 1)

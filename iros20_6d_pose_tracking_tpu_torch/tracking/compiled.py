@@ -43,7 +43,12 @@ replays it on every later frame:
   - **Launch counts.** The kernel wrappers count launches on the host, and
     a replay runs no Python: the capture's own counts are taken back, and
     every replay adds the launches it recorded, so a replayed frame counts
-    what an eager frame counts.
+    what an eager frame counts. The step's counters in :data:`COUNTERS`
+    (the refiner's rounds and attention tokens) are taken back and added
+    a replay alike.
+  - **Rounds.** The model's ``refine_iterations`` rounds of a frame (two
+    for FoundationPose's refiner, each rendering at the last round's pose)
+    are all in the one graph: a frame is one replay.
   - **Spans and counters** (``utils/profiling.py``). A call records
     ``compiled.key`` (the key and the cache's lookup), ``compiled.load``
     (K, mean, std, the pose and one frame copied in) or, for a video,
@@ -84,6 +89,9 @@ CACHE_SIZE = 16
 # The kernel wrappers whose ``launches`` a replay advances.
 COUNTED = ("render_setup", "pass1_winners", "pass2_shade", "gather_rows",
            "pass1_worklist")
+# The counters (``utils/profiling.count``) the step adds that a replay
+# advances.
+COUNTERS = ("refine.rounds", "refine.attn_tokens")
 
 _module_lists = weakref.WeakKeyDictionary()
 _live = weakref.WeakSet()  # every StepProgram not yet collected
@@ -134,6 +142,11 @@ def _launch_counts():
             for n in COUNTED}
 
 
+def _step_counts():
+    c = profiling.counters()
+    return {n: c.get(n, 0) for n in COUNTERS}
+
+
 class StepProgram:
     """``track_step`` for one key (:func:`step_key`), captured as a CUDA
     graph after :data:`WARMUP_CALLS` eager calls and replayed after that;
@@ -170,6 +183,7 @@ class StepProgram:
         self.eager_calls = 0
         self.replays = 0
         self.replay_launches = {}  # kernel wrapper -> launches a replay
+        self.replay_counts = {}    # counter -> what a replay adds
         self._side = None         # the warm-up's and the capture's stream
         _live.add(self)
 
@@ -187,6 +201,7 @@ class StepProgram:
 
     def _capture(self, model, cfg, mesh):
         before = _launch_counts()
+        counted = _step_counts()
         cur = torch.cuda.current_stream(self.device)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
@@ -204,11 +219,16 @@ class StepProgram:
             for n, c in before.items():
                 if c is not None:
                     getattr(rk, n).launches = c
+            added = {n: c - counted[n] for n, c in _step_counts().items()}
+            for n, c in added.items():
+                if c:
+                    profiling.count(n, -c)
         cur.wait_stream(self._side)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         profiling.count("compiled.captures")
         self.replay_launches = {n: after[n] - c for n, c in before.items()
                                 if c is not None and after[n] != c}
+        self.replay_counts = {n: c for n, c in added.items() if c}
         self.graph = graph
 
     def _run(self, model, cfg, mesh):
@@ -240,6 +260,8 @@ class StepProgram:
                     self.replays += 1
                     for n, c in self.replay_launches.items():
                         getattr(rk, n).launches += c
+                    for n, c in self.replay_counts.items():
+                        profiling.count(n, c)
         self._slot = (self._slot + 1) % self.slots
 
     def _check(self, key):

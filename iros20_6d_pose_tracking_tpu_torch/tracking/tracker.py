@@ -12,6 +12,15 @@ step (reference predict.py:217-296 ``Tracker.on_track``):
   5. the Se3TrackNet forward at batch 1;
   6. the pose decode (tanh outputs x normalizers, Rodrigues compose).
 
+The model decides how steps 4 and 6 go and how many rounds a frame runs
+(``refine_iterations``, ``build_pair``, ``decode``): Se3TrackNet one round
+as above, FoundationPose's refiner (``models/refinenet.py``) two, each
+re-rendering A and re-cropping B at the pose the round before gave, its
+inputs rgb / 255 and the normalised camera-frame XYZ map
+(``ops/pointcloud.py``). A model with a ``round_span`` (the refiner's
+``refiner.round``) records each round as that span and adds 1 to the
+counter ``refine.rounds``.
+
 Every step stays on the device of its tensors: the pose is fetched to the
 host only where a caller asks for it (``Tracker.on_track`` returns numpy).
 :func:`track_step` is the eager step. ``track_video`` and
@@ -43,6 +52,7 @@ the render and the pose stay float32.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import itertools
 from dataclasses import dataclass
@@ -50,10 +60,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
-from ..core import se3
 from ..models import tracknet
 from ..models.convert import state_dict_from_jax
-from ..ops import depthproc
+from ..models.tracknet import normalize_pair, pack_channels  # noqa: F401
 from ..ops import roi as roi_ops
 from ..render import mesh as mesh_mod
 from ..render import rasterizer as rz
@@ -141,21 +150,30 @@ def staging_buffer(shape, dtype, device) -> torch.Tensor:
                        pin_memory=torch.device(device).type == "cuda")
 
 
-def pack_channels(rgb, depth):
-    """RGB (H, W, 3) + depth (H, W) -> (H, W, 4) float32 (reference
-    data_augmentation.py:175-196 ToTensor, NHWC)."""
-    return torch.cat([rgb, depth[..., None]], dim=-1).to(torch.float32)
-
-
-def normalize_pair(rgbA, depthA, rgbB, depthB, poseA, mean, std):
-    """OffsetDepth + NormalizeChannels + pack, both branches. ``mean`` and
-    ``std`` are the 8-channel training statistics (A rgbd, B rgbd) on the
-    last axis: (8,), or one pair a view broadcast against the images."""
-    bufA = pack_channels(rgbA, depthproc.offset_depth(depthA, poseA))
-    bufB = pack_channels(rgbB, depthproc.offset_depth(depthB, poseA))
-    bufA = (bufA - mean[..., :4]) / std[..., :4]
-    bufB = (bufB - mean[..., 4:]) / std[..., 4:]
-    return bufA, bufB
+def roi_geometry(cfg: TrackerConfig, mesh: rz.MeshArrays, K, pose,
+                 frame_rgb, frame_depth_mm, object_width_mm=None,
+                 frame_offset_vu=None) -> dict:
+    """The rendered (A) and cropped (B) ROI pair at ``pose`` (or at each of
+    N poses), all float32, with the ROI: ``rgbA``, ``depthA``, ``rgbB``,
+    ``depthB``, ``bbox`` ((4, 2) int32 (v, u) corners in full-image
+    coordinates, ``ops/roi.compute_bbox``) and ``window`` (the render's
+    (left, right, top, bottom) float32). ``object_width_mm`` and
+    ``frame_offset_vu`` as in :func:`track_step`."""
+    res = (cfg.resolution, cfg.resolution)
+    width = cfg.object_width_mm if object_width_mm is None else object_width_mm
+    bbox = roi_ops.compute_bbox(pose, K, width, (1000.0, 1000.0, 1000.0))
+    bbox_local = bbox if frame_offset_vu is None else (
+        bbox - frame_offset_vu.to(torch.int32))
+    # B branch: the crop runs in the transfer dtype; only the ROI is cast.
+    rgbB, depthB = roi_ops.crop_bbox(frame_rgb, frame_depth_mm, bbox_local,
+                                     res)
+    window = rz.window_from_bbox(bbox)
+    rgbA, depthA = rz.render(
+        mesh, pose, K, window, out_hw=res, near=cfg.near, far=cfg.far,
+        cull_backfaces=cfg.cull_backfaces)
+    return {"rgbA": rgbA, "depthA": depthA, "rgbB": rgbB.to(torch.float32),
+            "depthB": depthB.to(torch.float32), "bbox": bbox,
+            "window": window}
 
 
 @torch.no_grad()
@@ -166,27 +184,39 @@ def roi_views(cfg: TrackerConfig, mesh: rz.MeshArrays, K, pose, frame_rgb,
     side-by-side canvas the reference shows every frame (reference
     predict.py:284-291). ``object_width_mm`` and ``frame_offset_vu`` as in
     :func:`track_step`."""
-    res = (cfg.resolution, cfg.resolution)
-    width = cfg.object_width_mm if object_width_mm is None else object_width_mm
-    bbox = roi_ops.compute_bbox(pose, K, width, (1000.0, 1000.0, 1000.0))
-    bbox_local = bbox if frame_offset_vu is None else (
-        bbox - frame_offset_vu.to(torch.int32))
-    # B branch: the crop runs in the transfer dtype; only the ROI is cast.
-    rgbB, depthB = roi_ops.crop_bbox(frame_rgb, frame_depth_mm, bbox_local,
-                                     res)
-    rgbA, depthA = rz.render(
-        mesh, pose, K, rz.window_from_bbox(bbox), out_hw=res, near=cfg.near,
-        far=cfg.far, cull_backfaces=cfg.cull_backfaces)
-    return rgbA, depthA, rgbB.to(torch.float32), depthB.to(torch.float32)
+    v = roi_geometry(cfg, mesh, K, pose, frame_rgb, frame_depth_mm,
+                     object_width_mm, frame_offset_vu)
+    return v["rgbA"], v["depthA"], v["rgbB"], v["depthB"]
+
+
+profiling.count("refine.rounds", 0)  # listed before the first step
+
+
+@contextlib.contextmanager
+def _round(model):
+    """One round of the step: for a model that names its rounds
+    (``round_span``, the refiner's ``refiner.round``) that span, and 1 more
+    on the counter ``refine.rounds``; nothing for Se3TrackNet."""
+    if model.round_span is None:
+        yield
+        return
+    with profiling.span(model.round_span, device=True):
+        yield
+        profiling.count("refine.rounds")
 
 
 @torch.no_grad()
-def track_step(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
+def track_step(model: torch.nn.Module, cfg: TrackerConfig,
                mesh: rz.MeshArrays, K, mean, std, prev_pose, frame_rgb,
                frame_depth_mm, object_width_mm=None, frame_offset_vu=None):
-    """One tracking update on the device of its tensors.
+    """One tracking update on the device of its tensors: the model's
+    ``refine_iterations`` rounds of render, crop, network and compose, each
+    from the pose the round before gave.
 
     Args:
+      model: ``tracknet.Se3TrackNet`` or ``refinenet.RefineNet``, which
+        builds its inputs (``build_pair``) and decodes its outputs
+        (``decode``).
       prev_pose: (4, 4) float32 previous object-in-camera estimate; or N
         prior poses (N, 4, 4), refined in one batched step: the N crops in
         one gather, the N culled views in one K1 and one ``pass2_shade``
@@ -200,31 +230,33 @@ def track_step(model: tracknet.Se3TrackNet, cfg: TrackerConfig,
         bbox is computed in full-image coordinates, and shifted into the
         window for the B-branch crop only.
 
-    Returns the new (4, 4) pose, or (N, 4, 4) poses, and a dict of
-    intermediates. The CNN runs in ``cfg.dtype``, which must be the
-    model's.
+    Returns the new (4, 4) pose, or (N, 4, 4) poses, and a dict of the last
+    round's intermediates (with ``round_poses``, the pose after each round,
+    where there are several). The CNN runs in ``cfg.dtype``, which must be
+    the model's.
     """
     if model.dtype != cfg.dtype:
         raise ValueError(f"the model runs in {model.dtype}, the config says "
                          f"{cfg.dtype}")
-    rgbA, depthA, rgbB, depthB = roi_views(
-        cfg, mesh, K, prev_pose, frame_rgb, frame_depth_mm, object_width_mm,
-        frame_offset_vu)
+    width = cfg.object_width_mm if object_width_mm is None else object_width_mm
     batched = prev_pose.dim() == 3
-    bufA, bufB = normalize_pair(
-        rgbA, depthA, rgbB, depthB,
-        prev_pose[:, None, None] if batched else prev_pose, mean, std)
-    if batched:
-        out = model(bufA, bufB)
-        trans, rot = out["trans"], out["rot"]
-    else:
-        out = model(bufA[None], bufB[None])
-        trans, rot = out["trans"][0], out["rot"][0]
-    new_pose = se3.decode_delta(prev_pose, trans, rot, cfg.trans_normalizer,
-                                cfg.rot_normalizer)
-    aux = {"rgbA": rgbA, "depthA": depthA, "rgbB": rgbB, "depthB": depthB,
-           "trans": trans, "rot": rot}
-    return new_pose, aux
+    pose, round_poses = prev_pose, []
+    for _ in range(model.refine_iterations):
+        with _round(model):
+            v = roi_geometry(cfg, mesh, K, pose, frame_rgb, frame_depth_mm,
+                             object_width_mm, frame_offset_vu)
+            bufA, bufB = model.build_pair(v, pose, K, mean, std, width)
+            out = model(bufA, bufB)
+            trans, rot = out["trans"], out["rot"]
+            if not batched:
+                trans, rot = trans[0], rot[0]
+            pose = model.decode(pose, trans, rot, cfg, width)
+        round_poses.append(pose)
+    aux = {k: v[k] for k in ("rgbA", "depthA", "rgbB", "depthB")}
+    aux.update(trans=trans, rot=rot)
+    if len(round_poses) > 1:
+        aux["round_poses"] = torch.stack(round_poses)
+    return pose, aux
 
 
 @torch.no_grad()

@@ -24,7 +24,9 @@ sees inside one program, the port's host runs Python between launches):
     trace names host time, and the card's idle gaps, by the innermost
     span. ``record_function`` is not used: its ranges are mirrored onto
     the card's timeline as annotations that cover the device work they
-    enclose, which a reading of device time would count as work.
+    enclose, which a reading of device time would count as work. Nothing
+    is recorded while the current stream captures a CUDA graph (the spans
+    inside a captured body, such as the refiner's, record in eager runs).
   - :func:`spans`: the recorded spans, oldest first, with each one's
     self time and device milliseconds; :func:`reset` drops them.
   - :func:`count` and :func:`counters`: one registry of integer counters,
@@ -242,6 +244,8 @@ def span(name: str, device: bool = False, request=None):
     the block on the current CUDA stream (host times only on the CPU)."""
     if not (_recording or _autograd_profiler._is_profiler_enabled):
         return _NO_SPAN
+    if torch.cuda.is_available() and torch.cuda.is_current_stream_capturing():
+        return _NO_SPAN  # a CUDA graph's capture: its body runs no Python
     return _Span(name, device, request)
 
 
