@@ -40,8 +40,10 @@ not be confirmed offline.
 ``{"trans" (N, 3), "rot" (N, 3)}`` float32 (``rot`` before its tanh);
 inside, the convolutions run NCHW. ``dtype`` is the activations' type.
 bf16 follows ``tracknet.py``'s rules: parameters and BatchNorm statistics
-stay float32; convolutions and linear layers run on bf16 copies of the
-weights; BatchNorm and LayerNorm compute in float32 and round once (the
+stay float32; convolutions, linear layers and the attention's in-projection
+run on bf16 copies of the weights, held with autograd off (made once for
+each version of a parameter, ``tracknet.weight_as``) and cast on every call
+with it on; BatchNorm and LayerNorm compute in float32 and round once (the
 LayerNorm's residual sum and the position embedding's sum are formed in
 float32 too); attention runs ``F.scaled_dot_product_attention`` on bf16
 q, k and v; the token means are float32. The published inference runs
@@ -68,7 +70,8 @@ from ..core import se3
 from ..ops import pointcloud
 from ..ops import roi as roi_ops
 from ..utils import profiling
-from .tracknet import BatchNorm2d, Conv2d, Linear, ResnetBasicBlock
+from .tracknet import (BatchNorm2d, Conv2d, Linear, ResnetBasicBlock,
+                       weight_as)
 
 EMBED_DIM = 512
 NUM_HEADS = 4
@@ -146,8 +149,8 @@ class SelfAttention(nn.Module):
 
     def forward(self, x):
         n, length, dim = x.shape
-        qkv = F.linear(x, self.in_proj_weight.to(x.dtype),
-                       self.in_proj_bias.to(x.dtype))
+        qkv = F.linear(x, weight_as(self.in_proj_weight, x.dtype),
+                       weight_as(self.in_proj_bias, x.dtype))
         q, k, v = qkv.view(n, length, 3, self.heads,
                            dim // self.heads).permute(2, 0, 3, 1, 4)
         with _attention_backend(x.dtype):

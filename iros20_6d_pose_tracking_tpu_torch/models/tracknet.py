@@ -32,9 +32,13 @@ point calls it.
 bfloat16 with the parameters and BatchNorm's running statistics kept
 float32 (the JAX package's TPU precision). In bfloat16 the convolutions and
 the heads' Linear run on bfloat16 copies of the weights, the bias added in
-the same call (one rounding; Flax adds it as a second bfloat16 op);
-BatchNorm computes in float32 and rounds to bfloat16 once, as Flax's
-``_normalize`` does; SELU, ReLU, max-pool and the spatial mean run in
+the same call (one rounding; Flax adds it as a second bfloat16 op). With
+autograd off (the tracking step, evaluation) each copy is made once for each
+version of its parameter and held (:func:`weight_as`): a replayed tracking
+step casts nothing. With autograd on (bf16 training) they are cast on every
+call, so gradients reach the float32 parameters through the cast. BatchNorm
+computes in float32 and rounds to bfloat16 once, as Flax's ``_normalize``
+does; SELU, ReLU, max-pool and the spatial mean run in
 bfloat16; ``trans`` and ``rot`` come out float32, ``feature`` bfloat16.
 :func:`as_float64` makes a float64 copy, the reference float32 gradients
 are held against (no entry point runs it).
@@ -43,13 +47,16 @@ from __future__ import annotations
 
 import copy
 import math
+import weakref
 
 import torch
 from torch import nn
 from torch.nn import functional as F
+from torch.utils.weak import WeakIdKeyDictionary
 
 from ..core import se3
 from ..ops import depthproc
+from ..utils import profiling
 
 
 def _at_least_f32(x: torch.Tensor) -> torch.Tensor:
@@ -112,20 +119,75 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
+# parameter -> (its storage, weakly; (data_ptr, version, dtype); the copy)
+_held = WeakIdKeyDictionary()
+profiling.count("weights.bf16_casts", 0)  # listed before the first forward
+profiling.count("weights.bf16_held", 0)
+
+
+def weight_as(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``p.to(dtype)``: ``p`` itself where it is of ``dtype``. A copy is
+    held across calls where autograd is off and ``p`` is an
+    ``nn.Parameter`` that is not an inference tensor; it is made again
+    once ``p``'s storage, data pointer or version counter (an in-place
+    update: ``load_state_dict``, ``copy_``, an optimizer step) or ``dtype``
+    changes. The copies are held here, weakly keyed on the parameter, so
+    they are in no ``state_dict``, and neither a ``copy.deepcopy`` nor a
+    pickle of the model carries one. Elsewhere ``p`` is cast on every call:
+    a forward with autograd on (the cast carries the gradient), a tensor
+    swapped in by ``torch.func.functional_call`` or ``vmap``
+    (``parallel/spmd.py``), an inference tensor, whose version cannot be
+    read. A write that bypasses the version counter (through ``p.data``)
+    is not seen. The counters ``weights.bf16_casts`` and
+    ``weights.bf16_held`` count the casts made and the held copies used."""
+    if p.dtype == dtype:
+        return p
+    if torch.is_grad_enabled() or not isinstance(p, nn.Parameter) \
+            or p.is_inference():
+        profiling.count("weights.bf16_casts")
+        return p.to(dtype)
+    storage = p.untyped_storage()
+    key = (p.data_ptr(), p._version, dtype)
+    held = _held.get(p)
+    if held is None or held[0]() is not storage or held[1] != key:
+        held = _held[p] = (weakref.ref(storage), key, p.to(dtype))
+        profiling.count("weights.bf16_casts")
+    else:
+        profiling.count("weights.bf16_held")
+    return held[2]
+
+
+def held_weights(model: nn.Module) -> list:
+    """The held copies (:func:`weight_as`) of ``model``'s parameters that
+    are current, each with its parameter's storage: what a captured graph
+    that reads them keeps alive (``tracking/compiled.py``), so that
+    neither address is reused while it may replay."""
+    out = []
+    for p in model.parameters():
+        held = _held.get(p)
+        if held is None:
+            continue
+        storage = p.untyped_storage()
+        if held[0]() is storage and held[1][:2] == (p.data_ptr(), p._version):
+            out.append((storage, held[2]))
+    return out
+
+
 class Conv2d(nn.Conv2d):
     """``nn.Conv2d`` in the input's type: float32 parameters, used as
-    bfloat16 copies on a bfloat16 input."""
+    bfloat16 copies on a bfloat16 input (:func:`weight_as`)."""
 
     def forward(self, x):
-        return self._conv_forward(x, self.weight.to(x.dtype),
-                                  self.bias.to(x.dtype))
+        return self._conv_forward(x, weight_as(self.weight, x.dtype),
+                                  weight_as(self.bias, x.dtype))
 
 
 class Linear(nn.Linear):
     """``nn.Linear`` in the input's type, as :class:`Conv2d`."""
 
     def forward(self, x):
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return F.linear(x, weight_as(self.weight, x.dtype),
+                        weight_as(self.bias, x.dtype))
 
 
 class ConvBNSELU(nn.Sequential):

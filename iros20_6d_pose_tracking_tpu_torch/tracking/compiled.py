@@ -36,16 +36,21 @@ replays it on every later frame:
     another key raises.
   - **Warm-up, then capture.** The first :data:`WARMUP_CALLS` calls of a
     program run the same body eagerly on a side stream (they are real
-    frames: their poses are kept), so every kernel is loaded and cuDNN has
-    chosen its algorithms before the next call captures the body and
-    replays it. A failed capture or replay raises; nothing falls back to
-    the eager step on the card.
+    frames: their poses are kept), so every kernel is loaded, cuDNN has
+    chosen its algorithms and a bf16 model's bfloat16 weight copies are
+    made and held (``models/tracknet.weight_as``) before the next call
+    captures the body and replays it: the graph reads the held copies and
+    casts no weight. The program keeps those copies, and their parameters'
+    storages, for as long as it lives (``tracknet.held_weights``): no
+    address its graph reads is freed or reused, so a program whose key
+    matches again reads the weights it was captured with. A failed capture
+    or replay raises; nothing falls back to the eager step on the card.
   - **Launch counts.** The kernel wrappers count launches on the host, and
     a replay runs no Python: the capture's own counts are taken back, and
     every replay adds the launches it recorded, so a replayed frame counts
     what an eager frame counts. The step's counters in :data:`COUNTERS`
-    (the refiner's rounds and attention tokens) are taken back and added
-    a replay alike.
+    (the refiner's rounds and attention tokens, the weight casts and held
+    copies) are taken back and added a replay alike.
   - **Rounds.** The model's ``refine_iterations`` rounds of a frame (two
     for FoundationPose's refiner, each rendering at the last round's pose)
     are all in the one graph: a frame is one replay.
@@ -79,6 +84,7 @@ from collections import OrderedDict
 
 import torch
 
+from ..models import tracknet
 from ..render import raster_kernels as rk
 from ..utils import profiling
 from . import tracker as trk
@@ -91,7 +97,8 @@ COUNTED = ("render_setup", "pass1_winners", "pass2_shade", "gather_rows",
            "pass1_worklist")
 # The counters (``utils/profiling.count``) the step adds that a replay
 # advances.
-COUNTERS = ("refine.rounds", "refine.attn_tokens")
+COUNTERS = ("refine.rounds", "refine.attn_tokens", "weights.bf16_casts",
+            "weights.bf16_held")
 
 _module_lists = weakref.WeakKeyDictionary()
 _live = weakref.WeakSet()  # every StepProgram not yet collected
@@ -185,7 +192,13 @@ class StepProgram:
         self.replay_launches = {}  # kernel wrapper -> launches a replay
         self.replay_counts = {}    # counter -> what a replay adds
         self._side = None         # the warm-up's and the capture's stream
+        self._weights = []        # the held weight copies the graph reads
         _live.add(self)
+
+    @property
+    def captures(self) -> bool:
+        """Whether the program captures a graph: on a CUDA device."""
+        return self.device.type == "cuda"
 
     # -- the body: one frame, the same ops eager and captured --
     def _body(self, model, cfg, mesh):
@@ -229,13 +242,14 @@ class StepProgram:
         self.replay_launches = {n: after[n] - c for n, c in before.items()
                                 if c is not None and after[n] != c}
         self.replay_counts = {n: c for n, c in added.items() if c}
+        self._weights = tracknet.held_weights(model)
         self.graph = graph
 
     def _run(self, model, cfg, mesh):
         """One frame at slot ``idx``: eager while warming up (and always on
         the CPU), else a replay, capturing first if this is the call after
         the warm-up."""
-        if self.device.type != "cuda":
+        if not self.captures:
             with profiling.span("compiled.eager"):
                 self._body(model, cfg, mesh)
             self.eager_calls += 1

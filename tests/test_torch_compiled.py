@@ -6,7 +6,12 @@ kernels in interpret mode) within 5e-4 m and 5e-3 rad; ``on_track``, the
 chunked video and a stream over two window sides give the eager bits; the
 cache makes one program per key, and a program refuses another key. The
 scene is tests/test_torch_tracker.py's (a 0.08 m cube, a 64^2 ROI, 192x256
-frames, small regression heads), the frames shifted a pixel a frame."""
+frames, small regression heads), the frames shifted a pixel a frame. With a
+stand-in for the card's graph, a bf16 model's replays read held weight
+copies and cast none."""
+import contextlib
+import dataclasses
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -17,7 +22,7 @@ from iros20_6d_pose_tracking_tpu.models import tracknet as jnet
 from iros20_6d_pose_tracking_tpu.render import mesh as JM
 from iros20_6d_pose_tracking_tpu.render import rasterizer as JRz
 from iros20_6d_pose_tracking_tpu.tracking import tracker as jtrk
-from iros20_6d_pose_tracking_tpu_torch.models import tracknet
+from iros20_6d_pose_tracking_tpu_torch.models import refinenet, tracknet
 from iros20_6d_pose_tracking_tpu_torch.models.convert import (
     state_dict_from_jax)
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
@@ -25,6 +30,7 @@ from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
 from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
 from iros20_6d_pose_tracking_tpu_torch.tracking import stream as st
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -310,3 +316,134 @@ def test_cache_drops_the_least_recently_used(scene):
     assert len(cache) == 2
     assert sorted(p.object_width_mm for p in cache.programs()) == [100.0,
                                                                    120.0]
+
+
+class _Stream:
+    def wait_stream(self, other):
+        pass
+
+
+class _Graph:
+    """``torch.cuda.CUDAGraph`` as the CPU can stand in for it: the capture
+    records the program's body without running it (the body's writes to
+    the program's buffers are undone), and a replay runs the recorded body
+    with every counter left as it was, since a replay runs no Python."""
+
+    capturing = None
+
+    def __init__(self):
+        self.body = None
+
+    def capture_begin(self, **kwargs):
+        _Graph.capturing = self
+
+    def capture_end(self):
+        _Graph.capturing = None
+
+    def replay(self):
+        kept = dict(profiling._counts)
+        self.body()
+        profiling._counts.clear()
+        profiling._counts.update(kept)
+
+
+@pytest.fixture
+def card_standin(monkeypatch):
+    """Programs on the CPU go through the card's warm-up, capture and
+    replay bookkeeping, with :class:`_Graph` for the graph."""
+    body = compiled.StepProgram._body
+
+    def recorded(self, model, cfg, mesh):
+        g = _Graph.capturing
+        if g is None:
+            return body(self, model, cfg, mesh)
+        g.body = lambda: body(self, model, cfg, mesh)
+        kept = [t.clone() for t in (self.pose, self.poses, self.idx)]
+        body(self, model, cfg, mesh)
+        for t, k in zip((self.pose, self.poses, self.idx), kept):
+            t.copy_(k)
+
+    monkeypatch.setattr(compiled.StepProgram, "captures", True)
+    monkeypatch.setattr(compiled.StepProgram, "_body", recorded)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _Graph)
+    monkeypatch.setattr(torch.cuda, "Stream", lambda *a, **k: _Stream())
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda *a: _Stream())
+    monkeypatch.setattr(torch.cuda, "stream",
+                        lambda s: contextlib.nullcontext())
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda d: contextlib.nullcontext())
+
+
+def _bf16_model(scene, kind):
+    """A bf16 Se3TrackNet on the scene's weights (38 weight casts a frame,
+    19 layers), or a small bf16 refiner (2 rounds of 25 layers: 100)."""
+    if kind == "se3tracknet":
+        net = tracknet.create_model(RES, dtype=torch.bfloat16)
+        net.load_state_dict(scene["net"].state_dict())
+        return net.eval(), 38
+    torch.manual_seed(11)
+    net = refinenet.RefineNet(torch.bfloat16, base=8)
+    with torch.no_grad():
+        for head in (net.trans_head[1], net.rot_head[1]):
+            head.weight.mul_(0.05)
+    return net.eval(), 100
+
+
+def _weight_counts():
+    c = profiling.counters()
+    return c["weights.bf16_casts"], c["weights.bf16_held"]
+
+
+@pytest.mark.parametrize("kind", ["se3tracknet", "refiner"])
+def test_replays_read_held_bf16_weights(scene, card_standin, kind):
+    """A bf16 model's program casts its weights in the first round of its
+    first warm-up call only: the capture records none, and every replayed frame advances
+    ``weights.bf16_casts`` by 0 and ``weights.bf16_held`` by the model's
+    casts a frame; the program keeps the copies its graph reads. After an
+    in-place update of one weight the cache makes a new program, whose
+    poses, eager and replayed, are the updated model's eager step's, while
+    the first program's copy keeps the old weight."""
+    net, per_frame = _bf16_model(scene, kind)
+    cfg = dataclasses.replace(scene["cfg"], dtype=torch.bfloat16)
+    mesh = TRz.upload(scene["tm"], CPU)
+    Kt = torch.as_tensor(K)
+    mean, std = torch.as_tensor(scene["mean"]), torch.as_tensor(scene["std"])
+    rgbs = trk.upload_rgb(scene["rgbs"], CPU)
+    depths = trk.upload_depth(scene["depths"], CPU)
+    parts = (net, cfg, mesh, Kt, mean, std)
+    cache = compiled.ProgramCache()
+
+    def run(frames, pose):
+        got, want, counts = [], [], []
+        for i in frames:
+            before = _weight_counts()
+            got.append(cache.step(*parts, pose, rgbs[i], depths[i]))
+            after = _weight_counts()
+            counts.append((after[0] - before[0], after[1] - before[1]))
+            want.append(trk.track_step(*parts, pose, rgbs[i], depths[i])[0])
+            pose = want[-1]
+        assert torch.equal(torch.stack(got), torch.stack(want))
+        return pose, counts
+
+    per_round = per_frame // net.refine_iterations
+    pose, counts = run(range(6), torch.as_tensor(scene["init"]))
+    assert counts == [(per_round, per_frame - per_round)] + \
+        [(0, per_frame)] * 5
+    (prog,) = cache.programs()
+    assert prog.graph is not None and prog.replays == 6 - \
+        compiled.WARMUP_CALLS
+    assert prog.replay_counts["weights.bf16_held"] == per_frame
+    assert "weights.bf16_casts" not in prog.replay_counts
+    assert len(prog._weights) == per_round
+    w = net.rot_head[1].weight if kind == "refiner" \
+        else net.rot_out[0].weight
+    kept = next(c for s, c in prog._weights
+                if s.data_ptr() == w.untyped_storage().data_ptr())
+    old = kept.clone()
+    with torch.no_grad():
+        w.mul_(1.5)
+    pose, counts = run(range(6, 12), pose)
+    assert len(cache) == 2
+    assert counts == [(1, per_frame - 1)] + [(0, per_frame)] * 5
+    assert torch.equal(kept, old)
+    assert not torch.equal(kept, w.to(torch.bfloat16))
