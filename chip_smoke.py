@@ -277,8 +277,8 @@ nvcc (``PATH`` or ``/usr/local/cuda``) and PyTorch built for CUDA. It:
      module-level ``track_video`` over 100 frames twice (3 eager warm-up
      frames, the capture and 97 replays, then 100 replays), bit-equal to
      the eager step loop, with 100 K1 and 100 ``pass2_shade`` launches a
-     run (a replay adds the launches its capture recorded: one
-     ``render_setup``, one K1 and one ``pass2_shade``);
+     run (a replay adds what its capture counted, among it the launches:
+     one ``render_setup``, one K1 and one ``pass2_shade``);
      ``on_track`` over 24 frames (20 replayed) and a windowed stream over
      100 pushes, both bit-equal to the eager step, one K1 and one
      ``pass2_shade`` a frame; 100 replayed pushes and a replayed
@@ -683,17 +683,17 @@ def render_case(mesh, pose, K, window, hw, cull, fb=None):
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
 
     dev = mesh.fverts.device
-    fx, fy, fiz, fvalid, R, t = rz._project(
+    fx, fy, fiz, fvalid, R, t = rk.project_faces(
         mesh, torch.as_tensor(pose).to(dev), torch.as_tensor(K).to(dev),
         window, hw, rz.NEAR_M)
-    attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    attr = rk.face_attr_forms(fx, fy, fiz, fvalid, mesh)
     if cull:
-        coef, bbox, fb, attr = rz.culled_pass1_inputs(mesh, fx, fy, fiz,
+        coef, bbox, fb, attr = rk.culled_pass1_inputs(mesh, fx, fy, fiz,
                                                       fvalid, R, t, attr)
-        searched = fvalid & ~rz._backface_mask(mesh, R, t)
+        searched = fvalid & ~rk.backface_mask(mesh, R, t)
     else:
         coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-        fb = fb or rz.pick_face_block(fx.shape[-2])
+        fb = fb or rk.pick_face_block(fx.shape[-2])
         bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
         searched = fvalid
     return {"coef": coef, "bbox": bbox, "fb": fb, "attr": attr, "R": R,
@@ -1002,19 +1002,26 @@ def report_kernel(name, label, fn, plain_fn, bnd, card, plain_runs=None,
             "bound_by": bound_by, "library_ms": lib, "device_ms": dev_ms}
 
 
-def zero_launches():
-    """Set every kernel wrapper's launch count to 0."""
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
+def launches_of(wrapper):
+    """The launches of the kernel wrapper ``wrapper`` so far: the counter
+    ``launches.<wrapper>`` of ``utils/profiling``."""
+    from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
-    for fn in WRAPPERS.values():
-        getattr(rk, fn).launches = 0
+    return profiling.counters()[f"launches.{wrapper}"]
+
+
+_LAUNCHES_ZERO = {}  # kernel name -> its launches at zero_launches
+
+
+def zero_launches():
+    """Count every kernel's launches from here on (``read_launches``)."""
+    _LAUNCHES_ZERO.update({k: launches_of(fn) for k, fn in WRAPPERS.items()})
 
 
 def read_launches():
-    """Every kernel's launch count, by kernel name."""
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
-
-    return {k: getattr(rk, fn).launches for k, fn in WRAPPERS.items()}
+    """Every kernel's launches since ``zero_launches``, by kernel name."""
+    return {k: launches_of(fn) - _LAUNCHES_ZERO.get(k, 0)
+            for k, fn in WRAPPERS.items()}
 
 
 @contextlib.contextmanager
@@ -1275,6 +1282,7 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
     and the whole step."""
     import torch
 
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
     from iros20_6d_pose_tracking_tpu_torch.ops import roi
     from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
@@ -1286,8 +1294,9 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
     rgb_t, depth_t = trk.upload_rgb(rgb, dev), trk.upload_depth(depth, dev)
     _, aux = trk.track_step(t.model, cfg, t.mesh, t.K, t.mean, t.std, pose,
                             rgb_t, depth_t)
-    bufA, bufB = trk.normalize_pair(aux["rgbA"], aux["depthA"], aux["rgbB"],
-                                    aux["depthB"], pose, t.mean, t.std)
+    bufA, bufB = tracknet.normalize_pair(aux["rgbA"], aux["depthA"],
+                                         aux["rgbB"], aux["depthB"], pose,
+                                         t.mean, t.std)
     window = rz.window_from_bbox(roi.compute_bbox(
         pose, t.K, cfg.object_width_mm, (1000.0, 1000.0, 1000.0)))
 
@@ -1295,8 +1304,9 @@ def step_parts(tracker, pose0, rgb, depth, prod_case):
         bbox = roi.compute_bbox(pose, t.K, cfg.object_width_mm,
                                 (1000.0, 1000.0, 1000.0))
         rgbB, depthB = roi.crop_bbox(rgb_t, depth_t, bbox, (RES, RES))
-        return trk.normalize_pair(aux["rgbA"], aux["depthA"], rgbB.float(),
-                                  depthB.float(), pose, t.mean, t.std)
+        return tracknet.normalize_pair(aux["rgbA"], aux["depthA"],
+                                       rgbB.float(), depthB.float(), pose,
+                                       t.mean, t.std)
 
     def pass2():
         return rk.pass2_shade(c["attr"], c["iz"], c["win"], c["R"], c["t"],
@@ -1681,9 +1691,9 @@ def check_batched_pass1(name, coef, bbox, hw, fb):
 
     from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 
-    n0 = rk.pass1_winners.launches
+    n0 = launches_of("pass1_winners")
     iz, win = rk.pass1_winners(coef, bbox, hw, fb)
-    if coef.is_cuda and rk.pass1_winners.launches != n0 + 1:
+    if coef.is_cuda and launches_of("pass1_winners") != n0 + 1:
         raise AssertionError("batched K1 was not one launch")
     refs = {"plain": rk.pass1_winners_ref(coef, bbox, hw, fb),
             "one view at a time": tuple(torch.stack(a) for a in zip(*(
@@ -2596,6 +2606,7 @@ def time_serving(tracker, pose0, frame, rendered, runs, cases, card):
     the multi-hypothesis runs."""
     import torch
 
+    from iros20_6d_pose_tracking_tpu_torch.models import tracknet
     from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
     from iros20_6d_pose_tracking_tpu_torch.tracking import hypotheses as hy
@@ -2631,9 +2642,9 @@ def time_serving(tracker, pose0, frame, rendered, runs, cases, card):
     hypo = c["poses"]
     _, aux = trk.track_step(t.model, t.cfg, t.mesh, t.K, t.mean, t.std, hypo,
                             rgb_t, depth_t)
-    bufA, bufB = trk.normalize_pair(aux["rgbA"], aux["depthA"], aux["rgbB"],
-                                    aux["depthB"], hypo[:, None, None],
-                                    t.mean, t.std)
+    bufA, bufB = tracknet.normalize_pair(aux["rgbA"], aux["depthA"],
+                                         aux["rgbB"], aux["depthB"],
+                                         hypo[:, None, None], t.mean, t.std)
     gen = torch.Generator(t.device).manual_seed(0)
     parts = {
         f"batched culled render ({n} views, {RES}^2)": lambda: rz.render(
@@ -5297,7 +5308,13 @@ def program_line(prog):
             + ("none" if prog.capture_ms is None
                else f"{prog.capture_ms:.3f} ms")
             + f", {prog.eager_calls} eager calls, {prog.replays} replays, "
-            f"launches a replay {prog.replay_launches}")
+            f"launches a replay {replay_launches(prog)}")
+
+
+def replay_launches(prog):
+    """The kernel launches a replay of ``prog`` adds, by wrapper."""
+    return {n[len("launches."):]: c for n, c in prog.replay_counts.items()
+            if n.startswith("launches.")}
 
 
 def check_replays_sync_free(tracker, pose0, rgb, depth, rgb_t, depth_t):
@@ -5378,7 +5395,7 @@ def run_compiled(net, tracker, pose0, rgb, depth, card):
                                      "launches are wrong")
             by_path[f"compiled track_video {name} {run}"] = launches
         if prog.graph is None or prog.replays != 2 * n - \
-                compiled.WARMUP_CALLS or prog.replay_launches != {
+                compiled.WARMUP_CALLS or replay_launches(prog) != {
                     "render_setup": 1, "pass1_winners": 1, "pass2_shade": 1}:
             raise AssertionError(f"the {name} video program did not replay "
                                  f"as it should: {program_line(prog)}")
@@ -5639,11 +5656,9 @@ def check_render_setup(name, case):
     (differing, max ulp)}."""
     import torch
 
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
-
-    n0 = rk.render_setup.launches
+    n0 = launches_of("render_setup")
     coef, bbox, fb, attr = setup_call(case)
-    if rk.render_setup.launches != n0 + 1:
+    if launches_of("render_setup") != n0 + 1:
         raise AssertionError(f"render_setup {name}: not one launch")
     r_coef, r_bbox, r_fb, r_attr = setup_call(case, plain=True)
     if fb != r_fb or [t.shape for t in (coef, bbox, attr)] != \
@@ -5725,7 +5740,6 @@ def run_setup_paths(tracker, pose0, rgb, depth):
     import torch
 
     from iros20_6d_pose_tracking_tpu_torch.data import dataset as DS
-    from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
     from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
     from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
@@ -5761,10 +5775,11 @@ def run_setup_paths(tracker, pose0, rgb, depth):
     out = {}
     for name, fn in paths.items():
         zero_launches()
-        rk.render_setup.launches = 0
+        n0 = launches_of("render_setup")
         fn()
         sync(dev)
-        got = dict(read_launches(), render_setup=rk.render_setup.launches)
+        got = dict(read_launches(),
+                   render_setup=launches_of("render_setup") - n0)
         renders = got["raster_pass1"] + got["raster_pass1_worklist"]
         print(f"render_setup launches, {name}: {got['render_setup']} for "
               f"{renders} renders (K1 {got['raster_pass1']}, K3 "
@@ -5990,6 +6005,9 @@ def run_refiner(card):
             else {}
         assert prog.replay_counts == {"refine.rounds": 2,
                                       "refine.attn_tokens": 1600,
+                                      "launches.render_setup": 2,
+                                      "launches.pass1_winners": 2,
+                                      "launches.pass2_shade": 2,
                                       **held}, prog.replay_counts
         assert after["refine.rounds"] - before["refine.rounds"] == \
             2 * REFINER_FRAMES

@@ -110,12 +110,12 @@ def sharded_render(cfg: trk.TrackerConfig, mesh: SpMesh):
 
     def render(shard: rz.MeshArrays, pose, K, bbox, parts=None):
         window = rz.window_from_bbox(bbox)
-        fx, fy, fiz, fvalid, R, t = rz._project(shard, pose, K, window, res,
-                                                cfg.near)
+        fx, fy, fiz, fvalid, R, t = rk.project_faces(shard, pose, K, window,
+                                                     res, cfg.near)
         if cfg.cull_backfaces:
-            fvalid = fvalid & ~rz._backface_mask(shard, R, t)
+            fvalid = fvalid & ~rk.backface_mask(shard, R, t)
         coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-        fb = rz.pick_face_block(fx.shape[-2])
+        fb = rk.pick_face_block(fx.shape[-2])
         block_bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
         iz, win = rk.pass1_winners(coef, block_bbox, res, fb)
         F_loc = shard.fverts.shape[0]
@@ -129,7 +129,7 @@ def sharded_render(cfg: trk.TrackerConfig, mesh: SpMesh):
             dist.all_reduce(gwin, op=dist.ReduceOp.MAX)  # the winner
         zmin = 1.0 / torch.clamp(giz, min=1e-9)
         hit = (giz > 1e-9) & (zmin < cfg.far)
-        attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, shard)
+        attr = rk.face_attr_forms(fx, fy, fiz, fvalid, shard)
         lidx = (gwin - off).reshape(-1)
         mine = (lidx >= 0) & (lidx < F_loc)
         lidx = torch.clamp(lidx, 0, F_loc - 1)
@@ -162,7 +162,7 @@ def sp_track_step(model: tracknet.Se3TrackNet, cfg: trk.TrackerConfig,
                                     (1000.0, 1000.0, 1000.0))
         rgbB, depthB = roi_ops.crop_bbox(frame_rgb, frame_depth_mm, bbox, res)
         rgbA, depthA = render(shard, prev_pose, K, bbox)
-        bufA, bufB = trk.normalize_pair(
+        bufA, bufB = tracknet.normalize_pair(
             rgbA, depthA, rgbB.to(torch.float32), depthB.to(torch.float32),
             prev_pose, mean, std)
         model.eval()

@@ -546,8 +546,9 @@ def track_views(cnn, cfg: trk.TrackerConfig, meshes: rz.MeshArrays, K, mean,
         rgbA, depthA, rgbB, depthB = trk.roi_views(
             cfg, meshes, K, pose, frames_rgb[:, i], frames_depth_mm[:, i],
             widths)
-        bufA, bufB = trk.normalize_pair(rgbA, depthA, rgbB, depthB,
-                                        pose[:, None, None], mean_v, std_v)
+        bufA, bufB = tracknet.normalize_pair(rgbA, depthA, rgbB, depthB,
+                                             pose[:, None, None], mean_v,
+                                             std_v)
         trans, rot = cnn(bufA, bufB)
         pose = se3.decode_delta(pose, trans, rot, cfg.trans_normalizer,
                                 cfg.rot_normalizer)

@@ -412,7 +412,7 @@ def is_outward_oriented(verts: np.ndarray, faces: np.ndarray,
                         normals: np.ndarray) -> bool:
     """True when the per-vertex shading normals point OUTWARD on every
     non-degenerate face. Backface culling orients geometric normals by the
-    stored shading normals (rasterizer._backface_mask), so on a closed
+    stored shading normals (raster_kernels.backface_mask), so on a closed
     mesh whose file normals point inward (a common CAD/PLY export error)
     culling would keep the FAR surface — only auto-enable it when the
     winding-outward geometric normal (sign fixed by the mesh's signed
@@ -500,7 +500,7 @@ def build_trimesh(
     """Pack loaded geometry into the rasterizer's static layout.
 
     ``block`` is the face-count padding granule, which also bounds the
-    pass-1 kernel's face-block choice (rasterizer.pick_face_block needs
+    pass-1 kernel's face-block choice (raster_kernels.pick_face_block needs
     fb | F). Meshes past 512 real faces default to 1024-granule padding,
     the JAX package's choice (its TPU kernel is cheaper per (pixel, face)
     pair at 1024-face blocks, docs/KERNEL.md), so both packages pad a mesh

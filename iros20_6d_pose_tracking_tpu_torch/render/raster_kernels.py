@@ -33,15 +33,19 @@ corners in the camera, the window's pixel coordinates, the coefficient
 rows, the attribute forms, the back-face cull with its compaction and the
 face blocks' bboxes), CUDA source ``csrc/render_setup.cu``, replaces no
 TPU kernel: it takes the place of the ~230 small torch launches of its
-plain version, the rasterizer's composition.
+plain version, :func:`render_setup_ref`, the composition of
+:func:`project_faces`, :func:`face_attr_forms` and
+:func:`culled_pass1_inputs` (with :func:`backface_mask`) or, without the
+cull, :func:`build_face_coefficients` and :func:`build_block_bboxes` at
+:func:`pick_face_block`. A mesh is a
+``rasterizer.MeshArrays``, or anything with its fields; this module
+imports nothing of the rasterizer or of any module above it.
 
 Each wrapper runs its plain version (``*_ref``, beside it) when its tensors
 lie on the CPU, and launches its CUDA kernel when they lie on a CUDA
-device; anything else raises. Each counts its kernel launches in a plain
-integer attribute (``render_setup.launches``, ``pass1_winners.launches``,
-``pass2_shade.launches``, ``gather_rows.launches``,
-``pass1_worklist.launches``), which
-``utils.profiling.counters()`` reports as ``launches.<wrapper>``.
+device; anything else raises. Each launch of a kernel adds 1 to the
+counter ``launches.<wrapper>`` of ``utils.profiling``; the plain versions
+count nothing.
 """
 from __future__ import annotations
 
@@ -159,25 +163,187 @@ def _check_cuda(*named, strided=()):
                              f"got {t.dtype}")
 
 
+def _launch(wrapper: str, name: str, dev, *args) -> None:
+    """Launch the C entry point ``name`` of ``csrc/<name>.cu`` with
+    ``args`` and the current stream of CUDA device ``dev``, raise on the
+    error it returns, and count the launch as ``launches.<wrapper>``."""
+    lib = kbuild.load(name)
+    with torch.cuda.device(dev):
+        err = getattr(lib, name)(*args,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    kbuild.check(lib, name, err)
+    profiling.count(f"launches.{wrapper}")
+
+
 # ---------------------------------------------------------------------------
 # Render set-up: the front end from the pose to pass 1's inputs.
 # ---------------------------------------------------------------------------
 
+def _rotate_views(x: torch.Tensor, R: torch.Tensor,
+                  stacked: bool = False) -> torch.Tensor:
+    """x @ R^T over the last axis (object -> camera rotation): x (..., 3)
+    with one R (3, 3); or one x (..., 3) rotated by each of B rotations R
+    (B, 3, 3), giving (B, ..., 3), as one matrix product against the B
+    rotations side by side, whose columns are each view's x @ R_b^T.
+    ``stacked``: x is (B, ..., 3), one per view (the meshes of
+    ``parallel/spmd.stack_meshes``), and view b is x[b] @ R_b^T."""
+    if R.dim() == 2:
+        return x @ R.transpose(-1, -2)
+    if stacked:
+        B = R.shape[0]
+        return (x.reshape(B, -1, 3) @ R.transpose(-1, -2)).reshape(x.shape)
+    B = R.shape[0]
+    cols = R.permute(2, 0, 1).reshape(3, 3 * B)  # [j, 3b + i] = R[b, i, j]
+    out = x.reshape(-1, 3) @ cols
+    return out.reshape(x.shape[:-1] + (B, 3)).movedim(-2, 0)
+
+
+def is_stacked(mesh) -> bool:
+    """True for a stack of B meshes, one per view: fverts (B, F, 3, 3)."""
+    return mesh.fverts.dim() == 4
+
+
+def project_faces(mesh, pose, K, window, out_hw, near):
+    """Face corners -> window pixel space. ``window`` is four numbers or a
+    (..., 4) tensor (``rasterizer.window_from_bbox``). Returns (fx, fy,
+    fiz, fvalid, R, t) with (F, 3) screen coordinates and inverse depths
+    per face. A batch of poses (B, 4, 4) with windows (B, 4) gives (B, F,
+    3), from one mesh or from a stack of B meshes, view b from mesh b."""
+    H, W = out_hw
+    dev = mesh.fverts.device
+    lead = pose.shape[:-2]
+    if torch.is_tensor(window):
+        window = window.unbind(-1)
+    left, right, top, bottom = [
+        torch.as_tensor(w, dtype=torch.float32, device=dev).reshape(
+            lead + (1, 1)) for w in window]
+    R = pose[..., :3, :3]
+    t = pose[..., :3, 3]
+    xc = _rotate_views(mesh.fverts, R, is_stacked(mesh)) \
+        + t[..., None, None, :]  # (.., F, 3, 3)
+    z = xc[..., 2]
+    valid = z > near
+    inv_z = torch.where(valid, 1.0 / torch.where(valid, z, 1.0), 0.0)
+    u = xc[..., 0] * K[0, 0] * inv_z + K[0, 2]
+    v = xc[..., 1] * K[1, 1] * inv_z + K[1, 2]
+    # Window pixel space: output pixel (i, j) has centre (j, i). A number
+    # over a tensor is reciprocal-then-multiply in torch, which can round
+    # differently from the division JAX computes; divide tensors instead.
+    sx = torch.full_like(right, W) / (right - left)
+    sy = torch.full_like(bottom, H) / (bottom - top)
+    fx = (u - left) * sx - 0.5
+    fy = (v - top) * sy - 0.5
+    fvalid = valid.all(dim=-1) & mesh.fmask
+    return fx, fy, inv_z, fvalid, R, t
+
+
+def face_attr_forms(fx, fy, fiz, fvalid, mesh):
+    """Per-face linear forms of the perspective-correct attributes:
+    attr(p) = (alpha px + beta py + gamma) / izpix(p).
+
+    Returns (F, 30): [izpix a, b, c | albedo 9 | normal 9 | position 9],
+    or (F, 36) with 6 UV forms appended for textured meshes; (B, F, ...)
+    for a batch of views."""
+    x0, x1, x2 = fx[..., 0], fx[..., 1], fx[..., 2]
+    y0, y1, y2 = fy[..., 0], fy[..., 1], fy[..., 2]
+    a = torch.stack([y1 - y2, y2 - y0, y0 - y1], dim=-1)  # (F, 3)
+    b = torch.stack([x2 - x1, x0 - x2, x1 - x0], dim=-1)
+    c = torch.stack(
+        [x1 * y2 - x2 * y1, x2 * y0 - x0 * y2, x0 * y1 - x1 * y0], dim=-1)
+    area = a[..., 0] * x0 + b[..., 0] * y0 + c[..., 0]
+    ok = fvalid & (torch.abs(area) > 1e-4)
+    inv_area = torch.where(ok, 1.0 / torch.where(ok, area, 1.0), 0.0)
+    w = fiz * inv_area[..., None]  # (F, 3)
+    aw, bw, cw = a * w, b * w, c * w
+    iz_abc = torch.stack([aw.sum(-1), bw.sum(-1), cw.sum(-1)], dim=-1)
+
+    def attr_forms(vattr):  # (F, 3, C) -> (F, 3C): [a_c..., b_c..., c_c...]
+        return torch.cat([(k[..., None] * vattr).sum(-2)
+                          for k in (aw, bw, cw)], dim=-1)
+
+    packs = [iz_abc, attr_forms(mesh.fcolors), attr_forms(mesh.fnormals),
+             attr_forms(mesh.fverts)]
+    if mesh.fuvs is not None:
+        packs.append(attr_forms(mesh.fuvs))
+    return torch.cat(packs, dim=-1).to(torch.float32)
+
+
+def _compact_front(keep, *tables):
+    """Stable-partition the rows with ``keep`` True to the front of every
+    table at once (one row scatter over their concatenation). ``keep`` is
+    (F,) with tables (F, C_i), or (B, F) with tables (B, F, C_i), each view
+    partitioned along its own face axis. Returns the permuted tables, each
+    contiguous."""
+    k = keep.to(torch.int64)
+    nkeep = k.sum(-1, keepdim=True)
+    dest = torch.where(keep, torch.cumsum(k, -1) - 1,
+                       nkeep + torch.cumsum(1 - k, -1) - 1)
+    cat = torch.cat([t.to(torch.float32) for t in tables], dim=-1)
+    out = torch.empty_like(cat).scatter_(
+        -2, dest[..., None].expand(cat.shape), cat)
+    parts = torch.split(out, [t.shape[-1] for t in tables], dim=-1)
+    return [p.contiguous() for p in parts]
+
+
+def backface_mask(mesh, R, t) -> torch.Tensor:
+    """(F,) True for faces whose geometric normal (oriented by the stored
+    outward shading normals) points away from the camera: they cannot be the
+    closest visible surface of a closed mesh seen from outside. Degenerate
+    faces and zero shading normals give sign 0 and are kept. B poses, R (B,
+    3, 3) and t (B, 3), give (B, F), view b the same bits as pose b alone
+    (the rotations go through :func:`_rotate_views`, as in the projection);
+    a stack of B meshes gives view b from mesh b."""
+    per_view = is_stacked(mesh)
+    v_cam = _rotate_views(mesh.fverts, R, per_view) + t[..., None, None, :]
+    gn = torch.linalg.cross(v_cam[..., 1, :] - v_cam[..., 0, :],
+                            v_cam[..., 2, :] - v_cam[..., 0, :], dim=-1)
+    n_avg = _rotate_views(mesh.fnormals.mean(dim=-2), R, per_view)
+    gn = gn * torch.sign(torch.sum(gn * n_avg, dim=-1, keepdim=True))
+    centroid = v_cam.mean(dim=-2)
+    return torch.sum(gn * centroid, dim=-1) > 0.0
+
+
+def pick_face_block(F: int) -> int:
+    """Pass-1 face-block size: the biggest of {1024, 512, 256} dividing F
+    (mesh padding guarantees 256 | F)."""
+    return next((b for b in (1024, 512, 256) if F % b == 0), F)
+
+
+def culled_pass1_inputs(mesh, fx, fy, fiz, fvalid, R, t, attr_coef):
+    """Pass-1 inputs with back faces culled: (coef (12, F), block_bbox,
+    face_block, attr_coef), the front faces stable-partitioned to the front
+    of coef, of the per-face bboxes and of the attribute forms together, so
+    whole trailing face blocks get empty bboxes and are skipped, and winner
+    ids index ``attr_coef`` directly. B views ((B, F, 3) projections, R (B,
+    3, 3), t (B, 3), attr_coef (B, F, C)) give coef (B, 12, F), block_bbox
+    (B, n_blocks, 4) and attr_coef (B, F, C), each view compacted along its
+    own face axis: view b the same bits as its inputs alone."""
+    coef, _ = build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = pick_face_block(fx.shape[-2])
+    keep = fvalid & ~backface_mask(mesh, R, t)
+    poison = torch.zeros((12, 1), dtype=coef.dtype, device=coef.device)
+    poison[ROW_C0:ROW_C2 + 1:ROW_C1 - ROW_C0] = -1.0  # c0 c1 c2
+    coef = torch.where(keep[..., None, :], coef, poison)
+    face_bbox = build_face_bboxes(fx, fy, keep)
+    coef_t, face_bbox, attr_coef = _compact_front(
+        keep, coef.transpose(-1, -2), face_bbox, attr_coef)
+    return (coef_t.transpose(-1, -2).contiguous(),
+            reduce_block_bboxes(face_bbox, fb), fb, attr_coef)
+
+
 def render_setup_ref(mesh, pose, K, window, out_hw: tuple[int, int],
                      near: float, cull_backfaces: bool):
-    """Plain version of :func:`render_setup`: the rasterizer's composition,
-    ``_project``, ``_face_attr_coefficients``, then ``culled_pass1_inputs``
-    or, without the cull, :func:`build_face_coefficients` and
+    """Plain version of :func:`render_setup`: :func:`project_faces`,
+    :func:`face_attr_forms`, then :func:`culled_pass1_inputs` or, without
+    the cull, :func:`build_face_coefficients` and
     :func:`build_block_bboxes` at ``pick_face_block(F)``."""
-    from . import rasterizer as rz
-
-    fx, fy, fiz, fvalid, R, t = rz._project(mesh, pose, K, window, out_hw,
-                                            near)
-    attr = rz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    fx, fy, fiz, fvalid, R, t = project_faces(mesh, pose, K, window, out_hw,
+                                              near)
+    attr = face_attr_forms(fx, fy, fiz, fvalid, mesh)
     if cull_backfaces:
-        return rz.culled_pass1_inputs(mesh, fx, fy, fiz, fvalid, R, t, attr)
+        return culled_pass1_inputs(mesh, fx, fy, fiz, fvalid, R, t, attr)
     coef, _ = build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = rz.pick_face_block(fx.shape[-2])
+    fb = pick_face_block(fx.shape[-2])
     return coef, build_block_bboxes(fx, fy, fvalid, fb), fb, attr
 
 
@@ -205,15 +371,13 @@ def render_setup(mesh, pose, K, window, out_hw: tuple[int, int],
     face blocks' bboxes, and with ``cull_backfaces`` the back faces
     poisoned and every table stable-partitioned with the kept faces first.
     B poses (B, 4, 4) and windows (B, 4) give (B, ...) tables, view b the
-    same bits as pose b alone; a stacked mesh (``rasterizer.is_stacked``)
-    gives view b from mesh b.
+    same bits as pose b alone; a stacked mesh (:func:`is_stacked`) gives
+    view b from mesh b.
 
     CPU tensors run :func:`render_setup_ref`; CUDA tensors launch
     ``csrc/render_setup.cu`` on the current stream, one launch for the B
     views: the plain version's tables, rounded op for op as torch's
     kernels and cuBLAS round them on the card."""
-    from . import rasterizer as rz
-
     mesh_fields = [(name, getattr(mesh, name), dtype) for name, dtype in (
         ("fverts", torch.float32), ("fnormals", torch.float32),
         ("fcolors", torch.float32), ("fmask", torch.bool),
@@ -223,7 +387,7 @@ def render_setup(mesh, pose, K, window, out_hw: tuple[int, int],
     if all(t.device.type == "cpu" for t in tensors):
         return render_setup_ref(mesh, pose, K, window, out_hw, near,
                                 cull_backfaces)
-    stacked = rz.is_stacked(mesh)
+    stacked = is_stacked(mesh)
     lead = pose.shape[:-2]
     B = lead[0] if lead else 1
     F = mesh.fverts.shape[-3]
@@ -250,7 +414,7 @@ def render_setup(mesh, pose, K, window, out_hw: tuple[int, int],
     _check_cuda(*mesh_fields, ("pose", pose, torch.float32),
                 ("K", K, torch.float32),
                 *([("window", win, torch.float32)] if win is not None else []))
-    fb = rz.pick_face_block(F)
+    fb = pick_face_block(F)
     C = 30 if mesh.fuvs is None else 36
     coef = torch.empty(lead + (12, F), dtype=torch.float32, device=dev)
     block_bbox = torch.empty(lead + (F // fb, 4), dtype=torch.float32,
@@ -258,23 +422,18 @@ def render_setup(mesh, pose, K, window, out_hw: tuple[int, int],
     attr = torch.empty(lead + (F, C), dtype=torch.float32, device=dev)
     if B == 0 or F == 0:
         return coef, block_bbox, fb, attr
-    lib = kbuild.load("render_setup")
-    with torch.cuda.device(dev):
-        err = lib.render_setup(
+    _launch("render_setup", "render_setup", dev,
             mesh.fverts.data_ptr(), mesh.fnormals.data_ptr(),
             mesh.fcolors.data_ptr(),
             mesh.fuvs.data_ptr() if mesh.fuvs is not None else None,
             mesh.fmask.data_ptr(), pose.data_ptr(), K.data_ptr(),
             win.data_ptr() if win is not None else None, *numbers,
             coef.data_ptr(), block_bbox.data_ptr(), attr.data_ptr(), B, F, fb,
-            H, W, float(near), int(bool(cull_backfaces)), int(stacked),
-            torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(lib, "render_setup", err)
-    render_setup.launches += 1
+            H, W, float(near), int(bool(cull_backfaces)), int(stacked))
     return coef, block_bbox, fb, attr
 
 
-render_setup.launches = 0
+profiling.count("launches.render_setup", 0)  # listed before the first launch
 
 
 # ---------------------------------------------------------------------------
@@ -456,19 +615,13 @@ def pass1_winners(coef, block_bbox, hw: tuple[int, int], face_block: int):
     winner = torch.empty(lead + (H, W), dtype=torch.int32, device=dev)
     if B == 0:
         return iz, winner
-    lib = kbuild.load("raster_pass1")
-    with torch.cuda.device(dev):
-        err = lib.raster_pass1(coef.data_ptr(), block_bbox.data_ptr(),
-                               iz.data_ptr(), winner.data_ptr(),
-                               coef.shape[-1], n_blocks, face_block, H, W,
-                               PIX_TILE, B,
-                               torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(lib, "raster_pass1", err)
-    pass1_winners.launches += 1
+    _launch("pass1_winners", "raster_pass1", dev, coef.data_ptr(),
+            block_bbox.data_ptr(), iz.data_ptr(), winner.data_ptr(),
+            coef.shape[-1], n_blocks, face_block, H, W, PIX_TILE, B)
     return iz, winner
 
 
-pass1_winners.launches = 0
+profiling.count("launches.pass1_winners", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -651,21 +804,16 @@ def pass2_shade(attr, iz, winner, R, t, out_hw: tuple[int, int],
     dev = iz.device
     rgb = torch.empty(lead + (H, W, 3), dtype=torch.float32, device=dev)
     depth = torch.empty(lead + (H, W), dtype=torch.float32, device=dev)
-    lib = kbuild.load("pass2_shade")
-    with torch.cuda.device(dev):
-        err = lib.pass2_shade(
+    _launch("pass2_shade", "pass2_shade", dev,
             attr.data_ptr(), iz.data_ptr(), winner.data_ptr(), R.data_ptr(),
             t.data_ptr(), lighting.data_ptr() if lighting is not None else None,
             texture.data_ptr() if texture is not None else None,
             rgb.data_ptr(), depth.data_ptr(), B, H, W, F, C, r_sv, r_si, r_sj,
-            t_sv, t_si, th, tw, float(far),
-            torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(lib, "pass2_shade", err)
-    pass2_shade.launches += 1
+            t_sv, t_si, th, tw, float(far))
     return rgb, depth
 
 
-pass2_shade.launches = 0
+profiling.count("launches.pass2_shade", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -725,17 +873,12 @@ def gather_rows(attr, winner, covered):
     P = winner.shape[0]
     dev = attr.device
     rows = torch.empty((P, C), dtype=torch.float32, device=dev)
-    lib = kbuild.load("gather_rows")
-    with torch.cuda.device(dev):
-        err = lib.gather_rows(attr.data_ptr(), winner.data_ptr(),
-                              covered.data_ptr(), rows.data_ptr(), F, C, P,
-                              torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(lib, "gather_rows", err)
-    gather_rows.launches += 1
+    _launch("gather_rows", "gather_rows", dev, attr.data_ptr(),
+            winner.data_ptr(), covered.data_ptr(), rows.data_ptr(), F, C, P)
     return rows.reshape(out_shape)
 
 
-gather_rows.launches = 0
+profiling.count("launches.gather_rows", 0)
 
 
 # ---------------------------------------------------------------------------
@@ -953,23 +1096,11 @@ def pass1_worklist(coef, block_bbox, hw: tuple[int, int], face_block: int):
     winner = torch.empty((H, W), dtype=torch.int32, device=dev)
     scratch_bytes = _k3_scratch_bytes(hw, n_blocks, face_block)
     scratch = torch.empty(scratch_bytes // 8, dtype=torch.int64, device=dev)
-    lib = kbuild.load("raster_pass1_worklist")
-    with torch.cuda.device(dev):
-        err = lib.raster_pass1_worklist(
+    _launch("pass1_worklist", "raster_pass1_worklist", dev,
             coef.data_ptr(), block_bbox.data_ptr(), scratch.data_ptr(),
             scratch_bytes, iz.data_ptr(), winner.data_ptr(), coef.shape[1],
-            n_blocks, face_block, H, W, PIX_TILE,
-            torch.cuda.current_stream(dev).cuda_stream)
-    kbuild.check(lib, "raster_pass1_worklist", err)
-    pass1_worklist.launches += 1
+            n_blocks, face_block, H, W, PIX_TILE)
     return iz, winner
 
 
-pass1_worklist.launches = 0
-
-
-for _name in ("render_setup", "pass1_winners", "pass2_shade", "gather_rows",
-              "pass1_worklist"):
-    # read through the module, where a caller may have swapped the wrapper
-    profiling.register(f"launches.{_name}", lambda n=_name: getattr(
-        globals()[n], "launches", 0))
+profiling.count("launches.pass1_worklist", 0)

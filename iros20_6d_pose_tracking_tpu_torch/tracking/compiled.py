@@ -45,12 +45,14 @@ replays it on every later frame:
     address its graph reads is freed or reused, so a program whose key
     matches again reads the weights it was captured with. A failed capture
     or replay raises; nothing falls back to the eager step on the card.
-  - **Launch counts.** The kernel wrappers count launches on the host, and
-    a replay runs no Python: the capture's own counts are taken back, and
-    every replay adds the launches it recorded, so a replayed frame counts
-    what an eager frame counts. The step's counters in :data:`COUNTERS`
-    (the refiner's rounds and attention tokens, the weight casts and held
-    copies) are taken back and added a replay alike.
+  - **Counters.** The step counts on the host (``utils/profiling.count``:
+    the kernel wrappers' launches, the refiner's rounds and attention
+    tokens, the weight casts and held copies, whatever its body counts),
+    and a replay runs no Python. The capture reads every counter before
+    and after its body; what moved is what the body counted. The capture
+    ran nothing, so that goes back, and every replay adds it once: a
+    replayed frame counts what an eager frame counts, with no list of
+    names to keep.
   - **Rounds.** The model's ``refine_iterations`` rounds of a frame (two
     for FoundationPose's refiner, each rendering at the last round's pose)
     are all in the one graph: a frame is one replay.
@@ -85,20 +87,12 @@ from collections import OrderedDict
 import torch
 
 from ..models import tracknet
-from ..render import raster_kernels as rk
 from ..utils import profiling
 from . import tracker as trk
 
 WARMUP_CALLS = 3
 VIDEO_SLOTS = 32
 CACHE_SIZE = 16
-# The kernel wrappers whose ``launches`` a replay advances.
-COUNTED = ("render_setup", "pass1_winners", "pass2_shade", "gather_rows",
-           "pass1_worklist")
-# The counters (``utils/profiling.count``) the step adds that a replay
-# advances.
-COUNTERS = ("refine.rounds", "refine.attn_tokens", "weights.bf16_casts",
-            "weights.bf16_held")
 
 _module_lists = weakref.WeakKeyDictionary()
 _live = weakref.WeakSet()  # every StepProgram not yet collected
@@ -144,16 +138,6 @@ def step_key(model, cfg, mesh, K, mean, std, pose, frame_rgb,
             int(slots))
 
 
-def _launch_counts():
-    return {n: getattr(getattr(rk, n, None), "launches", None)
-            for n in COUNTED}
-
-
-def _step_counts():
-    c = profiling.counters()
-    return {n: c.get(n, 0) for n in COUNTERS}
-
-
 class StepProgram:
     """``track_step`` for one key (:func:`step_key`), captured as a CUDA
     graph after :data:`WARMUP_CALLS` eager calls and replayed after that;
@@ -189,7 +173,6 @@ class StepProgram:
         self.capture_ms = None
         self.eager_calls = 0
         self.replays = 0
-        self.replay_launches = {}  # kernel wrapper -> launches a replay
         self.replay_counts = {}    # counter -> what a replay adds
         self._side = None         # the warm-up's and the capture's stream
         self._weights = []        # the held weight copies the graph reads
@@ -213,8 +196,7 @@ class StepProgram:
         self.idx.add_(1).remainder_(self.slots)
 
     def _capture(self, model, cfg, mesh):
-        before = _launch_counts()
-        counted = _step_counts()
+        before = profiling.counters()
         cur = torch.cuda.current_stream(self.device)
         graph = torch.cuda.CUDAGraph()
         t0 = time.perf_counter()
@@ -227,21 +209,16 @@ class StepProgram:
                 finally:
                     graph.capture_end()
         finally:
-            # the capture launched nothing: its counts go back
-            after = _launch_counts()
-            for n, c in before.items():
-                if c is not None:
-                    getattr(rk, n).launches = c
-            added = {n: c - counted[n] for n, c in _step_counts().items()}
+            # the capture ran nothing: what its body counted goes back
+            added = {n: c - before.get(n, 0)
+                     for n, c in profiling.counters().items()
+                     if c != before.get(n, 0)}
             for n, c in added.items():
-                if c:
-                    profiling.count(n, -c)
+                profiling.count(n, -c)
         cur.wait_stream(self._side)
         self.capture_ms = (time.perf_counter() - t0) * 1e3
         profiling.count("compiled.captures")
-        self.replay_launches = {n: after[n] - c for n, c in before.items()
-                                if c is not None and after[n] != c}
-        self.replay_counts = {n: c for n, c in added.items() if c}
+        self.replay_counts = added
         self._weights = tracknet.held_weights(model)
         self.graph = graph
 
@@ -272,8 +249,6 @@ class StepProgram:
                             self._capture(model, cfg, mesh)
                         self.graph.replay()
                     self.replays += 1
-                    for n, c in self.replay_launches.items():
-                        getattr(rk, n).launches += c
                     for n, c in self.replay_counts.items():
                         profiling.count(n, c)
         self._slot = (self._slot + 1) % self.slots

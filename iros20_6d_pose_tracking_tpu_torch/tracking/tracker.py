@@ -62,7 +62,6 @@ import torch
 
 from ..models import tracknet
 from ..models.convert import state_dict_from_jax
-from ..models.tracknet import normalize_pair, pack_channels  # noqa: F401
 from ..ops import roi as roi_ops
 from ..render import mesh as mesh_mod
 from ..render import rasterizer as rz

@@ -37,7 +37,6 @@ from ..core import se3
 from ..data import augment as aug
 from ..data.dataset import SyntheticPairs
 from ..models import tracknet
-from ..tracking.tracker import normalize_pair
 from ..utils import profiling
 from . import checkpoint as ckpt
 
@@ -113,8 +112,9 @@ def preprocess_batch(gen, raw: dict, mean, std, cfg: TrainConfig,
                                          cfg.aug, rgbB.device)
         rgbB, depthB, _ = aug.apply_augment(aug_draws, rgbB, depthB,
                                             r["maskB"], cfg.aug)
-    bufA, bufB = normalize_pair(r["rgbA"], r["depthA"], rgbB, depthB,
-                                r["A_in_cam"][:, None, None], mean, std)
+    bufA, bufB = tracknet.normalize_pair(r["rgbA"], r["depthA"], rgbB,
+                                         depthB, r["A_in_cam"][:, None, None],
+                                         mean, std)
     t_label, r_label = se3.encode_delta(r["A_in_cam"], r["B_in_cam"],
                                         cfg.trans_normalizer,
                                         cfg.rot_normalizer)

@@ -32,9 +32,8 @@ sees inside one program, the port's host runs Python between launches):
   - :func:`count` and :func:`counters`: one registry of integer counters,
     always on. :func:`count` also adds to the innermost recording span of
     its thread, under the counter's last dotted part. Counts kept
-    elsewhere (the kernel wrappers' ``launches``, the compiled programs'
-    calls) are read into :func:`counters` by the functions given to
-    :func:`register`.
+    elsewhere (the compiled programs' calls) are read into
+    :func:`counters` by the functions given to :func:`register`.
 """
 from __future__ import annotations
 

@@ -447,3 +447,38 @@ def test_replays_read_held_bf16_weights(scene, card_standin, kind):
     assert counts == [(1, per_frame - 1)] + [(0, per_frame)] * 5
     assert torch.equal(kept, old)
     assert not torch.equal(kept, w.to(torch.bfloat16))
+
+
+def test_replays_advance_counters_the_program_never_names(scene,
+                                                          card_standin):
+    """A counter the compiled step does not name, counted inside the
+    model's forward, advances on every replayed frame by what it advances
+    on an eager frame: the capture takes back what its body counted and
+    each replay adds it, and nothing else (the program's own ``compiled.*``
+    counters stay out)."""
+    name = "tests.forward_calls"
+    net = tracknet.create_model(RES)
+    net.load_state_dict(scene["net"].state_dict())
+    net.eval().register_forward_hook(
+        lambda *a: profiling.count(name, 3))
+    t = _tracker(scene, net)
+    rgbs = trk.upload_rgb(scene["rgbs"], CPU)
+    depths = trk.upload_depth(scene["depths"], CPU)
+    cache = compiled.ProgramCache()
+
+    def counted(fn):
+        before = profiling.counters().get(name, 0)
+        out = fn()
+        return out, profiling.counters()[name] - before
+
+    pose, frames = torch.as_tensor(scene["init"]), compiled.WARMUP_CALLS + 4
+    for i in range(frames):
+        got, n_program = counted(lambda: cache.step(
+            *_parts(t), pose, rgbs[i], depths[i]))
+        pose, n_eager = counted(lambda: trk.track_step(
+            *_parts(t), pose, rgbs[i], depths[i])[0])
+        assert torch.equal(got, pose)
+        assert n_program == n_eager == 3, i
+    (prog,) = cache.programs()
+    assert prog.replays == frames - compiled.WARMUP_CALLS
+    assert prog.replay_counts == {name: 3}

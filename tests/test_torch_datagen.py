@@ -29,8 +29,8 @@ from iros20_6d_pose_tracking_tpu_torch.core import se3
 from iros20_6d_pose_tracking_tpu_torch.data.dataset import PairDataset
 from iros20_6d_pose_tracking_tpu_torch.datagen import pair_producer as pp
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
-from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as rz
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 from bpy_stub import make_fake_bpy
 
@@ -97,7 +97,7 @@ def test_render_dr_scene_matches_jax(sphere, jax_pallas, monkeypatch):
         rgb_j, dep_j, seg_j = jpp.render_dr_scene(
             jmesh, K, jnp.asarray(pose), key, width=W, height=H,
             extra_layers=[(jmesh, jnp.asarray(occ))])
-    n3 = rk.pass1_worklist.launches
+    n3 = profiling.counters()["launches.pass1_worklist"]
     calls = []
     render = rz.render
 
@@ -110,7 +110,7 @@ def test_render_dr_scene_matches_jax(sphere, jax_pallas, monkeypatch):
                                        W, H, extra_layers=[(mesh, occ)])
     monkeypatch.setattr(pp.rz, "render", render)
     assert calls == [True, True]  # one full-frame K3 render a layer
-    assert rk.pass1_worklist.launches == n3  # CPU: the plain version
+    assert profiling.counters()["launches.pass1_worklist"] == n3  # CPU
     rgb, dep, seg = rgb.numpy(), dep.numpy(), seg.numpy()
     rgb_j, dep_j, seg_j = map(np.asarray, (rgb_j, dep_j, seg_j))
     assert seg.dtype == np.uint8 and rgb.shape == (H, W, 3)

@@ -25,6 +25,7 @@ from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
 from iros20_6d_pose_tracking_tpu_torch.tracking import hypotheses as hy
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -140,18 +141,19 @@ def test_culled_view_batch_equals_single_renders(scene, res):
     hw = (res, res)
     rgb_b, depth_b = TRz.render(t.mesh, poses, t.K, window, out_hw=hw,
                                 cull_backfaces=True)
-    fx, fy, fiz, fvalid, R, tt = TRz._project(t.mesh, poses, t.K, window, hw,
-                                              TRz.NEAR_M)
-    attr = TRz._face_attr_coefficients(fx, fy, fiz, fvalid, t.mesh)
-    coef, bbox, fb, attr_c = TRz.culled_pass1_inputs(t.mesh, fx, fy, fiz,
-                                                     fvalid, R, tt, attr)
+    fx, fy, fiz, fvalid, R, tt = rk.project_faces(t.mesh, poses, t.K, window,
+                                                  hw, TRz.NEAR_M)
+    attr = rk.face_attr_forms(fx, fy, fiz, fvalid, t.mesh)
+    coef, bbox, fb, attr_c = rk.culled_pass1_inputs(t.mesh, fx, fy, fiz,
+                                                    fvalid, R, tt, attr)
     iz_b, win_b = rk.pass1_winners(coef, bbox, hw, fb)
     for n in range(5):
         rgb1, depth1 = TRz.render(t.mesh, poses[n], t.K, window[n],
                                   out_hw=hw, cull_backfaces=True)
-        f1 = TRz._project(t.mesh, poses[n], t.K, window[n], hw, TRz.NEAR_M)
-        a1 = TRz._face_attr_coefficients(*f1[:4], t.mesh)
-        c1, b1, _, a1 = TRz.culled_pass1_inputs(t.mesh, *f1, a1)
+        f1 = rk.project_faces(t.mesh, poses[n], t.K, window[n], hw,
+                              TRz.NEAR_M)
+        a1 = rk.face_attr_forms(*f1[:4], t.mesh)
+        c1, b1, _, a1 = rk.culled_pass1_inputs(t.mesh, *f1, a1)
         iz1, win1 = rk.pass1_winners(c1, b1, hw, fb)
         assert torch.equal(coef[n], c1) and torch.equal(bbox[n], b1)
         assert torch.equal(attr_c[n], a1)
@@ -186,6 +188,11 @@ def test_depth_agreement_matches_jax(scene):
     assert ref[0] > 0.85  # occluded pixels leave the denominator
 
 
+def _launches():
+    c = profiling.counters()
+    return c["launches.pass1_winners"], c["launches.pass2_shade"]
+
+
 @pytest.mark.parametrize("samples,k", [(4, 3), (6, 7)])
 def test_track_step_multi_matches_jax(scene, samples, k):
     """JAX's own perturbations injected: the port's winner, its score and
@@ -198,12 +205,12 @@ def test_track_step_multi_matches_jax(scene, samples, k):
     key = jax.random.PRNGKey(k)
     perturb = np.asarray(jse3.random_gaussian_magnitude(
         key, 0.01, 5.0, (samples - 1,)))
-    counts = (rk.pass1_winners.launches, rk.pass2_shade.launches)
+    counts = _launches()
     pose, score, aux = hy.track_step_multi(
         t.model, t.cfg, t.mesh, t.K, t.mean, t.std, torch.as_tensor(s["init"]),
         trk.upload_rgb(s["rgb"], "cpu"), trk.upload_depth(s["depth"], "cpu"),
         samples=samples, perturb=torch.from_numpy(perturb.copy()))
-    assert (rk.pass1_winners.launches, rk.pass2_shade.launches) == counts
+    assert _launches() == counts
     jm, jcfg, v = s["jmodel"], s["jcfg"], s["variables"]
     args = (jnp.asarray(K), jnp.asarray(s["mean"]), jnp.asarray(s["std"]))
     hypo = np.concatenate([s["init"][None], s["init"][None] @ perturb])

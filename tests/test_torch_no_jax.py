@@ -186,14 +186,50 @@ def test_port_imports_and_runs_without_jax():
                       "train.compare", "tracking.compiled"}, walked
 
 
-def _imported_modules(path):
+def _imported_modules(path, package=None):
+    """The modules ``path`` imports, at its top or inside a function: each
+    ``from`` import gives its module and, as a name it imports may be a
+    module, each module.name. Relative imports are resolved against the
+    file's ``package``, and skipped without one."""
     mods = set()
     for node in ast.walk(ast.parse(open(path).read())):
         if isinstance(node, ast.Import):
             mods.update(a.name for a in node.names)
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            mods.add(node.module)
+        elif isinstance(node, ast.ImportFrom):
+            if node.level == 0:
+                base = node.module
+            elif package is None:
+                continue
+            else:
+                parts = package.split(".")
+                base = ".".join(parts[:len(parts) - node.level + 1]
+                                + ([node.module] if node.module else []))
+            mods.add(base)
+            mods.update(f"{base}.{a.name}" for a in node.names)
     return mods
+
+
+def test_kernel_layer_imports_nothing_above_it():
+    """``render/raster_kernels.py`` and ``kernels/`` import nothing of the
+    rasterizer, the tracking step, the models or the scale-out layer,
+    absolute or relative, at the top or inside a function."""
+    port = "iros20_6d_pose_tracking_tpu_torch"
+    above = [f"{port}.{m}" for m in ("render.rasterizer", "tracking",
+                                      "models", "parallel")]
+    root = os.path.join(REPO, port)
+    files = {os.path.join(root, "render", "raster_kernels.py"):
+             f"{port}.render"}
+    kernels = os.path.join(root, "kernels")
+    files.update({os.path.join(kernels, f): f"{port}.kernels"
+                  for f in os.listdir(kernels) if f.endswith(".py")})
+    bad = {}
+    for path, package in files.items():
+        hits = sorted(m for m in _imported_modules(path, package)
+                      if any(m == a or m.startswith(a + ".") for a in above))
+        if hits:
+            bad[os.path.relpath(path, REPO)] = hits
+    assert len(files) >= 3, files
+    assert not bad, bad
 
 
 _JAX_SIDE = ("jax", "jaxlib", "flax", "iros20_6d_pose_tracking_tpu")

@@ -46,15 +46,17 @@ def _pass2_inputs(name, views, cull=False, seed=0):
     if views == 1:
         pose = pose[0]
     window = torch.tensor(WIN).expand(pose.shape[:-2] + (4,))
-    fx, fy, fiz, fvalid, R, t = TRz._project(mesh, pose, torch.from_numpy(K),
-                                             window, HW, TRz.NEAR_M)
-    attr = TRz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    fx, fy, fiz, fvalid, R, t = rk.project_faces(
+        mesh, pose, torch.from_numpy(K), window, HW, TRz.NEAR_M)
+    attr = rk.face_attr_forms(fx, fy, fiz, fvalid, mesh)
     if cull:
-        coef, bbox, fb, attr = TRz.culled_pass1_inputs(mesh, fx, fy, fiz,
-                                                       fvalid, R, t, attr)
-        iz, winner = rk.pass1_winners(coef, bbox, HW, fb)
+        coef, bbox, fb, attr = rk.culled_pass1_inputs(mesh, fx, fy, fiz,
+                                                      fvalid, R, t, attr)
     else:
-        _, iz, winner = TRz.pass1(fx, fy, fiz, fvalid, HW)
+        coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+        fb = rk.pick_face_block(fx.shape[-2])
+        bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
+    iz, winner = rk.pass1_winners(coef, bbox, HW, fb)
     return mesh, attr, iz, winner, R, t
 
 

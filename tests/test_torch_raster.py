@@ -17,6 +17,7 @@ from iros20_6d_pose_tracking_tpu.render import pallas_raster as pr
 from iros20_6d_pose_tracking_tpu.render import rasterizer as Rz
 from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -56,7 +57,7 @@ def projected():
 
 def test_project_matches_jax(projected):
     mesh = TRz.upload(MESHES["icosphere"](), "cpu")
-    out = TRz._project(mesh, _t(POSE), _t(K), WIN, HW, 0.1)
+    out = rk.project_faces(mesh, _t(POSE), _t(K), WIN, HW, 0.1)
     for ours, ref in zip(out[:4], projected):
         np.testing.assert_array_equal(ours.numpy(), ref)
 
@@ -145,11 +146,16 @@ def test_gather_rows_plain_equals_pallas():
     assert not rows[~covered].any()
 
 
+def _launches():
+    c = profiling.counters()
+    return c["launches.pass1_winners"], c["launches.gather_rows"]
+
+
 def test_wrappers_on_cpu_run_plain_version(projected):
     fx, fy, fiz, fvalid = map(_t, projected)
     coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
     bbox = rk.build_block_bboxes(fx, fy, fvalid, 1024)
-    n1, n2 = rk.pass1_winners.launches, rk.gather_rows.launches
+    n1, n2 = _launches()
     iz, win = rk.pass1_winners(coef, bbox, HW, 1024)
     iz_r, win_r = rk.pass1_winners_ref(coef, bbox, HW, 1024)
     assert torch.equal(win, win_r) and torch.equal(iz, iz_r)
@@ -157,7 +163,7 @@ def test_wrappers_on_cpu_run_plain_version(projected):
     cov = iz.reshape(-1) > 0
     rows = rk.gather_rows(attr, win.reshape(-1), cov)
     assert torch.equal(rows, rk.gather_rows_ref(attr, win.reshape(-1), cov))
-    assert (rk.pass1_winners.launches, rk.gather_rows.launches) == (n1, n2)
+    assert _launches() == (n1, n2)
 
 
 def test_wrappers_refuse_non_cpu_mixes():
@@ -181,14 +187,14 @@ def test_backface_mask_and_compact_front_match_jax():
     R, t = POSE[:3, :3], POSE[:3, 3]
     mask_j = np.asarray(Rz._backface_mask(jm, jnp.asarray(R),
                                           jnp.asarray(t)))
-    mask = TRz._backface_mask(tmh, _t(R), _t(t)).numpy()
+    mask = rk.backface_mask(tmh, _t(R), _t(t)).numpy()
     assert (mask != mask_j).sum() <= 2  # sign of near-zero dot products
     rng = np.random.RandomState(1)
     keep = rng.rand(300) > 0.4
     a, b = rng.randn(300, 12).astype(np.float32), rng.randn(300, 4)
     ref = Rz._compact_front(jnp.asarray(keep), jnp.asarray(a),
                             jnp.asarray(b.astype(np.float32)))
-    ours = TRz._compact_front(_t(keep), _t(a), _t(b))
+    ours = rk._compact_front(_t(keep), _t(a), _t(b))
     for o, r in zip(ours, ref):
         np.testing.assert_array_equal(o.numpy(), np.asarray(r))
         assert o.is_contiguous()
@@ -209,7 +215,7 @@ def _render_pair(name, cull, jit):
         with jax.disable_jit():
             rgb_j, d_j = jax_render()
     rgb, d = TRz.render(tmh, _t(POSE), _t(K), WIN, out_hw=HW,
-                        cull_backfaces=cull, fuse_pass2=True)
+                        cull_backfaces=cull)
     return np.asarray(rgb_j), np.asarray(d_j), rgb.numpy(), d.numpy()
 
 
@@ -263,9 +269,12 @@ def test_winners_match_jax(jit):
     else:
         with jax.disable_jit():
             _, iz_j, win_j = jax_winners(jnp.asarray(POSE), jnp.asarray(K))
-    fx, fy, fiz, fvalid, _, _ = TRz._project(tmh, _t(POSE), _t(K), WIN, HW,
-                                             0.1)
-    _, iz, win = TRz.pass1(fx, fy, fiz, fvalid, HW)
+    fx, fy, fiz, fvalid, _, _ = rk.project_faces(tmh, _t(POSE), _t(K), WIN,
+                                                 HW, 0.1)
+    coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
+    fb = rk.pick_face_block(fx.shape[-2])
+    iz, win = rk.pass1_winners(coef, rk.build_block_bboxes(fx, fy, fvalid, fb),
+                               HW, fb)
     assert (np.asarray(iz_j) > 0).sum() > 1000
     differ = win.numpy() != np.asarray(win_j)
     if jit:
@@ -296,7 +305,7 @@ def test_textured_box_render_matches_jax():
                                out_hw=(96, 96), impl="pallas_interpret",
                                cull_backfaces=True, fuse_pass2=True)
     rgb, d = TRz.render(tmh, _t(pose), _t(K), WIN, out_hw=(96, 96),
-                        cull_backfaces=True, fuse_pass2=True)
+                        cull_backfaces=True)
     rgb_j = np.asarray(rgb_j)
     assert (np.asarray(d_j) > 0).sum() > 500
     np.testing.assert_allclose(d.numpy(), np.asarray(d_j), atol=0.01)
@@ -307,8 +316,7 @@ def test_textured_box_render_matches_jax():
 def test_render_gathers_rows_through_k2(cull, monkeypatch):
     """Every render runs pass 1 and pass 2 through the kernel wrappers once
     each: K1 and the fused gather-and-shade pass 2 (the standalone K2 row
-    gather is off the render path); ``fuse_pass2=False`` (plain row
-    indexing) is refused."""
+    gather is off the render path)."""
     tmh = TRz.upload(MESHES["icosphere"](), "cpu")
     calls = []
     for name in ("pass1_winners", "pass2_shade", "gather_rows"):
@@ -319,6 +327,3 @@ def test_render_gathers_rows_through_k2(cull, monkeypatch):
                         cull_backfaces=cull)
     assert calls == ["pass1_winners", "pass2_shade"]
     assert (d > 0).sum() > 500 and torch.isfinite(rgb).all()
-    with pytest.raises(ValueError, match="fuse_pass2"):
-        TRz.render(tmh, _t(POSE), _t(K), WIN, out_hw=HW,
-                   cull_backfaces=cull, fuse_pass2=False)

@@ -20,7 +20,6 @@ from iros20_6d_pose_tracking_tpu_torch.parallel import spmd
 from iros20_6d_pose_tracking_tpu_torch.render import mesh as M
 from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
-from iros20_6d_pose_tracking_tpu_torch.tracking import compiled
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
@@ -76,30 +75,30 @@ def _case(kind, views, cull, seed=0):
 
 def _composition(mesh, pose, window, hw, cull):
     """The front end as ``render`` composed it before ``render_setup``."""
-    fx, fy, fiz, fvalid, R, t = TRz._project(mesh, pose, K, window, hw,
-                                             TRz.NEAR_M)
-    attr = TRz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    fx, fy, fiz, fvalid, R, t = rk.project_faces(mesh, pose, K, window, hw,
+                                                 TRz.NEAR_M)
+    attr = rk.face_attr_forms(fx, fy, fiz, fvalid, mesh)
     if cull:
-        return TRz.culled_pass1_inputs(mesh, fx, fy, fiz, fvalid, R, t, attr)
+        return rk.culled_pass1_inputs(mesh, fx, fy, fiz, fvalid, R, t, attr)
     coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-    fb = TRz.pick_face_block(fx.shape[-2])
+    fb = rk.pick_face_block(fx.shape[-2])
     return coef, rk.build_block_bboxes(fx, fy, fvalid, fb), fb, attr
 
 
 def _old_render(mesh, pose, K_, window, out_hw=(176, 176), near=TRz.NEAR_M,
                 far=TRz.FAR_M, cull_backfaces=False, lighting=None,
-                fuse_pass2=True, worklist=False):
+                worklist=False):
     """``render`` before ``render_setup``: the composition, then pass 1 and
-    pass 2 on ``_project``'s R and t."""
-    fx, fy, fiz, fvalid, R, t = TRz._project(mesh, pose, K_, window, out_hw,
-                                             near)
-    attr = TRz._face_attr_coefficients(fx, fy, fiz, fvalid, mesh)
+    pass 2 on ``project_faces``'s R and t."""
+    fx, fy, fiz, fvalid, R, t = rk.project_faces(mesh, pose, K_, window,
+                                                 out_hw, near)
+    attr = rk.face_attr_forms(fx, fy, fiz, fvalid, mesh)
     if cull_backfaces:
-        coef, bbox, fb, attr = TRz.culled_pass1_inputs(mesh, fx, fy, fiz,
-                                                       fvalid, R, t, attr)
+        coef, bbox, fb, attr = rk.culled_pass1_inputs(mesh, fx, fy, fiz,
+                                                      fvalid, R, t, attr)
     else:
         coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
-        fb = TRz.pick_face_block(fx.shape[-2])
+        fb = rk.pick_face_block(fx.shape[-2])
         bbox = rk.build_block_bboxes(fx, fy, fvalid, fb)
     pass1 = rk.pass1_worklist if worklist else rk.pass1_winners
     iz, winner = pass1(coef, bbox, out_hw, fb)
@@ -136,8 +135,8 @@ def test_render_setup_equals_composition(kind, views, cull):
     assert got[0].shape == lead + (12, F)
     assert got[3].shape == lead + (F, 36 if kind == "textured" else 30)
     if kind == "near":  # some faces cross the near plane, some do not
-        _, _, _, fvalid, _, _ = TRz._project(mesh, pose, K, window, hw,
-                                             TRz.NEAR_M)
+        _, _, _, fvalid, _, _ = rk.project_faces(mesh, pose, K, window, hw,
+                                                 TRz.NEAR_M)
         assert 0 < int((fvalid & mesh.fmask).sum()) < int(
             mesh.fmask.sum()) * fvalid.numel() // fvalid.shape[-1]
 
@@ -245,20 +244,18 @@ def test_window_argument():
 
 
 def test_launch_counter_one_per_render(monkeypatch):
-    """``launches.render_setup`` reads the wrapper's count, and every render
-    path calls the wrapper once a render: one pose, B poses,
+    """``launches.render_setup`` counts the wrapper's launches, and every
+    render path calls the wrapper once a render: one pose, B poses,
     ``render_at_bbox``, a full frame through K3, ``track_step``, the
-    sampler's ``render_pairs``; a compiled replay advances the count too."""
+    sampler's ``render_pairs``."""
     calls = []
 
     def counting(*a, **kw):
-        counting.launches += 1
+        profiling.count("launches.render_setup")
         calls.append(a[1].shape)
         return rk.render_setup_ref(*a, **kw)
 
-    counting.launches = 0
     monkeypatch.setattr(rk, "render_setup", counting)
-    assert "render_setup" in compiled.COUNTED
     mesh, pose, window, hw, _ = _case("icosphere", 3, True)
 
     def read():

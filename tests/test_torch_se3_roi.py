@@ -10,6 +10,7 @@ from iros20_6d_pose_tracking_tpu.ops import depthproc as jdepth
 from iros20_6d_pose_tracking_tpu.ops import roi as jroi
 from iros20_6d_pose_tracking_tpu.tracking import tracker as jtrk
 from iros20_6d_pose_tracking_tpu_torch.core import se3
+from iros20_6d_pose_tracking_tpu_torch.models import tracknet
 from iros20_6d_pose_tracking_tpu_torch.ops import depthproc, roi
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
 
@@ -122,8 +123,8 @@ def test_offset_depth_and_normalize_pair_match_jax():
         depthproc.offset_depth(_t(depthA), _t(pose)).numpy(),
         np.asarray(jdepth.offset_depth(jnp.asarray(depthA),
                                        jnp.asarray(pose))), atol=1e-6)
-    ours = trk.normalize_pair(_t(rgbA), _t(depthA), _t(rgbB), _t(depthB),
-                              _t(pose), _t(mean), _t(std))
+    ours = tracknet.normalize_pair(_t(rgbA), _t(depthA), _t(rgbB),
+                                   _t(depthB), _t(pose), _t(mean), _t(std))
     ref = jtrk.normalize_pair(*map(jnp.asarray, (rgbA, depthA, rgbB, depthB,
                                                  pose, mean, std)))
     for o, r in zip(ours, ref):

@@ -31,6 +31,7 @@ from iros20_6d_pose_tracking_tpu_torch.models.convert import (
 from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -99,14 +100,19 @@ def _assert_frames_close(rgb, dep, rgb_j, dep_j):
     assert (np.abs(rgb - rgb_j).max(-1) > 2.0).mean() < 1e-3
 
 
+def _launches(*wrappers):
+    c = profiling.counters()
+    return tuple(c[f"launches.{w}"] for w in wrappers)
+
+
 def test_clean_video_matches_jax(scene):
     s = scene
     with jax.disable_jit():
         rgb_j, dep_j = JSB.render_test_video(s["jmesh"], s["gt"][:3], K=K,
                                              hw=HW, impl="pallas_interpret")
-    n3, n1 = rk.pass1_worklist.launches, rk.pass1_winners.launches
+    n3, n1 = _launches("pass1_worklist", "pass1_winners")
     rgb, dep = SB.render_test_video(s["tmesh"], s["gt"][:3], K=K, hw=HW)
-    assert (rk.pass1_worklist.launches, rk.pass1_winners.launches) == (n3, n1)
+    assert _launches("pass1_worklist", "pass1_winners") == (n3, n1)
     dep_j = np.asarray(dep_j)
     assert (dep_j > 0).sum() > 3 * 500 and (dep_j == 0).mean() > 0.5
     _assert_frames_close(rgb.numpy(), dep.numpy(), np.asarray(rgb_j), dep_j)
@@ -222,9 +228,9 @@ def test_evaluate_tracking_follows_jax(scene):
     rgb_q, dep_q = JSB._quantize(jnp.asarray(s["rgb_j"]),
                                  jnp.asarray(s["dep_j"]))
     ref = JSB.evaluate_tracking(jobj, s["gt"], rgb_q, dep_q, K=K)
-    n1 = rk.pass1_winners.launches
+    n1 = _launches("pass1_winners")
     ours = SB.evaluate_tracking(obj, s["gt"], rgb_q, dep_q, K=K)
-    assert rk.pass1_winners.launches == n1  # CPU: plain versions
+    assert _launches("pass1_winners") == n1  # CPU: plain versions
     poses, ref_poses = ours["poses"], np.asarray(ref["poses"])
     assert poses.shape == (T_FRAMES, 4, 4) and np.isfinite(poses).all()
     assert np.abs(poses[1:, :3, 3] - s["gt"][:1, :3, 3]).max() > 1e-3

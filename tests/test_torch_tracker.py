@@ -14,9 +14,9 @@ from iros20_6d_pose_tracking_tpu.tracking import tracker as jtrk
 from iros20_6d_pose_tracking_tpu_torch.models import tracknet
 from iros20_6d_pose_tracking_tpu_torch.models.convert import (
     state_dict_from_jax)
-from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
 from iros20_6d_pose_tracking_tpu_torch.tracking import tracker as trk
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -84,6 +84,12 @@ def scene():
         depth=np.asarray(depth_f).astype(np.uint16))
 
 
+def _launches():
+    c = profiling.counters()
+    return (c["launches.pass1_winners"], c["launches.pass2_shade"],
+            c["launches.gather_rows"])
+
+
 def test_track_step_matches_jax(scene):
     s = scene
     ref, _ = jtrk.track_step(
@@ -111,11 +117,9 @@ def test_track_video_follows_jax_trajectory(scene):
         jnp.asarray(s["mean"]), jnp.asarray(s["std"]),
         jnp.asarray(s["init"]), jnp.asarray(frames_rgb),
         jnp.asarray(frames_depth)))
-    counts = (rk.pass1_winners.launches, rk.pass2_shade.launches,
-              rk.gather_rows.launches)
+    counts = _launches()
     poses = s["tracker"].track_video(s["init"], frames_rgb, frames_depth)
-    assert (rk.pass1_winners.launches, rk.pass2_shade.launches,
-            rk.gather_rows.launches) == counts
+    assert _launches() == counts
     assert poses.shape == (T_FRAMES, 4, 4) and np.isfinite(poses).all()
     assert np.linalg.norm(poses[-1, :3, 3] - s["init"][:3, 3]) > 1e-3
     for i in range(T_FRAMES):

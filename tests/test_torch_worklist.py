@@ -15,6 +15,7 @@ from iros20_6d_pose_tracking_tpu.render import pallas_raster as pr
 from iros20_6d_pose_tracking_tpu.render import rasterizer as Rz
 from iros20_6d_pose_tracking_tpu_torch.render import raster_kernels as rk
 from iros20_6d_pose_tracking_tpu_torch.render import rasterizer as TRz
+from iros20_6d_pose_tracking_tpu_torch.utils import profiling
 
 torch.set_num_threads(2)
 
@@ -180,11 +181,11 @@ def test_wrapper_on_cpu_runs_plain_version(projected):
     fx, fy, fiz, fvalid = map(_t, projected)
     coef, _ = rk.build_face_coefficients(fx, fy, fiz, fvalid)
     bbox = rk.build_block_bboxes(fx, fy, fvalid, 1024)
-    n = rk.pass1_worklist.launches
+    n = profiling.counters()["launches.pass1_worklist"]
     iz, win = rk.pass1_worklist(coef, bbox, HW, 1024)
     iz_r, win_r = rk.pass1_worklist_ref(coef, bbox, HW, 1024)
     assert torch.equal(win, win_r) and torch.equal(iz, iz_r)
-    assert rk.pass1_worklist.launches == n
+    assert profiling.counters()["launches.pass1_worklist"] == n
 
 
 def test_wrapper_refuses_non_cpu_mixes():
