@@ -6003,7 +6003,9 @@ def run_refiner(card):
             after["compiled.captures"] - before["compiled.captures"] == 1
         held = {"weights.bf16_held": 100} if dtype == torch.bfloat16 \
             else {}
-        assert prog.replay_counts == {"refine.rounds": 2,
+        # 15 convolutions a round read held copies in their input's layout
+        assert prog.replay_counts == {"weights.layout_held": 30,
+                                      "refine.rounds": 2,
                                       "refine.attn_tokens": 1600,
                                       "launches.render_setup": 2,
                                       "launches.pass1_winners": 2,

@@ -38,12 +38,14 @@ not be confirmed offline.
 
 ``forward(A, B)`` takes NHWC ``(N, H, W, 6)`` like Se3TrackNet and returns
 ``{"trans" (N, 3), "rot" (N, 3)}`` float32 (``rot`` before its tanh);
-inside, the convolutions run NCHW. ``dtype`` is the activations' type.
-bf16 follows ``tracknet.py``'s rules: parameters and BatchNorm statistics
-stay float32; convolutions, linear layers and the attention's in-projection
-run on bf16 copies of the weights, held with autograd off (made once for
-each version of a parameter, ``tracknet.weight_as``) and cast on every call
-with it on; BatchNorm and LayerNorm compute in float32 and round once (the
+inside, the convolutions see NCHW views of channels-last activations and
+read their weights in that layout, held with autograd off like the bf16
+copies (``tracknet.conv_format``, ``weight_as``). ``dtype`` is the
+activations' type. bf16 follows ``tracknet.py``'s rules: parameters and
+BatchNorm statistics stay float32; convolutions, linear layers and the
+attention's in-projection run on bf16 copies of the weights, held with
+autograd off (made once for each version of a parameter and layout,
+``tracknet.weight_as``) and cast on every call with it on; BatchNorm and LayerNorm compute in float32 and round once (the
 LayerNorm's residual sum and the position embedding's sum are formed in
 float32 too); attention runs ``F.scaled_dot_product_attention`` on bf16
 q, k and v; the token means are float32. The published inference runs

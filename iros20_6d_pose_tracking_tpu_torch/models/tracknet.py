@@ -22,7 +22,8 @@ initialisers, so a freshly initialised network is the JAX trainer's.
 
 The public ``forward(A, B)`` takes NHWC ``(N, H, W, 4)`` like the JAX model
 and returns ``{"feature" (N, H/8, W/8, 256) NHWC, "trans" (N, 3),
-"rot" (N, 3)}``; inside, the convolutions run NCHW.
+"rot" (N, 3)}``; inside, the convolutions see NCHW views of channels-last
+(NHWC in memory) activations, as ``permute`` makes of the input.
 
 Every forward pins float32 convolutions and matmuls (TF32 off, the JAX
 reference's HIGHEST precision; ``core/se3.pin_full_fp32``), whichever entry
@@ -32,11 +33,16 @@ point calls it.
 bfloat16 with the parameters and BatchNorm's running statistics kept
 float32 (the JAX package's TPU precision). In bfloat16 the convolutions and
 the heads' Linear run on bfloat16 copies of the weights, the bias added in
-the same call (one rounding; Flax adds it as a second bfloat16 op). With
-autograd off (the tracking step, evaluation) each copy is made once for each
-version of its parameter and held (:func:`weight_as`): a replayed tracking
-step casts nothing. With autograd on (bf16 training) they are cast on every
-call, so gradients reach the float32 parameters through the cast. BatchNorm
+the same call (one rounding; Flax adds it as a second bfloat16 op). A
+convolution's weight is used in its input's memory format, channels-last for
+those activations (:func:`conv_format`), the format cuDNN would otherwise
+re-lay an NCHW weight into on every call. With autograd off (the tracking
+step, evaluation) each bf16 copy, and each float32 weight's channels-last
+copy, is made once for each version of its parameter and held
+(:func:`weight_as`): a replayed tracking step casts and re-lays out no
+weight. With autograd on (training) weights are cast on every call, so
+gradients reach the float32 parameters through the cast, and left NCHW for
+the convolution to re-lay out. BatchNorm
 computes in float32 and rounds to bfloat16 once, as Flax's ``_normalize``
 does; SELU, ReLU, max-pool and the spatial mean run in
 bfloat16; ``trans`` and ``rot`` come out float32, ``feature`` bfloat16.
@@ -119,41 +125,82 @@ class BatchNorm2d(nn.BatchNorm2d):
         return y.to(x.dtype)
 
 
-# parameter -> (its storage, weakly; (data_ptr, version, dtype); the copy)
+# parameter -> (its storage, weakly; (data_ptr, version, dtype, memory
+# format); the copy)
 _held = WeakIdKeyDictionary()
-profiling.count("weights.bf16_casts", 0)  # listed before the first forward
-profiling.count("weights.bf16_held", 0)
+for _name in ("weights.bf16_casts", "weights.bf16_held", "weights.relayouts",
+              "weights.layout_held"):
+    profiling.count(_name, 0)  # listed before the first forward
 
 
-def weight_as(p: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """``p.to(dtype)``: ``p`` itself where it is of ``dtype``. A copy is
-    held across calls where autograd is off and ``p`` is an
-    ``nn.Parameter`` that is not an inference tensor; it is made again
-    once ``p``'s storage, data pointer or version counter (an in-place
-    update: ``load_state_dict``, ``copy_``, an optimizer step) or ``dtype``
-    changes. The copies are held here, weakly keyed on the parameter, so
-    they are in no ``state_dict``, and neither a ``copy.deepcopy`` nor a
-    pickle of the model carries one. Elsewhere ``p`` is cast on every call:
-    a forward with autograd on (the cast carries the gradient), a tensor
-    swapped in by ``torch.func.functional_call`` or ``vmap``
-    (``parallel/spmd.py``), an inference tensor, whose version cannot be
-    read. A write that bypasses the version counter (through ``p.data``)
-    is not seen. The counters ``weights.bf16_casts`` and
-    ``weights.bf16_held`` count the casts made and the held copies used."""
-    if p.dtype == dtype:
+def _laid_out(t: torch.Tensor, memory_format: torch.memory_format) -> bool:
+    """Whether ``t`` is contiguous in ``memory_format``; channels-last is
+    read as an NHWC view's contiguity, which ``vmap`` allows."""
+    if memory_format == torch.channels_last:
+        return t.permute(0, 2, 3, 1).is_contiguous()
+    return t.is_contiguous()
+
+
+def conv_format(x: torch.Tensor) -> torch.memory_format:
+    """The memory format PyTorch's cuDNN convolution runs ``x`` in, and
+    lays its weight out in (``cudnn_conv_suggest_memory_format``):
+    channels-last where ``x`` is a 4-D channels-last tensor that is not
+    also NCHW-contiguous (the networks' NHWC inputs seen NCHW, and every
+    activation after them), unless float64, which cuDNN runs NCHW; else
+    contiguous."""
+    if x.dim() == 4 and x.dtype != torch.float64 and not x.is_contiguous() \
+            and _laid_out(x, torch.channels_last):
+        return torch.channels_last
+    return torch.contiguous_format
+
+
+def weight_as(p: torch.Tensor, dtype: torch.dtype,
+              memory_format: torch.memory_format = torch.contiguous_format
+              ) -> torch.Tensor:
+    """``p`` in ``dtype`` laid out in ``memory_format`` (a convolution's
+    weight in its input's format, :func:`conv_format`): ``p`` itself where
+    it already is. A copy is held across calls where autograd is off and
+    ``p`` is an ``nn.Parameter`` that is not an inference tensor; it is
+    made again once ``p``'s storage, data pointer or version counter (an
+    in-place update: ``load_state_dict``, ``copy_``, an optimizer step),
+    ``dtype`` or ``memory_format`` changes. The copies are held here,
+    weakly keyed on the parameter, so they are in no ``state_dict``, and
+    neither a ``copy.deepcopy`` nor a pickle of the model carries one.
+    Elsewhere ``p`` is cast on every call and keeps its NCHW layout, which
+    the convolution then re-lays out itself: a forward with autograd on
+    (the cast carries the gradient), a tensor swapped in by
+    ``torch.func.functional_call`` or ``vmap`` (``parallel/spmd.py``), an
+    inference tensor, whose version cannot be read. A write that bypasses
+    the version counter (through ``p.data``) is not seen. Counters:
+    ``weights.bf16_casts`` and ``weights.bf16_held`` count the casts made
+    and the held cast copies used; ``weights.relayouts`` the weights laid
+    out anew in ``memory_format`` on this call (by the copy made here, or
+    by the convolution), ``weights.layout_held`` the held copies used in a
+    format ``p`` is not in."""
+    laid_out = _laid_out(p, memory_format)
+    cast = p.dtype != dtype
+    if not cast and laid_out:
         return p
     if torch.is_grad_enabled() or not isinstance(p, nn.Parameter) \
             or p.is_inference():
-        profiling.count("weights.bf16_casts")
+        if cast:
+            profiling.count("weights.bf16_casts")
+        if not laid_out:
+            profiling.count("weights.relayouts")
         return p.to(dtype)
     storage = p.untyped_storage()
-    key = (p.data_ptr(), p._version, dtype)
+    key = (p.data_ptr(), p._version, dtype, memory_format)
     held = _held.get(p)
-    if held is None or held[0]() is not storage or held[1] != key:
-        held = _held[p] = (weakref.ref(storage), key, p.to(dtype))
-        profiling.count("weights.bf16_casts")
-    else:
-        profiling.count("weights.bf16_held")
+    fresh = held is None or held[0]() is not storage or held[1] != key
+    if fresh:
+        held = _held[p] = (weakref.ref(storage), key,
+                           p.to(dtype, memory_format=memory_format))
+    if cast:
+        profiling.count("weights.bf16_casts" if fresh else
+                        "weights.bf16_held")
+    if not laid_out:
+        profiling.count("weights.relayouts" if fresh else
+                        "weights.layout_held")
     return held[2]
 
 
@@ -174,12 +221,14 @@ def held_weights(model: nn.Module) -> list:
 
 
 class Conv2d(nn.Conv2d):
-    """``nn.Conv2d`` in the input's type: float32 parameters, used as
-    bfloat16 copies on a bfloat16 input (:func:`weight_as`)."""
+    """``nn.Conv2d`` in the input's type and layout: float32 parameters,
+    used as bfloat16 copies on a bfloat16 input, the weight laid out as the
+    input is (:func:`conv_format`, :func:`weight_as`)."""
 
     def forward(self, x):
-        return self._conv_forward(x, weight_as(self.weight, x.dtype),
-                                  weight_as(self.bias, x.dtype))
+        return self._conv_forward(
+            x, weight_as(self.weight, x.dtype, conv_format(x)),
+            weight_as(self.bias, x.dtype))
 
 
 class Linear(nn.Linear):

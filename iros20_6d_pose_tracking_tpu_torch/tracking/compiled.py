@@ -37,17 +37,20 @@ replays it on every later frame:
   - **Warm-up, then capture.** The first :data:`WARMUP_CALLS` calls of a
     program run the same body eagerly on a side stream (they are real
     frames: their poses are kept), so every kernel is loaded, cuDNN has
-    chosen its algorithms and a bf16 model's bfloat16 weight copies are
-    made and held (``models/tracknet.weight_as``) before the next call
+    chosen its algorithms and the weight copies the convolutions read (in
+    their inputs' channels-last layout, and in bfloat16 for a bf16 model)
+    are made and held (``models/tracknet.weight_as``) before the next call
     captures the body and replays it: the graph reads the held copies and
-    casts no weight. The program keeps those copies, and their parameters'
-    storages, for as long as it lives (``tracknet.held_weights``): no
-    address its graph reads is freed or reused, so a program whose key
-    matches again reads the weights it was captured with. A failed capture
-    or replay raises; nothing falls back to the eager step on the card.
+    casts or re-lays out no weight. The program keeps those copies, and
+    their parameters' storages, for as long as it lives
+    (``tracknet.held_weights``): no address its graph reads is freed or
+    reused, so a program whose key matches again reads the weights it was
+    captured with. A failed capture or replay raises; nothing falls back to
+    the eager step on the card.
   - **Counters.** The step counts on the host (``utils/profiling.count``:
     the kernel wrappers' launches, the refiner's rounds and attention
-    tokens, the weight casts and held copies, whatever its body counts),
+    tokens, the weight casts, re-layouts and held copies, whatever its body
+    counts),
     and a replay runs no Python. The capture reads every counter before
     and after its body; what moved is what the body counted. The capture
     ran nothing, so that goes back, and every replay adds it once: a

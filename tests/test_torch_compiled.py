@@ -8,7 +8,8 @@ cache makes one program per key, and a program refuses another key. The
 scene is tests/test_torch_tracker.py's (a 0.08 m cube, a 64^2 ROI, 192x256
 frames, small regression heads), the frames shifted a pixel a frame. With a
 stand-in for the card's graph, a bf16 model's replays read held weight
-copies and cast none."""
+copies and cast none, and every model's replays read its convolutions'
+weights held in their inputs' channels-last layout and re-lay out none."""
 import contextlib
 import dataclasses
 
@@ -481,4 +482,57 @@ def test_replays_advance_counters_the_program_never_names(scene,
         assert n_program == n_eager == 3, i
     (prog,) = cache.programs()
     assert prog.replays == frames - compiled.WARMUP_CALLS
-    assert prog.replay_counts == {name: 3}
+    # and the model's own: its 17 convolutions' held channels-last weights
+    assert prog.replay_counts == {name: 3, "weights.layout_held": 17}
+
+
+def _model(scene, kind, dtype):
+    """Se3TrackNet on the scene's weights or the small refiner, in
+    ``dtype``, and its convolutions a frame (17; 2 rounds of 15)."""
+    if dtype == torch.bfloat16:
+        net, _ = _bf16_model(scene, kind)
+    elif kind == "se3tracknet":
+        net = scene["net"]
+    else:
+        torch.manual_seed(11)
+        net = refinenet.RefineNet(torch.float32, base=8).eval()
+        with torch.no_grad():
+            for head in (net.trans_head[1], net.rot_head[1]):
+                head.weight.mul_(0.05)
+    return net, 17 if kind == "se3tracknet" else 30
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16],
+                         ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", ["se3tracknet", "refiner"])
+def test_replays_read_held_conv_layouts(scene, card_standin, kind, dtype):
+    """Every replayed frame advances ``weights.layout_held`` by the model's
+    convolutions a frame and ``weights.relayouts`` by 0: the warm-up laid
+    each weight out channels-last once, the capture read the held copies,
+    and the program keeps them. The poses are the eager step's, bit for
+    bit."""
+    net, per_frame = _model(scene, kind, dtype)
+    cfg = dataclasses.replace(scene["cfg"], dtype=dtype)
+    mesh = TRz.upload(scene["tm"], CPU)
+    parts = (net, cfg, mesh, torch.as_tensor(K),
+             torch.as_tensor(scene["mean"]), torch.as_tensor(scene["std"]))
+    rgbs = trk.upload_rgb(scene["rgbs"], CPU)
+    depths = trk.upload_depth(scene["depths"], CPU)
+    cache = compiled.ProgramCache()
+    pose = torch.as_tensor(scene["init"])
+    for i in range(compiled.WARMUP_CALLS + 3):
+        got = cache.step(*parts, pose, rgbs[i], depths[i])
+        pose = trk.track_step(*parts, pose, rgbs[i], depths[i])[0]
+        assert torch.equal(got, pose), i
+    (prog,) = cache.programs()
+    assert prog.replays == 3
+    assert prog.replay_counts["weights.layout_held"] == per_frame
+    assert "weights.relayouts" not in prog.replay_counts
+    convs = [m.weight for m in net.modules()
+             if isinstance(m, tracknet.Conv2d)]
+    kept = {s.data_ptr(): c for s, c in prog._weights}
+    assert len(convs) == per_frame // net.refine_iterations
+    for w in convs:
+        c = kept[w.untyped_storage().data_ptr()]
+        assert c.is_contiguous(memory_format=torch.channels_last)
+        assert c.dtype == dtype and torch.equal(c, w.detach().to(dtype))

@@ -89,7 +89,9 @@ def test_on_track_span_tree(scene):
             "compiled.load", "compiled.eager", "tracker.fetch"]
         tree = [s for s in rec if s["parent"] == i]
         assert all(s["request"] == first + k for s in tree + [rec[i]])
-        assert all(s["counts"] == {} for s in tree)  # no CUDA upload
+        # no CUDA upload; the step's 17 convolutions read held weights
+        assert all(s["counts"] == ({"layout_held": 17} if s["name"] ==
+                                   "compiled.eager" else {}) for s in tree)
         assert all(s["thread"] == rec[i]["thread"] for s in tree)
         for s in tree:
             assert rec[i]["start_ns"] <= s["start_ns"] <= s["end_ns"] \

@@ -1,6 +1,7 @@
-"""The bfloat16 weight copies a bf16 model holds across calls
-(``models/tracknet.weight_as``), on the CPU at small sizes: Se3TrackNet at a
-48^2 ROI, the refiner at base width 8.
+"""The weight copies a model holds across calls (``models/tracknet.weight_as``),
+on the CPU at small sizes: Se3TrackNet at a 48^2 ROI, the refiner at base
+width 8. A bf16 model holds bfloat16 copies, and every model holds each
+convolution's weight in its input's memory format.
 
 With autograd off a bf16 forward casts each float32 weight once for each
 version of the parameter and then reads the held copy, bit for bit the
@@ -8,10 +9,18 @@ per-call cast; ``load_state_dict``, an in-place ``copy_``, an optimizer step
 and ``.to()`` each make the next forward cast again and give a freshly built
 model's outputs. A forward with autograd on casts on every call and gives
 the gradients of a model that never held a copy; ``parallel/spmd``'s stacked
-``functional_call``/``vmap`` path, inference tensors and a float32 model
-hold nothing; ``copy.deepcopy``, ``as_float64`` and ``state_dict`` carry no
-copy. The counters ``weights.bf16_casts`` and ``weights.bf16_held`` count
-the casts and the held copies used."""
+``functional_call``/``vmap`` path and inference tensors hold nothing, and
+a float32 model holds no cast; ``copy.deepcopy``, ``as_float64`` and
+``state_dict`` carry no copy. The counters ``weights.bf16_casts`` and
+``weights.bf16_held`` count the casts and the held copies used.
+
+The networks' activations are channels-last, so with autograd off each
+convolution reads a held copy of its weight laid out channels-last, in
+float32 as in bf16, and an NCHW-contiguous input reads an NCHW weight; the
+outputs are the per-call path's bits, whose NCHW weight the convolution
+re-lays out itself. ``weights.relayouts`` counts the weights laid out anew
+on a call, ``weights.layout_held`` the held copies used in a layout their
+parameter is not in."""
 import copy
 
 import pytest
@@ -215,14 +224,23 @@ def test_stacked_ensemble_holds_nothing():
 
 
 def test_float32_model_holds_nothing():
-    """A float32 model's weights are used as they are: no cast, no copy,
-    neither counter moves, with autograd off or on."""
+    """A float32 model's weights are used in float32: no cast, neither
+    cast counter moves, with autograd off or on. The copies it holds are
+    its convolutions' weights laid out channels-last, float32 and bit for
+    bit the parameters; its Linear weights and every bias are the
+    parameters themselves."""
     net = _build("se3tracknet", torch.float32)
     A, B = _inputs("se3tracknet")
     for grad in (False, True, False):
         _, counts = _forward(net, A, B, grad=grad)
         assert counts == (0, 0)
-    assert _held_of(net) == []
+    convs = [m.weight for m in net.modules() if isinstance(m, tracknet.Conv2d)]
+    assert set(_held_of(net)) == set(convs)
+    for w in convs:
+        copy_ = tracknet._held[w][2]
+        assert copy_.dtype == torch.float32
+        assert copy_.is_contiguous(memory_format=torch.channels_last)
+        assert torch.equal(copy_, w)
 
 
 def test_inference_tensors_are_cast_per_call():
@@ -268,3 +286,184 @@ def test_copies_do_not_travel(how):
         out, counts = _forward(wide, A.double(), B.double())
         assert counts == (0, 0)
         assert out["trans"].dtype == torch.float64
+
+
+# -- convolution weights in their input's layout --
+
+DTYPES = [torch.float32, BF16]
+# convolutions of one forward
+CONVS = {"se3tracknet": 17, "refiner": 15}
+CL = torch.channels_last
+
+
+def _layout_counts():
+    c = profiling.counters()
+    return c["weights.relayouts"], c["weights.layout_held"]
+
+
+def _counted(fn):
+    """``fn()``, and the (relayouts, layout_held) counted over it."""
+    before = _layout_counts()
+    out = fn()
+    after = _layout_counts()
+    return out, (after[0] - before[0], after[1] - before[1])
+
+
+@pytest.fixture
+def conv_calls(monkeypatch):
+    """(input, weight) of every convolution called, as cuDNN is handed
+    them."""
+    calls = []
+    conv = tracknet.Conv2d._conv_forward
+
+    def recorded(self, x, weight, bias):
+        calls.append((x, weight))
+        return conv(self, x, weight, bias)
+
+    monkeypatch.setattr(tracknet.Conv2d, "_conv_forward", recorded)
+    return calls
+
+
+def _convs(net):
+    return [m.weight for m in net.modules() if isinstance(m, tracknet.Conv2d)]
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_convolutions_read_held_weights_in_their_input_layout(
+        kind, dtype, conv_calls):
+    """On the networks' channels-last activations, the first no-grad
+    forward lays every convolution's weight out channels-last once, and the
+    next reads the held copies: each convolution gets a weight in its
+    input's layout, of its input's type. A forward with autograd on hands
+    over the parameter's NCHW weight for the convolution to re-lay out;
+    all three give the same bits."""
+    net = _build(kind, dtype)
+    A, B = _inputs(kind)
+    n = CONVS[kind]
+    per_call, counts = _counted(lambda: _forward(net, A, B, grad=True)[0])
+    assert counts == (n, 0)
+    assert len(conv_calls) == n
+    for x, w in conv_calls:
+        assert tracknet.conv_format(x) == CL
+        assert w.is_contiguous() and not w.is_contiguous(memory_format=CL)
+    first, counts = _counted(lambda: _forward(net, A, B)[0])
+    assert counts == (n, 0)
+    del conv_calls[:]
+    second, counts = _counted(lambda: _forward(net, A, B)[0])
+    assert counts == (0, n)
+    assert len(conv_calls) == n
+    held = {id(tracknet._held[p][2]) for p in _convs(net)}
+    for x, w in conv_calls:
+        assert x.is_contiguous(memory_format=CL) and not x.is_contiguous()
+        assert w.is_contiguous(memory_format=CL) and w.dtype == dtype
+        assert id(w) in held
+    _equal(first, per_call)
+    _equal(second, per_call)
+
+
+def _trunk(kind, net):
+    """A stack of the network's convolutions (three in Se3TrackNet's
+    fusion trunk, nine in the refiner's ``encodeAB``) and its input
+    width."""
+    if kind == "se3tracknet":
+        return torch.nn.Sequential(net.convAB1, net.convAB2), 128
+    return net.encodeAB, 32
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_alternating_layouts_give_each_layouts_bits(kind, dtype, conv_calls):
+    """A model fed channels-last and NCHW-contiguous inputs in turn hands
+    each convolution a weight in that input's layout (an NCHW one never
+    gets a channels-last weight) and gives, each time, the bits of the
+    per-call path on that layout. A float32 model keeps its channels-last
+    copies across NCHW calls, which read the parameters; a bf16 model holds
+    one copy a parameter, made again in each new layout."""
+    net = _build(kind, dtype)
+    trunk, ch = _trunk(kind, net)
+    g = torch.Generator().manual_seed(7)
+    nchw = torch.rand(2, ch, 12, 12, generator=g).to(dtype)
+    x = {"channels_last": nchw.contiguous(memory_format=CL), "nchw": nchw}
+    with torch.enable_grad():
+        want = {k: trunk(v).detach() for k, v in x.items()}
+    n = sum(isinstance(m, tracknet.Conv2d) for m in trunk.modules())
+    laid_out = (n, 0)
+    for k in ["channels_last", "nchw"] * 2:
+        del conv_calls[:]
+        with torch.no_grad():
+            got, counts = _counted(lambda: trunk(x[k]))
+        assert torch.equal(got, want[k]), k
+        assert len(conv_calls) == n
+        fmt = CL if k == "channels_last" else torch.contiguous_format
+        for xi, w in conv_calls:
+            assert tracknet.conv_format(xi) == fmt
+            assert w.is_contiguous(memory_format=fmt) and w.dtype == dtype
+            if fmt != CL:
+                assert not w.is_contiguous(memory_format=CL)
+        assert counts == (laid_out if fmt == CL else (0, 0)), k
+        if fmt == CL and dtype == torch.float32:
+            laid_out = (0, n)
+
+
+def _copy_conv_(net, kind):
+    w = _convs(net)[-1]
+    with torch.no_grad():
+        w.copy_(w * 1.5)
+
+
+@pytest.mark.parametrize("change", [_load_state_dict, _copy_conv_,
+                                    _optimizer_step, _to],
+                         ids=["load_state_dict", "copy_", "optimizer_step",
+                              "to"])
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+@pytest.mark.parametrize("kind", KINDS)
+def test_changed_weights_are_laid_out_again(kind, dtype, change):
+    """After each way of changing the weights, the next no-grad forward
+    lays the changed convolution weights out again and gives a freshly
+    built model's outputs, bit for bit; every held copy is its parameter,
+    cast and laid out channels-last; the forward after reads held copies
+    only."""
+    net = _build(kind, dtype)
+    A, B = _inputs(kind)
+    n = CONVS[kind]
+    before, _ = _forward(net, A, B)
+    _forward(net, A, B)
+    change(net, kind)
+    changed = 1 if change is _copy_conv_ else n
+    (got, _), counts = _counted(lambda: _forward(net, A, B))
+    assert counts == (changed, n - changed)
+    want, _ = _forward(_fresh(net, kind), A, B)
+    _equal(got, want)
+    assert not all(torch.equal(got[k], before[k]) for k in ("trans", "rot"))
+    for p in _convs(net):
+        copy_ = tracknet._held[p][2]
+        assert copy_.is_contiguous(memory_format=CL)
+        assert torch.equal(copy_, p.detach().to(dtype))
+    (again, _), counts = _counted(lambda: _forward(net, A, B))
+    assert counts == (0, n)
+    _equal(again, want)
+
+
+@pytest.mark.parametrize("dtype", DTYPES, ids=["float32", "bfloat16"])
+def test_swapped_and_inference_weights_are_laid_out_per_call(dtype):
+    """Tensors swapped in by ``functional_call`` and inference-tensor
+    parameters are handed over NCHW on every call, for the convolution to
+    re-lay out: every forward counts a re-layout a convolution, none held,
+    and nothing is held."""
+    net = _build("se3tracknet", dtype)
+    A, B = _inputs("se3tracknet")
+    n = CONVS["se3tracknet"]
+    swapped = {k: v.detach().clone() for k, v in net.state_dict().items()}
+    for _ in range(2):
+        with torch.no_grad():
+            _, counts = _counted(lambda: functional_call(net, swapped,
+                                                         (A, B)))
+        assert counts == (n, 0)
+    assert _held_of(net) == []
+    with torch.inference_mode():
+        inf = _build("se3tracknet", dtype)
+        for _ in range(2):
+            _, counts = _counted(lambda: inf(A, B))
+            assert counts == (n, 0)
+    assert _held_of(inf) == []
